@@ -10,10 +10,14 @@ Phases, each of which must pass:
    build time;
 3. hold every kernel against its plain PyTorch version at the main-path
    shapes (LayerNorm ``[16384, 1024]`` bf16, softmax cross-entropy
-   ``[16384, 32768]`` bf16), and time the kernel, the plain version and
-   one PyTorch call computing the same function;
-4. check a small fp32 transformer on the card (kernels) against the same
-   weights on the CPU (plain versions): logits, loss and gradients;
+   ``[16384, 32768]`` bf16, flash attention forward, dq and dk/dv at q/k/v
+   ``[8, 2048, 8, 128]`` bf16 causal), and time the kernel, the plain
+   version and one PyTorch call computing the same function; then the
+   flash kernels at ragged shapes (T = 96 causal; T_q = 64 against T_kv =
+   128, not causal) in fp32 and bf16;
+4. check a small fp32 transformer on the card (kernels, flash attention
+   included) against the same weights on the CPU (plain versions):
+   logits, loss and gradients;
 5. train the full-width transformer-LM (d_model 1024, 8 heads of 128,
    d_ff 4096, vocab 32768, seq 2048, bf16, batch 8) with
    ``DistributedOptimizer(AdamW(lr=1e-4, weight_decay=1e-4))`` over NCCL
@@ -36,9 +40,12 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
 
 N_ROWS, D_MODEL, VOCAB = 8 * 2048, 1024, 32768
 LAYERS, STEPS = 8, 5   # full depth of the main path; a few steps
+# attention of the main path: batch, seq, heads, head dim
+ATTN_B, ATTN_T, ATTN_H, ATTN_D = 8, 2048, D_MODEL // 128, 128
 
 
 def nvidia_smi():
@@ -65,9 +72,9 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_per_s=FP32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -221,12 +228,175 @@ def check_kernels():
         # the backward of F.cross_entropy's own graph
         library_ms=time_ms(lambda: torch.autograd.grad(
             lib_loss, lg, retain_graph=True))))
+    del logits, dlogits, p_dlogits, lg, lib_loss
+    kernels += check_flash()
+    check_flash_ragged()
     for k in kernels:
         print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3e} "
               f"ms {k['ms']:.4f} plain_ms {k['plain_ms']:.4f} "
               f"library_ms {k['library_ms']:.4f} bound_ms "
               f"{k['bound_ms']:.4f} ({k['bound_by']})", flush=True)
     return kernels
+
+
+def attention_pairs(tq, tkv, causal):
+    """(query, key) pairs that the mask keeps: what the products cost."""
+    if not causal:
+        return tq * tkv
+    return sum(min(i + 1, tkv) for i in range(tq))
+
+
+def check_flash_close(name, got, want, rel):
+    """``got`` [B, T, H, D] against ``want`` row by row: each (b, t, h) row
+    of D entries within ``rel`` times that row's largest entry of the
+    plain version, never above ``rel`` times the tensor's largest.  The
+    rows' scales differ by orders (out and dq of query i fall as
+    1/sqrt(i), dk and dv of key j likewise), so one limit for the tensor
+    would pass a kernel that got the small rows wrong.  Each row may also
+    differ by 2^-18 of the tensor's largest entry: a query that sees one
+    key has dp = delta, so its dq is fp32 cancellation noise in both."""
+    w = want.float()
+    d = (got.float() - w).abs()
+    top = float(w.abs().max())
+    limit = (rel * w.abs().amax(-1) + 2 ** -18 * top).clamp(max=rel * top)
+    worst = float((d.amax(-1) / limit).max())
+    if not worst <= 1:
+        raise AssertionError(
+            f"{name}: kernel disagrees with its plain version (max abs err "
+            f"{float(d.max()):.3e}, {worst:.2f} times the limit of rel={rel} "
+            f"of each row's largest entry)")
+    print(f"{name}: max abs err {float(d.max()):.3e}, {worst:.3f} of the "
+          f"per-row limit", flush=True)
+    return float(d.max())
+
+
+def flash_inputs(dtype, b, tq, tkv, h, d, seed):
+    """q, k, v as the model hands them over (views of one qkv tensor)
+    when T_q == T_kv; dO contiguous."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, device=dev, generator=gen).to(dtype)
+    if tq == tkv:
+        q, k, v = mk(b, tq, 3, h, d).unbind(dim=2)
+    else:
+        q, k, v = mk(b, tq, h, d), mk(b, tkv, h, d), mk(b, tkv, h, d)
+    return q, k, v, mk(b, tq, h, d)
+
+
+def run_flash(q, k, v, do, causal, scale, rel, tag):
+    """The three flash kernels against their plain versions; returns the
+    largest error of each and what the timing needs."""
+    from horovod_tpu_torch.ops.cuda import flash_attention as fa
+
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, causal, scale)
+    # lse: only the order of the fp32 sums differs
+    lse_err = max_err(lse, p_lse)
+    if not lse_err <= 1e-4:
+        raise AssertionError(f"flash_attention_fwd lse {tag}: max abs err "
+                             f"{lse_err:.3e} > 1e-4")
+    errs = {"fwd": max(check_flash_close(f"flash_attention_fwd out {tag}",
+                                         out, p_out, rel), lse_err)}
+    del p_out, p_lse
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    errs["dq"] = check_flash_close(
+        f"flash_attention_bwd_dq {tag}", dq, fa.flash_attention_bwd_dq_plain(
+            q, k, v, do, lse, delta, causal, scale), rel)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                        scale)
+    p_dk, p_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                  causal, scale)
+    errs["dkv"] = max(
+        check_flash_close(f"flash_attention_bwd_dkv dk {tag}", dk, p_dk, rel),
+        check_flash_close(f"flash_attention_bwd_dkv dv {tag}", dv, p_dv, rel))
+    return errs, lse, delta
+
+
+def check_flash():
+    """Phase 3, flash attention at the main path's shape: q/k/v
+    ``[8, 2048, 8, 128]`` bf16, causal.  Tolerances: out, dq, dk, dv within
+    2e-2 of each row's largest entry of the plain version
+    (``check_flash_close``; P and dS are rounded to bf16 before their
+    products, at other points of the online softmax than in the plain
+    version, and outputs to bf16); lse 1e-4 absolute."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops.cuda import flash_attention as fa
+
+    b, t, h, d = ATTN_B, ATTN_T, ATTN_H, ATTN_D
+    scale = 1 / d ** 0.5
+    q, k, v, do = flash_inputs(torch.bfloat16, b, t, t, h, d, seed=1)
+    errs, lse, delta = run_flash(q, k, v, do, True, scale, 2e-2,
+                                 f"[{b}, {t}, {h}, {d}] bf16 causal")
+    # the library's yardstick, on its own [B, H, T, D] layout
+    q4, k4, v4 = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    do4 = do.transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    out4 = sdpa()
+
+    pairs = attention_pairs(t, t, True) * b * h
+    item = 2  # bf16
+    tensor = b * t * h * d * item
+    rows = b * h * t * 4  # one fp32 [B*H, T] vector
+    common = dict(route="cuda", source="horovod_tpu_torch/csrc/"
+                  "flash_attention.cu")
+    kernels = []
+    t_b, by = bound(4 * tensor + rows, 4 * pairs * d, BF16_TC_OPS_PER_S)
+    kernels.append(dict(
+        name="flash_attention_fwd", **common,
+        replaces="horovod_tpu/ops/pallas/flash_attention.py:130",
+        max_abs_err=errs["fwd"],
+        ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, True, scale)),
+        plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(
+            q, k, v, True, scale), iters=3, warmup=1),
+        bound_ms=t_b, bound_by=by, library_ms=time_ms(sdpa)))
+    t_b, by = bound(5 * tensor + 2 * rows, 6 * pairs * d, BF16_TC_OPS_PER_S)
+    kernels.append(dict(
+        name="flash_attention_bwd_dq", **common,
+        replaces="horovod_tpu/ops/pallas/flash_attention.py:228",
+        max_abs_err=errs["dq"],
+        ms=time_ms(lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, True, scale)),
+        plain_ms=time_ms(lambda: fa.flash_attention_bwd_dq_plain(
+            q, k, v, do, lse, delta, True, scale), iters=3, warmup=1),
+        bound_ms=t_b, bound_by=by,
+        # the backward of SDPA's graph for dq alone (its kernel computes
+        # dq, dk and dv together)
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            out4, (q4,), do4, retain_graph=True))))
+    t_b, by = bound(6 * tensor + 2 * rows, 8 * pairs * d, BF16_TC_OPS_PER_S)
+    kernels.append(dict(
+        name="flash_attention_bwd_dkv", **common,
+        replaces="horovod_tpu/ops/pallas/flash_attention.py:277",
+        max_abs_err=errs["dkv"],
+        ms=time_ms(lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, True, scale)),
+        plain_ms=time_ms(lambda: fa.flash_attention_bwd_dkv_plain(
+            q, k, v, do, lse, delta, True, scale), iters=3, warmup=1),
+        bound_ms=t_b, bound_by=by,
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            out4, (k4, v4), do4, retain_graph=True))))
+    return kernels
+
+
+def check_flash_ragged():
+    """Phase 3, flash attention at ragged shapes: T = 96 causal (a part
+    tile), and T_q = 64 against T_kv = 128, not causal.  fp32 within 1e-5
+    of each row's largest entry of the plain version (full fp32 products,
+    sums in another order); bf16 within 2e-2 as at the main shape."""
+    import torch
+
+    for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        for tq, tkv, causal in ((96, 96, True), (64, 128, False)):
+            q, k, v, do = flash_inputs(dtype, 2, tq, tkv, 4, 64, seed=tq)
+            tag = f"T_q {tq} T_kv {tkv} causal {causal} {dtype}"
+            errs, _, _ = run_flash(q, k, v, do, causal, 0.125, rel, tag)
+            print(f"flash ragged {tag}: max abs err {errs}", flush=True)
 
 
 def check_small_model():
@@ -325,7 +495,10 @@ def train(layers, steps, smi, profile=False):
         raise AssertionError(f"loss did not fall: {losses}")
     per_step = {"layer_norm_fwd": 2 * layers + 1,
                 "layer_norm_bwd": 2 * layers + 1,
-                "softmax_xent_fwd": 1, "softmax_xent_bwd": 1}
+                "softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
+                "flash_attention_fwd": layers,
+                "flash_attention_bwd_dq": layers,
+                "flash_attention_bwd_dkv": layers}
     for name, want in per_step.items():
         if counts[name] != want * steps:
             raise AssertionError(

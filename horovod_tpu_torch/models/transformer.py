@@ -8,9 +8,10 @@ parameter tree across name for name.  Parameters are fp32; activations
 and products run in ``cfg.dtype`` (bf16 by default), LayerNorm
 statistics and the loss in fp32.
 
-LayerNorm and the loss go through the port's fused kernels
-(``ops/cuda/layer_norm.py``, ``ops/cuda/softmax_xent.py``), which take
-their plain versions for CPU tensors.
+LayerNorm, attention and the loss go through the port's kernels
+(``ops/cuda/layer_norm.py``, ``ops/cuda/flash_attention.py``,
+``ops/cuda/softmax_xent.py``), which take their plain versions for CPU
+tensors.
 """
 
 import dataclasses
@@ -21,9 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from horovod_tpu_torch.ops.cuda.flash_attention import flash_attention
 from horovod_tpu_torch.ops.cuda.layer_norm import layer_norm
 from horovod_tpu_torch.ops.cuda.softmax_xent import softmax_xent
-from horovod_tpu_torch.parallel.ring_attention import reference_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,9 +46,9 @@ class TransformerConfig:
 
 
 def default_attention():
-    """The dense attention of ``parallel/ring_attention.py``.  The flash
-    kernel takes its place on the card in the next slice."""
-    return reference_attention
+    """Flash attention (``ops/cuda/flash_attention.py``): the hand-written
+    kernels for CUDA tensors, their plain versions for CPU tensors."""
+    return flash_attention
 
 
 def _normal(shape, std, generator):

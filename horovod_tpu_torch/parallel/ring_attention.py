@@ -4,8 +4,9 @@
 Written out in explicit torch ops, in fp32: the score product, a
 top-left causal mask ``q_pos >= k_pos`` filled with ``-1e30``, the
 softmax and the second product.  Layout ``[B, T, H, D]`` as in the JAX
-package.  Ring, zigzag and Ulysses attention, and the flash kernel that
-replaces this on the card, are later slices.
+package.  The model's attention is the flash kernel
+(``ops/cuda/flash_attention.py``); this dense version stays as an oracle.
+Ring, zigzag and Ulysses attention are later slices.
 """
 
 import math

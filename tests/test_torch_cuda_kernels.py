@@ -1,19 +1,22 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card, at shapes the main path does not reach: odd row counts, widths that
 are no multiple of a 16-byte vector (the kernels' scalar path), fp32 and
-fp16, d = 8192, logits at scale 200.  This file imports no JAX, so it also
-runs on a machine without it:
+fp16, d = 8192, logits at scale 200; flash attention at head dims 16, 32,
+128, ragged and cross-attention lengths.  This file imports no JAX, so it
+also runs on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py
 
 Without a card every test skips.  Tolerances: fp32 outputs 1e-5 (sums
 taken in another order), half-precision outputs one rounding (1e-2);
-dlogits entry by entry at their own scale (``_close_dlogits``)."""
+dlogits entry by entry at their own scale (``_close_dlogits``); flash
+attention as stated at ``test_flash_kernels_match_plain``."""
 
 import numpy as np
 import pytest
 import torch
 
+from horovod_tpu_torch.ops.cuda import flash_attention as fa
 from horovod_tpu_torch.ops.cuda import layer_norm as ln
 from horovod_tpu_torch.ops.cuda import softmax_xent as sx
 
@@ -130,9 +133,10 @@ def test_autograd_functions_launch_the_kernels(dev):
     loss = sx.softmax_xent(y, torch.zeros(2, 3, dtype=torch.long,
                                           device=dev)).mean()
     loss.backward()
-    assert kernels.launch_counts() == dict.fromkeys(
+    counts = kernels.launch_counts()
+    assert counts == dict(dict.fromkeys(counts, 0), **dict.fromkeys(
         ["layer_norm_fwd", "layer_norm_bwd", "softmax_xent_fwd",
-         "softmax_xent_bwd"], 1)
+         "softmax_xent_bwd"], 1))
 
     xc = x.cpu().requires_grad_(True)
     gc = torch.ones(64, requires_grad=True)
@@ -156,3 +160,169 @@ def test_wrappers_check_their_inputs(dev):
                           torch.zeros(8, device=dev))
     with pytest.raises(ValueError):
         sx.softmax_xent_fwd(x, torch.zeros(4, dtype=torch.long, device=dev))
+
+
+def _qkvdo(dev, dtype, b, tq, tkv, h, d, seed=0):
+    """q, k, v as strided views of one [B, T, 3, H, D] tensor (as the
+    model's qkv.unbind hands them over) when T_q == T_kv; dO contiguous."""
+    rng = np.random.RandomState(seed)
+    mk = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).to(
+        dev, dtype)
+    if tq == tkv:
+        q, k, v = mk(b, tq, 3, h, d).unbind(dim=2)
+    else:
+        q, k, v = mk(b, tq, h, d), mk(b, tkv, h, d), mk(b, tkv, h, d)
+    return q, k, v, mk(b, tq, h, d)
+
+
+def _close_rows(got, want, tol, what):
+    """Each (b, t, h) row of D entries within ``tol`` times that row's
+    largest entry of the plain version, never above ``tol`` times the
+    tensor's largest: out and dq of query i fall as 1/sqrt(i), dk and dv
+    of key j likewise, so one limit for the tensor would leave the small
+    rows unchecked.  Plus 2^-18 of the tensor's largest entry: a query
+    that sees one key has dp = delta, so its dq is fp32 cancellation
+    noise in both."""
+    torch.cuda.synchronize()
+    w = want.float()
+    top = float(w.abs().max())
+    limit = (tol * w.abs().amax(-1) + 2 ** -18 * top).clamp(max=tol * top)
+    worst = float(((got.float() - w).abs().amax(-1) / limit).max())
+    assert worst <= 1, (what, worst)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,tq,tkv,h,d,causal", [
+    (2, 96, 96, 3, 16, True),      # ragged edge tile
+    (2, 128, 128, 2, 32, True),
+    (1, 2048, 2048, 2, 128, True),  # the main path's T and D
+    (2, 128, 128, 2, 128, False),
+    (2, 64, 128, 2, 32, False),    # cross-attention
+    (2, 64, 128, 2, 32, True),     # top-left causal, T_q < T_kv
+    (1, 130, 70, 2, 16, True),     # T_q > T_kv, both ragged
+])
+def test_flash_kernels_match_plain(dev, dtype, b, tq, tkv, h, d, causal):
+    """Tolerances: fp32 outputs within 1e-5 of each row's largest entry of
+    the plain version (sums taken in another order, full fp32 products);
+    bf16 within 2e-2 (P and dS are rounded to bf16 at other points of the
+    online softmax, outputs to bf16); see ``_close_rows``.  lse 1e-4
+    absolute in both (only the order of the fp32 sums differs)."""
+    q, k, v, do = _qkvdo(dev, dtype, b, tq, tkv, h, d, seed=tq + d)
+    scale = 1 / d ** 0.5
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, causal, scale)
+    assert out.is_contiguous() and out.shape == q.shape
+    _close_rows(out, p_out, tol, "out")
+    _close(lse, p_lse, 1e-4)
+
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    _close_rows(dq, fa.flash_attention_bwd_dq_plain(
+        q, k, v, do, lse, delta, causal, scale), tol, "dq")
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                        scale)
+    p_dk, p_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                  causal, scale)
+    _close_rows(dk, p_dk, tol, "dk")
+    _close_rows(dv, p_dv, tol, "dv")
+
+
+def test_flash_row_check_fails_a_dropped_tile(dev):
+    """``_close_rows`` at the main path's T and D fails kernels that skip
+    the last 64-row tile of keys (forward, dq) or of queries (dk/dv),
+    made by running the real kernels on inputs cut by that tile: with
+    top-left causal masking, T_kv = T - 64 drops exactly the last key
+    tile.  One limit for the tensor (2e-2 of its largest entry) lets the
+    forward's and dv's faults through at this shape, since the rows they
+    spoil are the smallest; the row check fails all four."""
+    t, cut, scale = 2048, 2048 - 64, 128 ** -0.5
+    q, k, v, do = _qkvdo(dev, torch.bfloat16, 1, t, t, 2, 128, seed=5)
+    out, lse = fa.flash_attention_fwd(q, k, v, True, scale)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    p_out, _ = fa.flash_attention_fwd_plain(q, k, v, True, scale)
+    p_dq = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, True,
+                                           scale)
+    p_dk, p_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                  True, scale)
+    kc, vc = k[:, :cut], v[:, :cut]
+    bad_out, _ = fa.flash_attention_fwd(q, kc, vc, True, scale)
+    bad_dq = fa.flash_attention_bwd_dq(q, kc, vc, do, lse, delta, True, scale)
+    bad_dk, bad_dv = fa.flash_attention_bwd_dkv(
+        q[:, :cut], k, v, do[:, :cut], lse[..., :cut].contiguous(),
+        delta[..., :cut].contiguous(), True, scale)
+    for got, want, what in ((bad_out, p_out, "out"), (bad_dq, p_dq, "dq"),
+                            (bad_dk, p_dk, "dk"), (bad_dv, p_dv, "dv")):
+        with pytest.raises(AssertionError):
+            _close_rows(got, want, 2e-2, what)
+
+
+def test_flash_backward_is_deterministic(dev):
+    q, k, v, do = _qkvdo(dev, torch.bfloat16, 2, 320, 320, 4, 64, seed=9)
+    out, lse = fa.flash_attention_fwd(q, k, v, True, 0.125)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    first = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True, 0.125),
+             *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True,
+                                         0.125))
+    for _ in range(3):
+        again = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True,
+                                           0.125),
+                 *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True,
+                                             0.125))
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("return_lse", [False, True])
+def test_flash_autograd_launches_each_kernel_once(dev, return_lse):
+    from horovod_tpu_torch.ops import cuda as kernels
+
+    q, k, v, do = _qkvdo(torch.device("cpu"), torch.float32, 2, 80, 80, 2,
+                         32, seed=4)
+    leaves = {}
+    for where in ("cpu", "cuda"):
+        qkv = [x.detach().to(where, copy=True).requires_grad_(True)
+               for x in (q, k, v)]
+        kernels.reset_launch_counts()
+        res = fa.flash_attention(*qkv, causal=True, return_lse=return_lse)
+        out, lse = res if return_lse else (res, None)
+        loss = (out * do.to(where)).sum()
+        if return_lse:
+            loss = loss + lse.sin().sum()
+        loss.backward()
+        counts = kernels.launch_counts()
+        want = 1 if where == "cuda" else 0
+        assert [counts[n] for n in ("flash_attention_fwd",
+                                    "flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkv")] == [want] * 3
+        leaves[where] = [out.detach()] + [x.grad for x in qkv]
+    for got, want in zip(leaves["cuda"], leaves["cpu"]):
+        _close(got.cpu(), want, 1e-5)
+
+
+def test_flash_wrappers_check_their_inputs(dev):
+    q = torch.zeros(1, 8, 2, 32, device=dev)
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(q.half(), q.half(), q.half(), True, 1.0)
+    for bad_d in (24, 144):     # not a multiple of 16; above the limit
+        x = torch.zeros(1, 8, 2, bad_d, device=dev)
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_attention_fwd(x, x, x, True, 1.0)
+    with pytest.raises(ValueError):      # k on another device
+        fa.flash_attention_fwd(q, q.cpu(), q, True, 1.0)
+    with pytest.raises(ValueError):      # v's shape differs from k's
+        fa.flash_attention_fwd(q, q, q[:, :4], True, 1.0)
+    with pytest.raises(ValueError, match="strides"):   # D not contiguous
+        x = torch.zeros(1, 8, 32, 2, device=dev).transpose(2, 3)
+        fa.flash_attention_fwd(x, x, x, True, 1.0)
+    lse = torch.zeros(1, 2, 8, device=dev)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd_dq(q, q, q, q, lse[:, :1], lse, True, 1.0)
+    with pytest.raises(ValueError):      # dout's shape differs from q's
+        fa.flash_attention_bwd_dkv(q, q, q, q[:, :4], lse, lse, True, 1.0)
+    # the public function copies what the kernels do not take
+    x = torch.randn(1, 8, 32, 2, device=dev).transpose(2, 3)
+    torch.testing.assert_close(
+        fa.flash_attention(x, x, x, causal=True),
+        fa.flash_attention(x.contiguous(), x.contiguous(), x.contiguous(),
+                           causal=True))

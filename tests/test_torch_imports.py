@@ -95,7 +95,8 @@ def test_build_key_covers_sources_and_flags():
     from horovod_tpu_torch.ops.cuda import _build
 
     names = [p.name for p in _build.sources()]
-    assert names == ["layer_norm.cu", "softmax_xent.cu"]
+    assert names == ["flash_attention.cu", "layer_norm.cu",
+                     "softmax_xent.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert len(_build._digest()) == 16
 

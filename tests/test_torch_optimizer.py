@@ -48,10 +48,12 @@ WORKER = textwrap.dedent("""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import (Transformer, TransformerConfig,
                                           lm_loss)
+    from horovod_tpu_torch.parallel.ring_attention import reference_attention
 
     data_path, store_path, out_path = sys.argv[1:4]
+    # dense attention, as the JAX model takes off the TPU
     cfg = dict(vocab_size=512, n_layers=2, d_model=64, n_heads=4, d_ff=128,
-               max_len=32)
+               max_len=32, attn_fn=reference_attention)
     data = np.load(data_path)
     hvd.init(device="cpu", store_path=store_path)
     try:
