@@ -12,9 +12,11 @@ Phases, each of which must pass:
    shapes (LayerNorm ``[16384, 1024]`` bf16, softmax cross-entropy
    ``[16384, 32768]`` bf16, flash attention forward, dq and dk/dv at q/k/v
    ``[8, 2048, 8, 128]`` bf16 causal), and time the kernel, the plain
-   version and one PyTorch call computing the same function; then the
-   flash kernels at ragged shapes (T = 96 causal; T_q = 64 against T_kv =
-   128, not causal) in fp32 and bf16;
+   version and one PyTorch call computing the same function (the flash
+   kernels in turns with that call, median of 5 batches of 20); then the
+   flash kernels at ragged shapes (T = 96, 129 causal; T_q = 64 against
+   T_kv = 128 and 128 against 320, not causal; 130 against 70, causal) in
+   fp32 and bf16;
 4. check a small fp32 transformer on the card (kernels, flash attention
    included) against the same weights on the CPU (plain versions):
    logits, loss and gradients;
@@ -70,6 +72,31 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_in_turns(kernel, library, batches=5, iters=20, warmup=3):
+    """Median ms per call of ``kernel`` and of ``library``, timed in turns
+    (kernel, library, kernel, library, ...), ``batches`` batches of
+    ``iters`` calls each: a slow stretch of the card falls on both."""
+    import torch
+
+    for fn in (kernel, library):
+        for _ in range(warmup):
+            fn()
+    times = ([], [])
+    for _ in range(batches):
+        for fn, out in zip((kernel, library), times):
+            out.append(time_ms(fn, iters=iters, warmup=0))
+    torch.cuda.synchronize()
+    return statistics.median(times[0]), statistics.median(times[1])
+
+
+def rates(entry, ops):
+    """Adds the achieved TFLOP/s and the share of the bound to a kernel's
+    entry of the ``kernels`` line."""
+    entry["tflops"] = ops / (entry["ms"] * 1e-3) / 1e12
+    entry["bound_share"] = entry["bound_ms"] / entry["ms"]
+    return entry
 
 
 def bound(nbytes, ops, ops_per_s=FP32_OPS_PER_S):
@@ -143,8 +170,9 @@ def check_kernels():
     assert_close("layer_norm_fwd mean", mean, p_mean, 1e-5, 1e-5)
     assert_close("layer_norm_fwd rstd", rstd, p_rstd, 1e-4, 1e-5)
     w16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
-    t_b, by = bound(n * d * 2 * 2 + 2 * d * 4 + 2 * n * 4, 8 * n * d)
-    kernels.append(dict(
+    ops = 8 * n * d
+    t_b, by = bound(n * d * 2 * 2 + 2 * d * 4 + 2 * n * 4, ops)
+    kernels.append(rates(dict(
         name="layer_norm_fwd", route="cuda",
         source="horovod_tpu_torch/csrc/layer_norm.cu",
         replaces="horovod_tpu/ops/pallas/layer_norm.py:36",
@@ -154,7 +182,8 @@ def check_kernels():
         plain_ms=time_ms(
             lambda: ln.layer_norm_fwd_plain(x, gamma, beta, eps)),
         bound_ms=t_b, bound_by=by,
-        library_ms=time_ms(lambda: F.layer_norm(x, (d,), w16, b16, eps))))
+        library_ms=time_ms(lambda: F.layer_norm(x, (d,), w16, b16, eps))),
+        ops))
 
     # LayerNorm backward.  dx bf16 as above; dgamma/dbeta are fp32 sums
     # over 16384 rows taken in another order.
@@ -165,8 +194,9 @@ def check_kernels():
     assert_close("layer_norm_bwd dgamma", dg, p_dg, 1e-3, 1e-3)
     assert_close("layer_norm_bwd dbeta", db, p_db, 1e-3, 1e-3)
     _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [d], w16, b16, eps)
-    t_b, by = bound(3 * n * d * 2 + 2 * n * 4 + 3 * d * 4, 12 * n * d)
-    kernels.append(dict(
+    ops = 12 * n * d
+    t_b, by = bound(3 * n * d * 2 + 2 * n * 4 + 3 * d * 4, ops)
+    kernels.append(rates(dict(
         name="layer_norm_bwd", route="cuda",
         source="horovod_tpu_torch/csrc/layer_norm.cu",
         replaces="horovod_tpu/ops/pallas/layer_norm.py:53",
@@ -177,7 +207,8 @@ def check_kernels():
             lambda: ln.layer_norm_bwd_plain(x, gamma, mean, rstd, dy)),
         bound_ms=t_b, bound_by=by,
         library_ms=time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
-            dy, x, [d], lmean, lrstd, w16, b16, [True, True, True]))))
+            dy, x, [d], lmean, lrstd, w16, b16, [True, True, True]))),
+        ops))
     del x, dy, out, p_out, dx, p_dx
 
     # softmax cross-entropy at the LM head's shape; dloss = 1/N as in the
@@ -194,8 +225,9 @@ def check_kernels():
     torch.cuda.synchronize()
     assert_close("softmax_xent_fwd loss", loss, p_loss, 1e-5, 1e-4)
     assert_close("softmax_xent_fwd lse", lse, p_lse, 1e-5, 1e-4)
-    t_b, by = bound(n * v * 2 + n * 4 * 3, 4 * n * v)
-    kernels.append(dict(
+    ops = 4 * n * v
+    t_b, by = bound(n * v * 2 + n * 4 * 3, ops)
+    kernels.append(rates(dict(
         name="softmax_xent_fwd", route="cuda",
         source="horovod_tpu_torch/csrc/softmax_xent.cu",
         replaces="horovod_tpu/ops/pallas/softmax_xent.py:37",
@@ -205,7 +237,8 @@ def check_kernels():
                          iters=5),
         bound_ms=t_b, bound_by=by,
         library_ms=time_ms(lambda: F.cross_entropy(
-            logits, labels64, reduction="none"))))
+            logits, labels64, reduction="none"))),
+        ops))
 
     dloss = torch.full((n,), 1.0 / n, device=dev)
     dlogits = sx.softmax_xent_bwd(logits, labels, lse, dloss)
@@ -214,8 +247,8 @@ def check_kernels():
     check_dlogits("softmax_xent_bwd", dlogits, p_dlogits, labels, dloss)
     lg = logits.detach().requires_grad_(True)
     lib_loss = F.cross_entropy(lg, labels64)
-    t_b, by = bound(2 * n * v * 2 + n * 4 * 3, 4 * n * v)
-    kernels.append(dict(
+    t_b, by = bound(2 * n * v * 2 + n * 4 * 3, ops)
+    kernels.append(rates(dict(
         name="softmax_xent_bwd", route="cuda",
         source="horovod_tpu_torch/csrc/softmax_xent.cu",
         replaces="horovod_tpu/ops/pallas/softmax_xent.py:64",
@@ -227,7 +260,8 @@ def check_kernels():
         bound_ms=t_b, bound_by=by,
         # the backward of F.cross_entropy's own graph
         library_ms=time_ms(lambda: torch.autograd.grad(
-            lib_loss, lg, retain_graph=True))))
+            lib_loss, lg, retain_graph=True))),
+        ops))
     del logits, dlogits, p_dlogits, lg, lib_loss
     kernels += check_flash()
     check_flash_ragged()
@@ -235,7 +269,9 @@ def check_kernels():
         print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3e} "
               f"ms {k['ms']:.4f} plain_ms {k['plain_ms']:.4f} "
               f"library_ms {k['library_ms']:.4f} bound_ms "
-              f"{k['bound_ms']:.4f} ({k['bound_by']})", flush=True)
+              f"{k['bound_ms']:.4f} ({k['bound_by']}) tflops "
+              f"{k['tflops']:.1f} bound_share {k['bound_share']:.3f}",
+              flush=True)
     return kernels
 
 
@@ -345,54 +381,53 @@ def check_flash():
     rows = b * h * t * 4  # one fp32 [B*H, T] vector
     common = dict(route="cuda", source="horovod_tpu_torch/csrc/"
                   "flash_attention.cu")
+    # kernel and SDPA yardstick in turns, median of 5 batches of 20 calls;
+    # dq and dk/dv against the backward of SDPA's graph for the same
+    # gradients (its one kernel computes dq, dk and dv together)
+    fwd = lambda: fa.flash_attention_fwd(q, k, v, True, scale)
+    dq = lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True,
+                                           scale)
+    dkv = lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True,
+                                             scale)
+    specs = [
+        ("flash_attention_fwd", 130, "fwd", fwd, sdpa,
+         fa.flash_attention_fwd_plain, (q, k, v, True, scale),
+         4 * tensor + rows, 4),
+        ("flash_attention_bwd_dq", 228, "dq", dq,
+         lambda: torch.autograd.grad(out4, (q4,), do4, retain_graph=True),
+         fa.flash_attention_bwd_dq_plain,
+         (q, k, v, do, lse, delta, True, scale), 5 * tensor + 2 * rows, 6),
+        ("flash_attention_bwd_dkv", 277, "dkv", dkv,
+         lambda: torch.autograd.grad(out4, (k4, v4), do4, retain_graph=True),
+         fa.flash_attention_bwd_dkv_plain,
+         (q, k, v, do, lse, delta, True, scale), 6 * tensor + 2 * rows, 8),
+    ]
     kernels = []
-    t_b, by = bound(4 * tensor + rows, 4 * pairs * d, BF16_TC_OPS_PER_S)
-    kernels.append(dict(
-        name="flash_attention_fwd", **common,
-        replaces="horovod_tpu/ops/pallas/flash_attention.py:130",
-        max_abs_err=errs["fwd"],
-        ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, True, scale)),
-        plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(
-            q, k, v, True, scale), iters=3, warmup=1),
-        bound_ms=t_b, bound_by=by, library_ms=time_ms(sdpa)))
-    t_b, by = bound(5 * tensor + 2 * rows, 6 * pairs * d, BF16_TC_OPS_PER_S)
-    kernels.append(dict(
-        name="flash_attention_bwd_dq", **common,
-        replaces="horovod_tpu/ops/pallas/flash_attention.py:228",
-        max_abs_err=errs["dq"],
-        ms=time_ms(lambda: fa.flash_attention_bwd_dq(
-            q, k, v, do, lse, delta, True, scale)),
-        plain_ms=time_ms(lambda: fa.flash_attention_bwd_dq_plain(
-            q, k, v, do, lse, delta, True, scale), iters=3, warmup=1),
-        bound_ms=t_b, bound_by=by,
-        # the backward of SDPA's graph for dq alone (its kernel computes
-        # dq, dk and dv together)
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            out4, (q4,), do4, retain_graph=True))))
-    t_b, by = bound(6 * tensor + 2 * rows, 8 * pairs * d, BF16_TC_OPS_PER_S)
-    kernels.append(dict(
-        name="flash_attention_bwd_dkv", **common,
-        replaces="horovod_tpu/ops/pallas/flash_attention.py:277",
-        max_abs_err=errs["dkv"],
-        ms=time_ms(lambda: fa.flash_attention_bwd_dkv(
-            q, k, v, do, lse, delta, True, scale)),
-        plain_ms=time_ms(lambda: fa.flash_attention_bwd_dkv_plain(
-            q, k, v, do, lse, delta, True, scale), iters=3, warmup=1),
-        bound_ms=t_b, bound_by=by,
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            out4, (k4, v4), do4, retain_graph=True))))
+    for name, line, err, kernel, library, plain, args, nbytes, per in specs:
+        ops = per * pairs * d
+        t_b, by = bound(nbytes, ops, BF16_TC_OPS_PER_S)
+        ms, library_ms = time_in_turns(kernel, library)
+        kernels.append(rates(dict(
+            name=name, **common,
+            replaces=f"horovod_tpu/ops/pallas/flash_attention.py:{line}",
+            max_abs_err=errs[err], ms=ms,
+            plain_ms=time_ms(lambda: plain(*args), iters=3, warmup=1),
+            bound_ms=t_b, bound_by=by, library_ms=library_ms), ops))
     return kernels
 
 
 def check_flash_ragged():
-    """Phase 3, flash attention at ragged shapes: T = 96 causal (a part
-    tile), and T_q = 64 against T_kv = 128, not causal.  fp32 within 1e-5
+    """Phase 3, flash attention at ragged shapes: T = 96 and 129 causal
+    (a part tile), T_q = 64 against T_kv = 128 and T_q = 128 against T_kv =
+    320, not causal, and T_q = 130 against T_kv = 70 causal.  fp32 within 1e-5
     of each row's largest entry of the plain version (full fp32 products,
     sums in another order); bf16 within 2e-2 as at the main shape."""
     import torch
 
     for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        for tq, tkv, causal in ((96, 96, True), (64, 128, False)):
+        for tq, tkv, causal in ((96, 96, True), (64, 128, False),
+                                (129, 129, True), (128, 320, False),
+                                (130, 70, True)):
             q, k, v, do = flash_inputs(dtype, 2, tq, tkv, 4, 64, seed=tq)
             tag = f"T_q {tq} T_kv {tkv} causal {causal} {dtype}"
             errs, _, _ = run_flash(q, k, v, do, causal, 0.125, rel, tag)

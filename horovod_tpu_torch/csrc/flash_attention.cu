@@ -13,38 +13,76 @@
 // the outputs once is about 0.04 ms at 3.35 TB/s, so the tensor cores, not
 // the memory, are the limit.
 //
-// Design against that bound:
-// - bf16 products run on the tensor cores: mma.sync m16n8k16 with bf16
-//   inputs and fp32 accumulation, operands brought from shared memory with
-//   ldmatrix.  P and dS are rounded to bf16 before their products, as
-//   FlashAttention-2 does; running max, row sums, lse, delta and every
-//   accumulator stay fp32.  fp32 inputs take a scalar-FMA product in full
-//   fp32 (no TF32) with the same accumulator layout, so the softmax code is
-//   shared.
-// - One block of 4 warps per (b*h, 64-row tile); each warp owns 16 rows of
-//   the tile.  Forward and dq: 64 query rows, looping over 64-key tiles of
-//   K/V staged in shared memory.  dk/dv: 64 key rows, looping over 64-query
-//   tiles of Q/dO.  No block writes another block's output, so the backward
-//   needs no atomics and is deterministic (the reference's dq / dk-dv
-//   split, not FlashAttention-2's atomic dq).
+// Two designs live here, chosen by dtype in the C entry points.
+//
+// bf16 forward and dk/dv (namespace sm90k): wgmma, TMA, one producer warp.
+// - Block of 384 threads: two consumer warpgroups and a producer
+//   warpgroup, of which one warp makes the copies.
+//   Forward: 128 query rows a block, 64 a warpgroup (wgmma m64), looping
+//   over 128-key K/V tiles.  dk/dv: 128 keys a block, 64 a warpgroup,
+//   looping over 64-query Q/dO tiles.  Q (forward) and K, V (dk/dv) load
+//   once and stay in shared memory.
+// - Copies: TMA through 4-D tensor maps (D, H, T, B) over the tensors' own
+//   strides (the qkv.unbind views need no copy), built in the C entry
+//   point and passed as __grid_constant__ parameters.  The box is 64
+//   columns (128 bytes) wide with 128-byte swizzle; D = 128 is two boxes
+//   side by side.  Rows past T and columns past D are zero-filled by the
+//   copy engine, so D <= 64 runs the 64-column instance and 64 < D <= 128
+//   the 128-column one.  The producer warp keeps 3 stages of K/V
+//   (forward) or of Q/dO/lse/delta (dk/dv) in flight, each handed over
+//   through a "full" mbarrier (TMA transaction bytes) and returned through
+//   an "empty" one (one arrival per consumer warp).  It also stages lse
+//   as log2(e) * lse, or +inf for rows past T_q or fully masked, so that
+//   p = exp2(s - lse) is 0 there without a test.
+// - Products on wgmma with fp32 accumulators in registers.  Forward: S =
+//   Q K^T (m64n128k16, A and B K-major in shared memory), then O += P V
+//   with P converted in place from S's accumulator to bf16 A-operand
+//   registers and V read MN-major (transposed).  dk/dv: S^T = K Q^T and
+//   dP^T = V dO^T (m64n64k16 from shared memory), then dV += P^T dO and
+//   dK += dS^T Q with P^T and dS^T from registers, dO and Q MN-major.  No
+//   P, P^T or dS^T goes through shared memory.  The forward overlaps
+//   within a warpgroup: S of tile k is started together with O += P V of
+//   tile k - 1, and the softmax of tile k runs while P V is on the tensor
+//   cores (so two K/V stages are in use and the third is being filled).
+// - Softmax in log2 units with exp2 (ex2.approx), log2(e) folded into the
+//   scale; the causal and ragged masks only on tiles that meet the
+//   diagonal or the ragged edge.  P and dS are rounded to bf16 before
+//   their products; max, sums, lse, delta and accumulators stay fp32.
+// - Registers: the block starts with 168 a thread (65536 / 384);
+//   setmaxnreg gives the producer warpgroup 24 and each consumer thread
+//   240, which holds dk/dv's two 64 x 128 fp32 accumulators (128
+//   registers) beside S^T and dP^T without spilling (-Xptxas -v: no
+//   spills in any instance; at 168 the dk/dv kernel spilled 336 bytes).
+//
+// fp32 (every kernel) and bf16 dq: mma.sync / scalar FMA.
+// - bf16 products on mma.sync m16n8k16 with operands brought from shared
+//   memory by ldmatrix; fp32 inputs take a scalar-FMA product in full fp32
+//   (no TF32) with the same accumulator layout, so the softmax code is
+//   shared.  One block of 4 warps per (b*h, 64-row tile), each warp 16
+//   rows; 64-row tiles of K/V (Q/dO) staged in shared memory by
+//   synchronous loads.
+//
+// Common to both:
+// - No block writes another block's output, so the backward needs no
+//   atomics and is deterministic (the reference's dq / dk-dv split, not
+//   FlashAttention-2's atomic dq).
 // - Causal skipping at tile granularity: the forward and dq stop at the
 //   last key tile that meets the diagonal (reference :172-178, :270-271),
 //   dk/dv starts at the first query tile that meets it (:325-329).  The
 //   mask is top-left, q_pos >= k_pos from index 0 (:146-159), also when
-//   T_q != T_kv.  Forward and dq blocks start with the longest rows.
-// - Any T: the ragged edge tile is zero-filled in the loads and masked in
-//   the softmax, which gives what the reference gives with smaller blocks.
-// - q, k, v and dO are read in place through element strides (batch, seq,
-//   head; D contiguous), so the model's qkv.unbind views need no copy.
-//   out, dq, dk, dv are written as contiguous [B, T, H, D]; lse and delta
+//   T_q != T_kv.  Blocks start with the longest rows.
+// - Any T: the ragged edge tile is zero-filled in the loads and masked,
+//   which gives what the reference gives with smaller blocks.
+// - out, dq, dk, dv are written as contiguous [B, T, H, D]; lse and delta
 //   are plain fp32 [B*H, T_q] vectors (the TPU's packed 128-lane layout and
 //   its MXU transposes are not needed here).
 // - The running max starts at -1e30, not -inf, with the reference's guards
 //   (:163-165, :181, :257-261), so fully masked rows give out 0, lse -1e30
 //   and no gradient.
-// Not yet done (later work): wgmma, TMA and warp specialisation; cp.async
-// double buffering of the K/V (Q/dO) tiles.
+// Not yet done (later work): dq on wgmma; overlap of the elementwise work
+// with the products inside a dk/dv warpgroup; TMA stores of the outputs.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -616,9 +654,577 @@ cudaError_t launch_dkv(const Problem& pb, int b, const void* q,
   return cudaGetLastError();
 }
 
+// ===================================================== bf16 on Hopper
+// The bf16 forward and dk/dv kernels: wgmma products, TMA tile loads
+// through a ring of shared-memory stages, one producer warp beside two
+// consumer warpgroups.  See the note at the top of the file.
+namespace sm90k {
+
+using namespace hvd::sm90;
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 384;    // warpgroups 0, 1 consume; 2 loads
+constexpr int kProducerWarp = 8;  // the one warp of warpgroup 2 that works
+constexpr int kConsumerWarps = 8;
+// Registers a thread after setmaxnreg: the block starts with 168 each
+// (65536 / 384, rounded down to 8); the producer warpgroup gives most of
+// its share to the two consumer warpgroups (2 x 128 x 240 + 128 x 24 =
+// 168 x 384).
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kFwdStages = 3;    // K/V stages
+constexpr int kBwdStages = 3;    // Q/dO/lse/delta stages
+constexpr int kFwdM = 128;       // query rows of a forward block
+constexpr int kFwdN = 128;       // keys of a forward K/V tile
+constexpr int kBwdN = 128;       // keys of a dk/dv block
+constexpr int kBwdM = 64;        // queries of a dk/dv Q/dO tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// One 64-column half of a rows x D tile, in elements.
+__host__ __device__ constexpr int half_elems(int rows) { return rows * 64; }
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((1024u - (a & 1023u)) & 1023u);
+}
+
+// K-major operand: rows [row0, row0 + 64 or N) of a tile, k-slice kk
+// (16 columns; half kk / 4, 32 bytes per slice inside the half).
+__device__ __forceinline__ uint64_t kmajor_desc(const bf16* tile, int rows,
+                                                int row0, int kk) {
+  return sw128_desc(tile + (kk / 4) * half_elems(rows) + row0 * 64 +
+                        (kk % 4) * 16,
+                    16, 1024);
+}
+
+// MN-major operand [k][n] of a rows x D tile: k-slice kk is rows
+// [16 kk, 16 kk + 16); n runs over D, the next 64 columns one half on.
+__device__ __forceinline__ uint64_t mnmajor_desc(const bf16* tile, int rows,
+                                                 int kk) {
+  return sw128_desc(tile + kk * 16 * 64, half_elems(rows) * 2, 1024);
+}
+
+// Shared memory, in bytes from a 1024-aligned base.
+template <int D> struct FwdLayout {
+  static constexpr int kStages = kFwdStages;
+  static constexpr int kQ = kFwdM * D * 2;
+  static constexpr int kKV = kFwdN * D * 2;      // one K or V tile
+  static constexpr int kStage = 2 * kKV;
+  static constexpr int kBars = kQ + kStages * kStage;
+  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+};
+
+// Every tile starts on a 1024-byte boundary (the swizzle's period).
+template <int D> struct BwdLayout {
+  static constexpr int kStages = kBwdStages;
+  static constexpr int kKV = kBwdN * D * 2;      // K or V, resident
+  static constexpr int kQ = kBwdM * D * 2;       // one Q or dO tile
+  static constexpr int kStage = 2 * kQ;          // Q and dO of a stage
+  static constexpr int kStages0 = 2 * kKV;
+  static constexpr int kRows = kStages0 + kStages * kStage;  // lse, delta
+  static constexpr int kBars = kRows + kStages * 2 * kBwdM * 4;
+  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;
+};
+
+// ------------------------------------------------------------- forward
+// Block: 128 query rows of one (b, h); consumer warpgroup wg owns rows
+// [64 wg, 64 wg + 64).  Q stays in shared memory; K and V come in 128-key
+// tiles through kStages stages.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map, Problem pb,
+                   bf16* __restrict__ out, float* __restrict__ lse) {
+  using L = FwdLayout<D>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  bf16* sQ = reinterpret_cast<bf16*>(sm);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+  auto sK = [&](int s) {
+    return reinterpret_cast<bf16*>(sm + L::kQ + s * L::kStage);
+  };
+  auto sV = [&](int s) {
+    return reinterpret_cast<bf16*>(sm + L::kQ + s * L::kStage + L::kKV);
+  };
+
+  const int bh = blockIdx.x, b = bh / pb.h, h = bh - b * pb.h;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdM;  // longest first
+  const int q_end = min(q0 + kFwdM, pb.tq);
+  const int all = (pb.tkv + kFwdN - 1) / kFwdN;
+  // the last key tile holds key q_end - 1 (top-left causal)
+  const int nk = pb.causal ? min(all, (q_end - 1) / kFwdN + 1) : all;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kProducerWarp && lane == 0) {
+      mbar_arrive_expect_tx(q_full, L::kQ);
+      for (int hf = 0; hf < D / 64; ++hf)
+        tma_load_4d(sQ + hf * half_elems(kFwdM), &q_map, q_full, 64 * hf, h,
+                    q0, b);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], L::kStage);
+        for (int hf = 0; hf < D / 64; ++hf) {
+          tma_load_4d(sK(s) + hf * half_elems(kFwdN), &k_map, &full[s],
+                      64 * hf, h, kt * kFwdN, b);
+          tma_load_4d(sV(s) + hf * half_elems(kFwdN), &v_map, &full[s],
+                      64 * hf, h, kt * kFwdN, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------ consumers
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp >> 2, w4 = warp & 3;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int row0 = q0 + wg * 64 + w4 * 16 + g;  // and row0 + 8
+  const int wg_row_min = q0 + wg * 64;
+  const float c = pb.scale * kLog2e;  // scores in log2 units
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  // S = Q K^T of the tile in stage st: this warpgroup's 64 rows, 128 keys
+  auto start_scores = [&](float (&sc)[kFwdN / 2], int st) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kFwdN>(sc, kmajor_desc(sQ, kFwdM, wg * 64, kk),
+                      kmajor_desc(sK(st), kFwdN, 0, kk), kk > 0);
+    wgmma_commit();
+  };
+  // O += P V of the tile in stage st, P (bf16) from registers
+  auto start_pv = [&](const uint32_t (&pa)[kFwdN / 16][4], int st) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kFwdN / 16; ++kk)
+      wgmma_rs<D>(o, pa[kk], mnmajor_desc(sV(st), kFwdN, kk));
+    wgmma_commit();
+  };
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  };
+  // Online softmax of tile kt in log2 units: S becomes P (fp32) in place,
+  // m and l move on, alpha rescales O.  Masks only on the tiles that meet
+  // the diagonal or the ragged edge of the keys.
+  auto softmax = [&](float (&sc)[kFwdN / 2], int kt, float (&alpha)[2]) {
+    const int k0 = kt * kFwdN;
+    const bool need_mask = (pb.causal && k0 + kFwdN - 1 > wg_row_min) ||
+                           k0 + kFwdN > pb.tkv;
+    float mx[2] = {m[0], m[1]};
+    if (need_mask) {
+#pragma unroll
+      for (int j = 0; j < kFwdN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + t2 + (e & 1);
+          const int row = row0 + (e >> 1) * 8;
+          const bool keep = col < pb.tkv && (!pb.causal || row >= col);
+          float& x = sc[4 * j + e];
+          x = keep ? x * c : kNegInf;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kFwdN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float& x = sc[4 * j + e];
+          x *= c;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+    }
+    float base[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = quad_max(mx[i]);
+      // exp2(-1e30 - finite) is 0: a row seen for the first time drops
+      // its empty past; a row with no key yet keeps l = 0, o = 0
+      alpha[i] = fast_exp2(m[i] - mx[i]);
+      base[i] = mx[i] > kNegInf / 2 ? mx[i] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kFwdN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = sc[4 * j + e];
+        x = fast_exp2(x - base[e >> 1]);
+        rsum[e >> 1] += x;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] = l[i] * alpha[i] + quad_sum(rsum[i]);
+      m[i] = mx[i];
+    }
+  };
+
+  // Tile 0 alone; then each step starts S of tile kt and O += P V of tile
+  // kt - 1 together, and runs the softmax of kt while P V is on the
+  // tensor cores.
+  float sc[kFwdN / 2], alpha[2];
+  uint32_t pa[kFwdN / 16][4];
+  mbar_wait(q_full, 0);
+  mbar_wait(&full[0], 0);
+  start_scores(sc, 0);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  softmax(sc, 0, alpha);
+  pack_a<kFwdN / 2>(pa, sc);
+  for (int kt = 1; kt < nk; ++kt) {
+    const int st = kt % kStages, prev = (kt - 1) % kStages;
+    mbar_wait(&full[st], (kt / kStages) & 1);
+    start_scores(sc, st);
+    start_pv(pa, prev);
+    wgmma_wait<1>();  // S done; P V of kt - 1 may still run
+    fence_regs(sc);
+    softmax(sc, kt, alpha);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    release(prev);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e >> 1];
+    pack_a<kFwdN / 2>(pa, sc);
+  }
+  start_pv(pa, (nk - 1) % kStages);
+  wgmma_wait<0>();
+  fence_regs(o);
+  fence_regs(pa);
+  release((nk - 1) % kStages);
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= pb.tq) continue;
+    const float l_safe = l[i] > 0.f ? l[i] : 1.f;
+    const float inv = 1.f / l_safe;
+    bf16* orow = out + ((static_cast<long long>(b) * pb.tq + row) * pb.h + h) *
+                           pb.d;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      if (j * 8 < pb.d)
+        store2(orow + j * 8 + t2, o[4 * j + 2 * i] * inv,
+               o[4 * j + 2 * i + 1] * inv);
+    if (t2 == 0)
+      lse[static_cast<long long>(bh) * pb.tq + row] =
+          m[i] > kNegInf / 2 ? (m[i] + log2f(l_safe)) * kLn2 : kNegInf;
+  }
+}
+
+// --------------------------------------------------------------- dk, dv
+// Block: 128 keys of one (b, h); consumer warpgroup wg owns keys
+// [64 wg, 64 wg + 64).  K and V stay in shared memory; Q, dO, lse and
+// delta come in 64-query tiles through kStages stages.  The producer warp
+// stages lse (as log2 e * lse, +inf where the row is past T_q or fully
+// masked, so that exp2 gives p = 0 there) and delta beside the tiles.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const __grid_constant__ CUtensorMap do_map, Problem pb,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv) {
+  using L = BwdLayout<D>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  bf16* sK = reinterpret_cast<bf16*>(sm);
+  bf16* sV = reinterpret_cast<bf16*>(sm + L::kKV);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+  auto stage = [&](int s) { return sm + L::kStages0 + s * L::kStage; };
+  auto sQ = [&](int s) { return reinterpret_cast<bf16*>(stage(s)); };
+  auto sDO = [&](int s) { return reinterpret_cast<bf16*>(stage(s) + L::kQ); };
+  auto sLse = [&](int s) {
+    return reinterpret_cast<float*>(sm + L::kRows) + s * 2 * kBwdM;
+  };
+  auto sDelta = [&](int s) { return sLse(s) + kBwdM; };
+
+  const int bh = blockIdx.x, b = bh / pb.h, h = bh - b * pb.h;
+  const int k0 = blockIdx.y * kBwdN;  // longest first: key 0 sees all
+  const int nq = (pb.tq + kBwdM - 1) / kBwdM;
+  // query tiles before the one holding query k0 see none of these keys
+  const int first = pb.causal ? min(k0 / kBwdM, nq) : 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp != kProducerWarp) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * L::kKV);
+      for (int hf = 0; hf < D / 64; ++hf) {
+        tma_load_4d(sK + hf * half_elems(kBwdN), &k_map, kv_full, 64 * hf, h,
+                    k0, b);
+        tma_load_4d(sV + hf * half_elems(kBwdN), &v_map, kv_full, 64 * hf, h,
+                    k0, b);
+      }
+    }
+    const float* lse_bh = lse + static_cast<long long>(bh) * pb.tq;
+    const float* delta_bh = delta + static_cast<long long>(bh) * pb.tq;
+    for (int it = 0; it < nq - first; ++it) {
+      const int s = it % kStages, q0 = (first + it) * kBwdM;
+      mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      for (int i = lane; i < kBwdM; i += 32) {
+        const int q = q0 + i;
+        const float lv = q < pb.tq ? lse_bh[q] : kNegInf;
+        sLse(s)[i] = lv > kNegInf / 2 ? lv * kLog2e : __int_as_float(0x7f800000);
+        sDelta(s)[i] = q < pb.tq ? delta_bh[q] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], 2 * L::kQ);
+        for (int hf = 0; hf < D / 64; ++hf) {
+          tma_load_4d(sQ(s) + hf * half_elems(kBwdM), &q_map, &full[s],
+                      64 * hf, h, q0, b);
+          tma_load_4d(sDO(s) + hf * half_elems(kBwdM), &do_map, &full[s],
+                      64 * hf, h, q0, b);
+        }
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------ consumers
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp >> 2, w4 = warp & 3;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int wg_key0 = k0 + wg * 64;
+  const int key0 = wg_key0 + w4 * 16 + g;  // and key0 + 8
+  const float c = pb.scale * kLog2e;
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < nq - first; ++it) {
+    const int s = it % kStages, q0 = (first + it) * kBwdM;
+    mbar_wait(&full[s], (it / kStages) & 1);
+    // a tile wholly above the diagonal for these keys adds nothing
+    if (!(pb.causal && q0 + kBwdM - 1 < wg_key0)) {
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries
+      float st[kBwdM / 2], dpt[kBwdM / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kBwdM>(st, kmajor_desc(sK, kBwdN, wg * 64, kk),
+                        kmajor_desc(sQ(s), kBwdM, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kBwdM>(dpt, kmajor_desc(sV, kBwdN, wg * 64, kk),
+                        kmajor_desc(sDO(s), kBwdM, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - delta) scale; the
+      // causal mask only on tiles that meet the diagonal
+      const float* l2 = sLse(s);
+      const float* dl = sDelta(s);
+      const bool need_mask = pb.causal && q0 < wg_key0 + 63;
+#pragma unroll
+      for (int j = 0; j < kBwdM / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + t2 + (e & 1);
+          float p = fast_exp2(st[4 * j + e] * c - l2[col]);
+          if (need_mask && q0 + col < key0 + (e >> 1) * 8) p = 0.f;
+          st[4 * j + e] = p;
+          dpt[4 * j + e] = p * (dpt[4 * j + e] - dl[col]) * pb.scale;
+        }
+      uint32_t pa[kBwdM / 16][4], dsa[kBwdM / 16][4];
+      pack_a<kBwdM / 2>(pa, st);
+      pack_a<kBwdM / 2>(dsa, dpt);
+
+      // dV += P^T dO, dK += dS^T Q
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBwdM / 16; ++kk)
+        wgmma_rs<D>(dv_acc, pa[kk], mnmajor_desc(sDO(s), kBwdM, kk));
+#pragma unroll
+      for (int kk = 0; kk < kBwdM / 16; ++kk)
+        wgmma_rs<D>(dk_acc, dsa[kk], mnmajor_desc(sQ(s), kBwdM, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(pa);
+      fence_regs(dsa);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    if (key >= pb.tkv) continue;
+    const long long at =
+        ((static_cast<long long>(b) * pb.tkv + key) * pb.h + h) * pb.d;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if (j * 8 < pb.d) {
+        store2(dk + at + j * 8 + t2, dk_acc[4 * j + 2 * i],
+               dk_acc[4 * j + 2 * i + 1]);
+        store2(dv + at + j * 8 + t2, dv_acc[4 * j + 2 * i],
+               dv_acc[4 * j + 2 * i + 1]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ host side
+// cuTensorMapEncodeTiled from libcuda, found through the runtime (no
+// link against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 [B, T, H, D] tensor with element strides st (batch, seq, head;
+// D contiguous) as a 4-D map (D, H, T, B), box 64 x 1 x rows x 1 with
+// 128-byte swizzle: one 64-column half of a rows-row tile per load, zeros
+// past D and past T.
+cudaError_t make_map(CUtensorMap* map, const void* base, int b, int t, int h,
+                     int d, const Strides& st, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(b)};
+  // a dimension of extent 1 is never stepped over: give it a valid stride
+  cuuint64_t bytes[3] = {static_cast<cuuint64_t>(st.h) * 2,
+                         static_cast<cuuint64_t>(st.t) * 2,
+                         static_cast<cuuint64_t>(st.b) * 2};
+  cuuint64_t prev = static_cast<cuuint64_t>(d) * 2;
+  for (int i = 0; i < 3; ++i) {
+    if (dims[i + 1] == 1) bytes[i] = (prev + 15) / 16 * 16;
+    prev = bytes[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      bytes, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch_fwd(const Problem& pb, int b, const void* q, const void* k,
+                       const void* v, void* out, void* lse, cudaStream_t s) {
+  using L = FwdLayout<D>;
+  static const cudaError_t once = allow_smem(flash_fwd_sm90<D>, L::kAlloc);
+  if (once != cudaSuccess) return once;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err;
+  if ((err = make_map(&mq, q, b, pb.tq, pb.h, pb.d, pb.qs, kFwdM)) ||
+      (err = make_map(&mk, k, b, pb.tkv, pb.h, pb.d, pb.ks, kFwdN)) ||
+      (err = make_map(&mv, v, b, pb.tkv, pb.h, pb.d, pb.vs, kFwdN)))
+    return err;
+  const dim3 grid(b * pb.h, (pb.tq + kFwdM - 1) / kFwdM);
+  flash_fwd_sm90<D><<<grid, kThreads, L::kAlloc, s>>>(
+      mq, mk, mv, pb, static_cast<bf16*>(out), static_cast<float*>(lse));
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const Problem& pb, int b, const void* q,
+                       const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, void* dk, void* dv,
+                       cudaStream_t s) {
+  using L = BwdLayout<D>;
+  static const cudaError_t once =
+      allow_smem(flash_bwd_dkv_sm90<D>, L::kAlloc);
+  if (once != cudaSuccess) return once;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err;
+  if ((err = make_map(&mq, q, b, pb.tq, pb.h, pb.d, pb.qs, kBwdM)) ||
+      (err = make_map(&mk, k, b, pb.tkv, pb.h, pb.d, pb.ks, kBwdN)) ||
+      (err = make_map(&mv, v, b, pb.tkv, pb.h, pb.d, pb.vs, kBwdN)) ||
+      (err = make_map(&mdo, dout, b, pb.tq, pb.h, pb.d, pb.dos, kBwdM)))
+    return err;
+  const dim3 grid(b * pb.h, (pb.tkv + kBwdN - 1) / kBwdN);
+  flash_bwd_dkv_sm90<D><<<grid, kThreads, L::kAlloc, s>>>(
+      mq, mk, mv, mdo, pb, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv));
+  return cudaGetLastError();
+}
+
+}  // namespace sm90k
+
 }  // namespace
 
-// fp32 and bf16 only: the dtype codes of ops/cuda/_build.py DTYPE_CODES.
+// dq: fp32 and bf16, the dtype codes of ops/cuda/_build.py DTYPE_CODES.
 #define HVD_FLASH_DISPATCH(code, ...)        \
   switch (code) {                            \
     case hvd::kFloat32: {                    \
@@ -645,8 +1251,15 @@ int hvd_flash_fwd(const void* q, const void* k, const void* v, void* out,
   if (!valid(b, h, tq, tkv, d)) return cudaErrorInvalidValue;
   const Problem pb = problem(h, tq, tkv, d, scale, causal, strides, 3);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  HVD_FLASH_DISPATCH(dtype,
-                     launch_fwd<scalar_t>(pb, b, q, k, v, out, lse, s));
+  switch (dtype) {
+    case hvd::kFloat32:
+      return launch_fwd<float>(pb, b, q, k, v, out, lse, s);
+    case hvd::kBFloat16:  // wgmma kernels, head dim padded to 64 or 128
+      return d <= 64 ? sm90k::launch_fwd<64>(pb, b, q, k, v, out, lse, s)
+                     : sm90k::launch_fwd<128>(pb, b, q, k, v, out, lse, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // dout strided like q (strides: 12 int64, q, k, v, dout); lse, delta fp32
@@ -672,8 +1285,17 @@ int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (!valid(b, h, tq, tkv, d)) return cudaErrorInvalidValue;
   const Problem pb = problem(h, tq, tkv, d, scale, causal, strides, 4);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  HVD_FLASH_DISPATCH(dtype, launch_dkv<scalar_t>(pb, b, q, k, v, dout, lse,
-                                                 delta, dk, dv, s));
+  switch (dtype) {
+    case hvd::kFloat32:
+      return launch_dkv<float>(pb, b, q, k, v, dout, lse, delta, dk, dv, s);
+    case hvd::kBFloat16:
+      return d <= 64 ? sm90k::launch_dkv<64>(pb, b, q, k, v, dout, lse,
+                                             delta, dk, dv, s)
+                     : sm90k::launch_dkv<128>(pb, b, q, k, v, dout, lse,
+                                              delta, dk, dv, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

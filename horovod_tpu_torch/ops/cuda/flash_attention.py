@@ -2,8 +2,10 @@
 tensors.
 
 Port of ``horovod_tpu/ops/pallas/flash_attention.py``.  The kernels are in
-``csrc/flash_attention.cu``; the note there gives the TPU kernels they
-replace, their bound on the H100 and their design.
+``csrc/flash_attention.cu`` (the bf16 forward and dk/dv on ``wgmma`` with
+TMA tile pipelines, the rest on ``mma.sync`` or scalar fp32); the note
+there gives the TPU kernels they replace, their bound on the H100 and
+their design.
 
 - ``flash_attention_fwd``, ``flash_attention_bwd_dq`` and
   ``flash_attention_bwd_dkv`` are the three kernel wrappers.  A CUDA
@@ -83,7 +85,8 @@ def flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta, causal, scale):
 # ----------------------------------------------------------- kernel wrappers
 def _kernel_strides_ok(x):
     """D contiguous, and every row starting on a 16-byte boundary (the
-    kernels' vector loads)."""
+    kernels' vector loads; the bf16 kernels' TMA tensor maps take only
+    strides that are multiples of 16 bytes)."""
     align = 16 // x.element_size()
     return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
             and all(s % align == 0 for s in x.stride()[:-1]))
