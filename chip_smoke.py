@@ -12,11 +12,12 @@ Phases, each of which must pass:
    shapes (LayerNorm ``[16384, 1024]`` bf16, softmax cross-entropy
    ``[16384, 32768]`` bf16, flash attention forward, dq and dk/dv at q/k/v
    ``[8, 2048, 8, 128]`` bf16 causal), and time the kernel, the plain
-   version and one PyTorch call computing the same function (the flash
-   kernels in turns with that call, median of 5 batches of 20); then the
-   flash kernels at ragged shapes (T = 96, 129 causal; T_q = 64 against
-   T_kv = 128 and 128 against 320, not causal; 130 against 70, causal) in
-   fp32 and bf16;
+   version and one PyTorch call computing the same function (the LayerNorm
+   and flash kernels in turns with that call, median of 5 batches of 20,
+   the LayerNorm's each a CUDA graph; the cross-entropy kernels mean of 20
+   calls); then the flash kernels at ragged shapes (T = 96, 129 causal;
+   T_q = 64 against T_kv = 128 and 128 against 320, not causal; 130
+   against 70, causal) in fp32 and bf16;
 4. check a small fp32 transformer on the card (kernels, flash attention
    included) against the same weights on the CPU (plain versions):
    logits, loss and gradients;
@@ -58,35 +59,59 @@ def nvidia_smi():
     return out[0].strip()
 
 
-def time_ms(fn, iters=20, warmup=3):
+def _runner(fn, iters, graph):
+    """A callable that makes ``iters`` calls of ``fn``: the calls
+    themselves, or one replay of a CUDA graph that holds them, so that the
+    host's time per call does not set the pace of a short kernel."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    if not graph:
+        def run():  # each result is dropped at once, as the caller would
+            for _ in range(iters):
+                fn()
+        return run
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    return g.replay
+
+
+def _elapsed_ms(run):
+    import torch
+
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    run()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end)
 
 
-def time_in_turns(kernel, library, batches=5, iters=20, warmup=3):
+def time_ms(fn, iters=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    return _elapsed_ms(_runner(fn, iters, False)) / iters
+
+
+def time_in_turns(kernel, library, batches=5, iters=20, warmup=3,
+                  graph=False):
     """Median ms per call of ``kernel`` and of ``library``, timed in turns
     (kernel, library, kernel, library, ...), ``batches`` batches of
-    ``iters`` calls each: a slow stretch of the card falls on both."""
+    ``iters`` calls each: a slow stretch of the card falls on both.  With
+    ``graph``, each batch is one replay of a CUDA graph of its calls."""
     import torch
 
     for fn in (kernel, library):
         for _ in range(warmup):
             fn()
+    runs = [_runner(fn, iters, graph) for fn in (kernel, library)]
     times = ([], [])
     for _ in range(batches):
-        for fn, out in zip((kernel, library), times):
-            out.append(time_ms(fn, iters=iters, warmup=0))
+        for run, out in zip(runs, times):
+            out.append(_elapsed_ms(run) / iters)
     torch.cuda.synchronize()
     return statistics.median(times[0]), statistics.median(times[1])
 
@@ -172,18 +197,22 @@ def check_kernels():
     w16, b16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
     ops = 8 * n * d
     t_b, by = bound(n * d * 2 * 2 + 2 * d * 4 + 2 * n * 4, ops)
+    # kernel and library call in turns, as the flash kernels are, each
+    # batch one CUDA graph: a call takes less device time than the host
+    # needs to make it
+    ms, library_ms = time_in_turns(
+        lambda: ln.layer_norm_fwd(x, gamma, beta, eps, True),
+        lambda: F.layer_norm(x, (d,), w16, b16, eps), graph=True)
     kernels.append(rates(dict(
         name="layer_norm_fwd", route="cuda",
         source="horovod_tpu_torch/csrc/layer_norm.cu",
         replaces="horovod_tpu/ops/pallas/layer_norm.py:36",
         max_abs_err=max(max_err(out, p_out), max_err(mean, p_mean),
                         max_err(rstd, p_rstd)),
-        ms=time_ms(lambda: ln.layer_norm_fwd(x, gamma, beta, eps, True)),
+        ms=ms,
         plain_ms=time_ms(
             lambda: ln.layer_norm_fwd_plain(x, gamma, beta, eps)),
-        bound_ms=t_b, bound_by=by,
-        library_ms=time_ms(lambda: F.layer_norm(x, (d,), w16, b16, eps))),
-        ops))
+        bound_ms=t_b, bound_by=by, library_ms=library_ms), ops))
 
     # LayerNorm backward.  dx bf16 as above; dgamma/dbeta are fp32 sums
     # over 16384 rows taken in another order.
@@ -196,19 +225,21 @@ def check_kernels():
     _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [d], w16, b16, eps)
     ops = 12 * n * d
     t_b, by = bound(3 * n * d * 2 + 2 * n * 4 + 3 * d * 4, ops)
+    ms, library_ms = time_in_turns(
+        lambda: ln.layer_norm_bwd(x, gamma, mean, rstd, dy),
+        lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, x, [d], lmean, lrstd, w16, b16, [True, True, True]),
+        graph=True)
     kernels.append(rates(dict(
         name="layer_norm_bwd", route="cuda",
         source="horovod_tpu_torch/csrc/layer_norm.cu",
         replaces="horovod_tpu/ops/pallas/layer_norm.py:53",
         max_abs_err=max(max_err(dx, p_dx), max_err(dg, p_dg),
                         max_err(db, p_db)),
-        ms=time_ms(lambda: ln.layer_norm_bwd(x, gamma, mean, rstd, dy)),
+        ms=ms,
         plain_ms=time_ms(
             lambda: ln.layer_norm_bwd_plain(x, gamma, mean, rstd, dy)),
-        bound_ms=t_b, bound_by=by,
-        library_ms=time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
-            dy, x, [d], lmean, lrstd, w16, b16, [True, True, True]))),
-        ops))
+        bound_ms=t_b, bound_by=by, library_ms=library_ms), ops))
     del x, dy, out, p_out, dx, p_dx
 
     # softmax cross-entropy at the LM head's shape; dloss = 1/N as in the

@@ -15,13 +15,14 @@
 //
 // Two designs live here, chosen by dtype in the C entry points.
 //
-// bf16 forward and dk/dv (namespace sm90k): wgmma, TMA, one producer warp.
+// bf16, every kernel (namespace sm90k): wgmma, TMA, one producer warp.
 // - Block of 384 threads: two consumer warpgroups and a producer
 //   warpgroup, of which one warp makes the copies.
 //   Forward: 128 query rows a block, 64 a warpgroup (wgmma m64), looping
-//   over 128-key K/V tiles.  dk/dv: 128 keys a block, 64 a warpgroup,
-//   looping over 64-query Q/dO tiles.  Q (forward) and K, V (dk/dv) load
-//   once and stay in shared memory.
+//   over 128-key K/V tiles.  dq: 128 query rows a block, 64 a warpgroup,
+//   looping over 64-key K/V tiles.  dk/dv: 128 keys a block, 64 a
+//   warpgroup, looping over 64-query Q/dO tiles.  Q (forward), Q and dO
+//   (dq), K and V (dk/dv) load once and stay in shared memory.
 // - Copies: TMA through 4-D tensor maps (D, H, T, B) over the tensors' own
 //   strides (the qkv.unbind views need no copy), built in the C entry
 //   point and passed as __grid_constant__ parameters.  The box is 64
@@ -29,21 +30,27 @@
 //   side by side.  Rows past T and columns past D are zero-filled by the
 //   copy engine, so D <= 64 runs the 64-column instance and 64 < D <= 128
 //   the 128-column one.  The producer warp keeps 3 stages of K/V
-//   (forward) or of Q/dO/lse/delta (dk/dv) in flight, each handed over
+//   (forward, dq) or of Q/dO/lse/delta (dk/dv) in flight, each handed over
 //   through a "full" mbarrier (TMA transaction bytes) and returned through
-//   an "empty" one (one arrival per consumer warp).  It also stages lse
-//   as log2(e) * lse, or +inf for rows past T_q or fully masked, so that
-//   p = exp2(s - lse) is 0 there without a test.
+//   an "empty" one (one arrival per consumer warp).  lse is used as
+//   log2(e) * lse, or +inf for rows past T_q or fully masked, so that p =
+//   exp2(s - lse) is 0 there without a test: staged by the producer in
+//   dk/dv, held in registers for a thread's two rows in dq.
 // - Products on wgmma with fp32 accumulators in registers.  Forward: S =
 //   Q K^T (m64n128k16, A and B K-major in shared memory), then O += P V
 //   with P converted in place from S's accumulator to bf16 A-operand
-//   registers and V read MN-major (transposed).  dk/dv: S^T = K Q^T and
-//   dP^T = V dO^T (m64n64k16 from shared memory), then dV += P^T dO and
-//   dK += dS^T Q with P^T and dS^T from registers, dO and Q MN-major.  No
-//   P, P^T or dS^T goes through shared memory.  The forward overlaps
-//   within a warpgroup: S of tile k is started together with O += P V of
-//   tile k - 1, and the softmax of tile k runs while P V is on the tensor
-//   cores (so two K/V stages are in use and the third is being filled).
+//   registers and V read MN-major (transposed).  dq: S = Q K^T and dP =
+//   dO V^T (m64n64k16 from shared memory), then dQ += dS K with dS from
+//   registers and K read MN-major from the stage that served as S's B
+//   operand; the scale is applied to dQ once, at the end.  dk/dv: S^T = K
+//   Q^T and dP^T = V dO^T (m64n64k16 from shared memory), then dV += P^T dO
+//   and dK += dS^T Q with P^T and dS^T from registers, dO and Q MN-major.
+//   No P, dS or their transposes go through shared memory.  The forward
+//   overlaps within a warpgroup: S of tile k is started together with O +=
+//   P V of tile k - 1, and the softmax of tile k runs while P V is on the
+//   tensor cores (so two K/V stages are in use and the third is being
+//   filled).  dq runs its products in order: the same overlap, tried
+//   there, was the slower of the two.
 // - Softmax in log2 units with exp2 (ex2.approx), log2(e) folded into the
 //   scale; the causal and ragged masks only on tiles that meet the
 //   diagonal or the ragged edge.  P and dS are rounded to bf16 before
@@ -51,16 +58,13 @@
 // - Registers: the block starts with 168 a thread (65536 / 384);
 //   setmaxnreg gives the producer warpgroup 24 and each consumer thread
 //   240, which holds dk/dv's two 64 x 128 fp32 accumulators (128
-//   registers) beside S^T and dP^T without spilling (-Xptxas -v: no
-//   spills in any instance; at 168 the dk/dv kernel spilled 336 bytes).
+//   registers) beside S^T and dP^T, and dq's one beside S and dP, without
+//   spilling (-Xptxas -v: no spills in any instance).
 //
-// fp32 (every kernel) and bf16 dq: mma.sync / scalar FMA.
-// - bf16 products on mma.sync m16n8k16 with operands brought from shared
-//   memory by ldmatrix; fp32 inputs take a scalar-FMA product in full fp32
-//   (no TF32) with the same accumulator layout, so the softmax code is
-//   shared.  One block of 4 warps per (b*h, 64-row tile), each warp 16
-//   rows; 64-row tiles of K/V (Q/dO) staged in shared memory by
-//   synchronous loads.
+// fp32, every kernel: full fp32 products (no TF32) with scalar FMAs, in
+// the accumulator layout of mma.sync m16n8.  One block of 4 warps per
+// (b*h, 64-row tile), each warp 16 rows; 64-row tiles of K/V (Q/dO) staged
+// in shared memory by synchronous loads; P and dS through shared memory.
 //
 // Common to both:
 // - No block writes another block's output, so the backward needs no
@@ -79,8 +83,8 @@
 // - The running max starts at -1e30, not -inf, with the reference's guards
 //   (:163-165, :181, :257-261), so fully masked rows give out 0, lse -1e30
 //   and no gradient.
-// Not yet done (later work): dq on wgmma; overlap of the elementwise work
-// with the products inside a dk/dv warpgroup; TMA stores of the outputs.
+// Not yet done (later work): overlap of the elementwise work with the
+// products inside a dq or dk/dv warpgroup; TMA stores of the outputs.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -93,7 +97,7 @@ constexpr int kMaxD = 128;
 constexpr float kNegInf = -1e30f;
 
 // Shared-memory row pitch in elements: rows padded by 16 bytes, so that
-// the 8 rows one ldmatrix reads start in 8 distinct 16-byte bank groups.
+// the rows one warp reads at the same column fall in distinct banks.
 template <typename T> __host__ __device__ constexpr int padded(int cols) {
   return cols + 16 / static_cast<int>(sizeof(T));
 }
@@ -103,79 +107,16 @@ struct Strides {
   long long b, t, h;
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c[16x8] += a[16x16] * b[16x8], bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Warp-level product into accumulators laid out as mma.sync m16n8 C
-// fragments: c[j] holds, for this lane (g = lane / 4, t2 = 2 * (lane % 4)),
-// rows {g, g + 8} and columns {8j + t2, 8j + t2 + 1} of a [16, 8 * NT]
-// result:
+// Warp-level fp32 product, in full fp32 with scalar FMAs, into
+// accumulators laid out as mma.sync m16n8 C fragments: c[j] holds, for
+// this lane (g = lane / 4, t2 = 2 * (lane % 4)), rows {g, g + 8} and
+// columns {8j + t2, 8j + t2 + 1} of a [16, 8 * NT] result:
 //   c[j][0] = (g, 8j + t2)      c[j][1] = (g, 8j + t2 + 1)
 //   c[j][2] = (g + 8, 8j + t2)  c[j][3] = (g + 8, 8j + t2 + 1)
 // C[16, ncols] += A[16, kdim] B[kdim, ncols].  A is row-major with pitch
 // lda.  B is stored [n][k] with pitch ldb (the product is A B^T, kKN false)
-// or [k][n] (kKN true).  kdim and ncols are multiples of 16, at most KMAX
-// and 8 * NT.
-template <bool kKN, int NT, int KMAX>
-__device__ __forceinline__ void warp_mma(float (&c)[NT][4],
-                                         const __nv_bfloat16* A, int lda,
-                                         const __nv_bfloat16* B, int ldb,
-                                         int kdim, int ncols) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < KMAX / 16; ++kk) {
-    if (kk * 16 < kdim) {
-      uint32_t a[4];
-      ldmatrix_x4(a, A + (lane & 15) * lda + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int jj = 0; jj < NT / 2; ++jj) {
-        if (jj * 16 < ncols) {
-          uint32_t b[4];
-          if constexpr (kKN) {
-            ldmatrix_x4_trans(b, B + (kk * 16 + (lane & 15)) * ldb +
-                                     jj * 16 + (lane >> 4) * 8);
-          } else {
-            ldmatrix_x4(b, B + (jj * 16 + (lane & 7) + (lane >> 4) * 8) * ldb +
-                               kk * 16 + ((lane >> 3) & 1) * 8);
-          }
-          mma_bf16(c[2 * jj], a, b[0], b[1]);
-          mma_bf16(c[2 * jj + 1], a, b[2], b[3]);
-        }
-      }
-    }
-  }
-}
-
-// The same product for fp32 operands, in full fp32 with scalar FMAs.
-template <bool kKN, int NT, int KMAX>
+// or [k][n] (kKN true).  ncols is a multiple of 8, at most 8 * NT.
+template <bool kKN, int NT>
 __device__ __forceinline__ void warp_mma(float (&c)[NT][4], const float* A,
                                          int lda, const float* B, int ldb,
                                          int kdim, int ncols) {
@@ -203,6 +144,7 @@ template <> __device__ __forceinline__ void store2<float>(float* p, float a,
                                                           float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
+// (bf16: the stores of the sm90k kernels)
 template <> __device__ __forceinline__ void store2<__nv_bfloat16>(
     __nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
@@ -312,8 +254,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kTile / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    warp_mma<false, kTile / 8, kMaxD>(s, sQ + wrow * ld, ld, sK, ld, d,
-                                      kTile);
+    warp_mma<false, kTile / 8>(s, sQ + wrow * ld, ld, sK, ld, d, kTile);
 
     float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -357,7 +298,7 @@ __global__ void __launch_bounds__(kThreads)
       store2(pw + (g + 8) * ldp + j * 8 + t2, s[j][2], s[j][3]);
     }
     __syncwarp();
-    warp_mma<true, kMaxD / 8, kTile>(o, pw, ldp, sV, ld, kTile, d);
+    warp_mma<true, kMaxD / 8>(o, pw, ldp, sV, ld, kTile, d);
     __syncwarp();
   }
 
@@ -433,10 +374,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kTile / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    warp_mma<false, kTile / 8, kMaxD>(s, sQ + wrow * ld, ld, sK, ld, d,
-                                      kTile);
-    warp_mma<false, kTile / 8, kMaxD>(dp, sDO + wrow * ld, ld, sV, ld, d,
-                                      kTile);
+    warp_mma<false, kTile / 8>(s, sQ + wrow * ld, ld, sK, ld, d, kTile);
+    warp_mma<false, kTile / 8>(dp, sDO + wrow * ld, ld, sV, ld, d, kTile);
     T* dsw = sDS + wrow * ldp;
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j) {
@@ -455,7 +394,7 @@ __global__ void __launch_bounds__(kThreads)
       store2(dsw + (g + 8) * ldp + j * 8 + t2, ds[2], ds[3]);
     }
     __syncwarp();
-    warp_mma<true, kMaxD / 8, kTile>(acc, dsw, ldp, sK, ld, kTile, d);
+    warp_mma<true, kMaxD / 8>(acc, dsw, ldp, sK, ld, kTile, d);
     __syncwarp();
   }
 
@@ -537,10 +476,10 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < kTile / 16; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-      warp_mma<false, kTile / 16, kMaxD>(st, sK + wrow * ld, ld,
-                                         sQ + c0 * ld, ld, d, kTile / 2);
-      warp_mma<false, kTile / 16, kMaxD>(dpt, sV + wrow * ld, ld,
-                                         sDO + c0 * ld, ld, d, kTile / 2);
+      warp_mma<false, kTile / 16>(st, sK + wrow * ld, ld, sQ + c0 * ld, ld,
+                                  d, kTile / 2);
+      warp_mma<false, kTile / 16>(dpt, sV + wrow * ld, ld, sDO + c0 * ld, ld,
+                                  d, kTile / 2);
 #pragma unroll
       for (int j = 0; j < kTile / 16; ++j) {
         float p[4], ds[4];
@@ -563,8 +502,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncwarp();
-    warp_mma<true, kMaxD / 8, kTile>(dv_acc, pw, ldp, sDO, ld, kTile, d);
-    warp_mma<true, kMaxD / 8, kTile>(dk_acc, dsw, ldp, sQ, ld, kTile, d);
+    warp_mma<true, kMaxD / 8>(dv_acc, pw, ldp, sDO, ld, kTile, d);
+    warp_mma<true, kMaxD / 8>(dk_acc, dsw, ldp, sQ, ld, kTile, d);
   }
 
 #pragma unroll
@@ -655,9 +594,9 @@ cudaError_t launch_dkv(const Problem& pb, int b, const void* q,
 }
 
 // ===================================================== bf16 on Hopper
-// The bf16 forward and dk/dv kernels: wgmma products, TMA tile loads
-// through a ring of shared-memory stages, one producer warp beside two
-// consumer warpgroups.  See the note at the top of the file.
+// The bf16 kernels: wgmma products, TMA tile loads through a ring of
+// shared-memory stages, one producer warp beside two consumer warpgroups.
+// See the note at the top of the file.
 namespace sm90k {
 
 using namespace hvd::sm90;
@@ -677,6 +616,9 @@ constexpr int kFwdM = 128;       // query rows of a forward block
 constexpr int kFwdN = 128;       // keys of a forward K/V tile
 constexpr int kBwdN = 128;       // keys of a dk/dv block
 constexpr int kBwdM = 64;        // queries of a dk/dv Q/dO tile
+constexpr int kDqStages = 3;     // K/V stages of dq
+constexpr int kDqM = 128;        // query rows of a dq block
+constexpr int kDqN = 64;         // keys of a dq K/V tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -730,6 +672,17 @@ template <int D> struct BwdLayout {
   static constexpr int kStages0 = 2 * kKV;
   static constexpr int kRows = kStages0 + kStages * kStage;  // lse, delta
   static constexpr int kBars = kRows + kStages * 2 * kBwdM * 4;
+  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;
+};
+
+template <int D> struct DqLayout {
+  static constexpr int kStages = kDqStages;
+  static constexpr int kQ = kDqM * D * 2;        // Q or dO, resident
+  static constexpr int kKV = kDqN * D * 2;       // one K or V tile
+  static constexpr int kStage = 2 * kKV;
+  static constexpr int kStages0 = 2 * kQ;
+  static constexpr int kBars = kStages0 + kStages * kStage;
   static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8;
   static constexpr int kAlloc = kBytes + 1024;
 };
@@ -1119,6 +1072,186 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ------------------------------------------------------------------ dq
+// Block: 128 query rows of one (b, h); consumer warpgroup wg owns rows
+// [64 wg, 64 wg + 64).  Q and dO stay in shared memory; K and V come in
+// 64-key tiles through kStages stages.  Each consumer thread keeps the
+// log2(e) * lse (+inf for rows past T_q or fully masked, so that exp2
+// gives p = 0 there) and delta of its two rows in registers.  Per tile: S
+// = Q K^T and dP = dO V^T (m64n64k16 from shared memory), dS = P (dP -
+// delta) packed in place to bf16 A-operand registers, dQ += dS K with K
+// read MN-major from the same stage, and the stage is released.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const __grid_constant__ CUtensorMap do_map, Problem pb,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      bf16* __restrict__ dq) {
+  using L = DqLayout<D>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  bf16* sQ = reinterpret_cast<bf16*>(sm);
+  bf16* sDO = reinterpret_cast<bf16*>(sm + L::kQ);
+  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = qdo_full + 1;
+  uint64_t* empty = full + kStages;
+  auto sK = [&](int s) {
+    return reinterpret_cast<bf16*>(sm + L::kStages0 + s * L::kStage);
+  };
+  auto sV = [&](int s) {
+    return reinterpret_cast<bf16*>(sm + L::kStages0 + s * L::kStage +
+                                   L::kKV);
+  };
+
+  const int bh = blockIdx.x, b = bh / pb.h, h = bh - b * pb.h;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqM;  // longest first
+  const int q_end = min(q0 + kDqM, pb.tq);
+  const int all = (pb.tkv + kDqN - 1) / kDqN;
+  // the last key tile holds key q_end - 1 (top-left causal)
+  const int nk = pb.causal ? min(all, (q_end - 1) / kDqN + 1) : all;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kProducerWarp && lane == 0) {
+      mbar_arrive_expect_tx(qdo_full, 2 * L::kQ);
+      for (int hf = 0; hf < D / 64; ++hf) {
+        tma_load_4d(sQ + hf * half_elems(kDqM), &q_map, qdo_full, 64 * hf, h,
+                    q0, b);
+        tma_load_4d(sDO + hf * half_elems(kDqM), &do_map, qdo_full, 64 * hf,
+                    h, q0, b);
+      }
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], L::kStage);
+        for (int hf = 0; hf < D / 64; ++hf) {
+          tma_load_4d(sK(s) + hf * half_elems(kDqN), &k_map, &full[s],
+                      64 * hf, h, kt * kDqN, b);
+          tma_load_4d(sV(s) + hf * half_elems(kDqN), &v_map, &full[s],
+                      64 * hf, h, kt * kDqN, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------ consumers
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp >> 2, w4 = warp & 3;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int wg_row_min = q0 + wg * 64;
+  const int row0 = wg_row_min + w4 * 16 + g;  // and row0 + 8
+  const float c = pb.scale * kLog2e;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    const long long at = static_cast<long long>(bh) * pb.tq + row;
+    const float lv = row < pb.tq ? lse[at] : kNegInf;
+    lse2[i] = lv > kNegInf / 2 ? lv * kLog2e : __int_as_float(0x7f800000);
+    dl[i] = row < pb.tq ? delta[at] : 0.f;
+  }
+  // Tiles this warpgroup computes: none when its rows all lie past T_q;
+  // with the causal mask, none wholly above its diagonal.
+  const int kt_end = wg_row_min >= pb.tq ? 0
+                     : pb.causal ? min(nk, (wg_row_min + 63) / kDqN + 1)
+                                 : nk;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  };
+
+  float sc[kDqN / 2], dp[kDqN / 2];
+  uint32_t dsa[kDqN / 16][4];
+  mbar_wait(qdo_full, 0);
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int st = kt % kStages, k0 = kt * kDqN;
+    mbar_wait(&full[st], (kt / kStages) & 1);
+    // S = Q K^T and dP = dO V^T: this warpgroup's 64 rows x 64 keys
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kDqN>(sc, kmajor_desc(sQ, kDqM, wg * 64, kk),
+                     kmajor_desc(sK(st), kDqN, 0, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kDqN>(dp, kmajor_desc(sDO, kDqM, wg * 64, kk),
+                     kmajor_desc(sV(st), kDqN, 0, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // dS = P (dP - delta) in place of dP, P = exp2(S c - lse2); masks only
+    // on tiles that meet the diagonal or the ragged edge of the keys
+    const bool need_mask = (pb.causal && k0 + kDqN - 1 > wg_row_min) ||
+                           k0 + kDqN > pb.tkv;
+#pragma unroll
+    for (int j = 0; j < kDqN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = fast_exp2(sc[4 * j + e] * c - lse2[i]);
+        if (need_mask) {
+          const int col = k0 + j * 8 + t2 + (e & 1), row = row0 + 8 * i;
+          if (col >= pb.tkv || (pb.causal && row < col)) p = 0.f;
+        }
+        dp[4 * j + e] = p * (dp[4 * j + e] - dl[i]);
+      }
+    pack_a<kDqN / 2>(dsa, dp);
+
+    // dQ += dS K, dS (bf16) from registers, K MN-major from the same stage
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDqN / 16; ++kk)
+      wgmma_rs<D>(acc, dsa[kk], mnmajor_desc(sK(st), kDqN, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(dsa);
+    release(st);
+  }
+  // the tiles this warpgroup skips still pass through its stages
+  for (int kt = kt_end; kt < nk; ++kt) {
+    const int st = kt % kStages;
+    mbar_wait(&full[st], (kt / kStages) & 1);
+    release(st);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= pb.tq) continue;
+    bf16* drow =
+        dq + ((static_cast<long long>(b) * pb.tq + row) * pb.h + h) * pb.d;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      if (j * 8 < pb.d)
+        store2(drow + j * 8 + t2, acc[4 * j + 2 * i] * pb.scale,
+               acc[4 * j + 2 * i + 1] * pb.scale);
+  }
+}
+
 // ------------------------------------------------------------ host side
 // cuTensorMapEncodeTiled from libcuda, found through the runtime (no
 // link against libcuda).
@@ -1220,24 +1353,31 @@ cudaError_t launch_dkv(const Problem& pb, int b, const void* q,
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dq(const Problem& pb, int b, const void* q, const void* k,
+                      const void* v, const void* dout, const void* lse,
+                      const void* delta, void* dq, cudaStream_t s) {
+  using L = DqLayout<D>;
+  const auto kernel = flash_bwd_dq_sm90<D>;
+  static const cudaError_t once = allow_smem(kernel, L::kAlloc);
+  if (once != cudaSuccess) return once;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err;
+  if ((err = make_map(&mq, q, b, pb.tq, pb.h, pb.d, pb.qs, kDqM)) ||
+      (err = make_map(&mk, k, b, pb.tkv, pb.h, pb.d, pb.ks, kDqN)) ||
+      (err = make_map(&mv, v, b, pb.tkv, pb.h, pb.d, pb.vs, kDqN)) ||
+      (err = make_map(&mdo, dout, b, pb.tq, pb.h, pb.d, pb.dos, kDqM)))
+    return err;
+  const dim3 grid(b * pb.h, (pb.tq + kDqM - 1) / kDqM);
+  kernel<<<grid, kThreads, L::kAlloc, s>>>(
+      mq, mk, mv, mdo, pb, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq));
+  return cudaGetLastError();
+}
+
 }  // namespace sm90k
 
 }  // namespace
-
-// dq: fp32 and bf16, the dtype codes of ops/cuda/_build.py DTYPE_CODES.
-#define HVD_FLASH_DISPATCH(code, ...)        \
-  switch (code) {                            \
-    case hvd::kFloat32: {                    \
-      using scalar_t = float;                \
-      return __VA_ARGS__;                    \
-    }                                        \
-    case hvd::kBFloat16: {                   \
-      using scalar_t = __nv_bfloat16;        \
-      return __VA_ARGS__;                    \
-    }                                        \
-    default:                                 \
-      return cudaErrorInvalidValue;          \
-  }
 
 extern "C" {
 
@@ -1272,8 +1412,17 @@ int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (!valid(b, h, tq, tkv, d)) return cudaErrorInvalidValue;
   const Problem pb = problem(h, tq, tkv, d, scale, causal, strides, 4);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  HVD_FLASH_DISPATCH(dtype, launch_dq<scalar_t>(pb, b, q, k, v, dout, lse,
-                                                delta, dq, s));
+  switch (dtype) {
+    case hvd::kFloat32:
+      return launch_dq<float>(pb, b, q, k, v, dout, lse, delta, dq, s);
+    case hvd::kBFloat16:
+      return d <= 64 ? sm90k::launch_dq<64>(pb, b, q, k, v, dout, lse, delta,
+                                            dq, s)
+                     : sm90k::launch_dq<128>(pb, b, q, k, v, dout, lse,
+                                             delta, dq, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // As hvd_flash_bwd_dq; dk, dv contiguous [b, tkv, h, d].

@@ -12,22 +12,36 @@
 // about 96 MiB, 30 us.
 //
 // Design against that bound: every element crosses HBM once per
-// direction.
+// direction, and enough loads are in flight to cover the memory's latency.
 //   forward:  one block per row.  Threads load 16 bytes each, stage the
 //             row in shared memory as fp32, reduce the mean, then the
 //             centred variance as the TPU kernel does (not E[x^2] -
 //             mean^2), and write the normalised row.  mean/rstd are plain
 //             fp32 [N] vectors, written only when a gradient is needed.
-//   backward: a fixed number of blocks (chosen from N alone, so the
-//             result is the same on any card) walks the rows in a fixed
-//             order.  dx is written per row; each block keeps its own
-//             dgamma/dbeta column sums in shared memory and writes them to
-//             an fp32 [num_blocks, d] scratch.  A second small kernel sums
-//             the scratch over blocks in a fixed order.  The TPU kernel
-//             accumulated across sequential grid steps (layer_norm.py:69-77);
-//             GPU blocks run in no order, and atomics would make the
-//             result change from run to run.
-// Not yet done (later work): TMA loads, several rows per block for small d.
+//   backward: rows belong to warps, not blocks.  A row is cut into
+//             16-byte chunks; a group of `group` warps shares it, each
+//             lane holding up to 4 chunks of x and dy in registers (8 on
+//             the wide path below; d = 1024 bf16 is one warp a row).  The row's two sums (of dy*g
+//             and dy*g*x-hat) come from warp shuffles, and, for a group of
+//             several warps, an exchange through shared memory behind a
+//             barrier of that group alone: no block-wide barrier per row.
+//             Narrow rows (group <= 8, blocks of 8 warps): gamma and the
+//             lane's dgamma/dbeta partials live in registers for the whole
+//             kernel, and each warp loads its next row before the
+//             arithmetic of the current one, so two rows are in flight a
+//             warp.  Wide rows (more than 8 warps at 4 chunks a lane; one
+//             group of up to 16 warps a block): gamma and the partials
+//             sit in shared memory, each column owned by one thread.  At the end a block sums its groups' partials in a
+//             fixed order and writes one fp32 [d] row of a [num_blocks, d]
+//             scratch; a second kernel sums the scratch over blocks in two
+//             fixed-order levels (chunks of blocks, then the chunks).  The
+//             TPU kernel accumulated across sequential grid steps
+//             (layer_norm.py:69-77); GPU blocks run in no order, and
+//             atomics would make the result change from run to run.  The
+//             geometry depends on (n, d, dtype) and the caller's block
+//             count alone, so the result is bitwise the same on any card.
+// Not yet done (later work): TMA loads, several rows per block for small d
+// in the forward.
 #include "common.cuh"
 
 namespace {
@@ -97,97 +111,258 @@ __global__ void ln_fwd_kernel(const T* __restrict__ x,
   }
 }
 
-template <typename T, bool VEC>
-__global__ void ln_bwd_kernel(const T* __restrict__ x,
-                              const float* __restrict__ gamma,
-                              const float* __restrict__ mean,
-                              const float* __restrict__ rstd,
-                              const T* __restrict__ dy, T* __restrict__ dx,
-                              float* __restrict__ dg_part,
-                              float* __restrict__ db_part, int n, int d) {
-  extern __shared__ float smem[];
-  float* xhat_s = smem;       // [d] x-hat of the current row
-  float* dy_s = smem + d;     // [d] dy of the current row
-  float* dg_s = smem + 2 * d; // [d] this block's sum of dy * x-hat
-  float* db_s = smem + 3 * d; // [d] this block's sum of dy
-  float* red = smem + 4 * d;  // [32]
+// ------------------------------------------------------------ backward
+// A row of d elements is cut into chunks of V = 16 / sizeof(T) elements
+// (one 16-byte vector; on the scalar path the last chunk may be partial).
+// Chunk (s * group + w) * 32 + lane is slot s of lane `lane` of warp w of
+// the row's group, so neighbouring lanes read neighbouring 16 bytes.
+constexpr int kBwdWarps = 8;    // warps of a block on the narrow path
+constexpr int kMaxSlots = 4;    // chunks of a row a lane holds (narrow)
+constexpr int kWideSlots = 8;   // chunks of a row a lane holds (wide)
+constexpr int kMaxGroup = 16;   // warps sharing a row (wide path: a block)
+constexpr int kXch = 2 * kMaxGroup * 2;  // floats: [parity][warp][s1, s2]
+
+// One lane's chunks of one row as loaded, and the row's statistics.
+template <int NV> struct Slice {
+  uint4 x[NV], dy[NV];
+  float mu, rs;
+};
+
+template <typename T, int NV, bool VEC>
+__device__ __forceinline__ void load_slice(Slice<NV>& sl,
+                                           const T* __restrict__ x,
+                                           const T* __restrict__ dy,
+                                           const float* __restrict__ mean,
+                                           const float* __restrict__ rstd,
+                                           int r, int d, int chunk0,
+                                           int cstep) {
   constexpr int V = Vec<T>::kN;
-  constexpr int width = VEC ? V : 1;
-  const int start = threadIdx.x * width;
-  const int step = blockDim.x * width;
-
-  // every column is owned by one thread for the whole kernel
-  for (int i = start; i < d; i += step)
-    #pragma unroll
-    for (int j = 0; j < width; ++j) {
-      dg_s[i + j] = 0.f;
-      db_s[i + j] = 0.f;
-    }
-
-  for (int r = blockIdx.x; r < n; r += gridDim.x) {
-    const size_t off = static_cast<size_t>(r) * d;
-    const float mu = mean[r], rs = rstd[r];
-    float s1 = 0.f, s2 = 0.f;
-    for (int i = start; i < d; i += step) {
-      float xv[V], dv[V];
-      if constexpr (VEC) {
-        hvd::load_vec(x + off + i, xv);
-        hvd::load_vec(dy + off + i, dv);
-      } else {
-        xv[0] = hvd::to_float(x[off + i]);
-        dv[0] = hvd::to_float(dy[off + i]);
+  const size_t off = static_cast<size_t>(r) * d;
+#pragma unroll
+  for (int s = 0; s < NV; ++s) {
+    const int c = (chunk0 + s * cstep) * V;
+    sl.x[s] = sl.dy[s] = make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (VEC) {
+      if (c < d) {
+        sl.x[s] = *reinterpret_cast<const uint4*>(x + off + c);
+        sl.dy[s] = *reinterpret_cast<const uint4*>(dy + off + c);
       }
-      #pragma unroll
-      for (int j = 0; j < width; ++j) {
-        const float xh = (xv[j] - mu) * rs;
-        const float dyg = dv[j] * gamma[i + j];
+    } else {
+      T* ex = reinterpret_cast<T*>(&sl.x[s]);
+      T* ed = reinterpret_cast<T*>(&sl.dy[s]);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (c + j < d) {
+          ex[j] = x[off + c + j];
+          ed[j] = dy[off + c + j];
+        }
+    }
+  }
+  sl.mu = mean[r];
+  sl.rs = rstd[r];
+}
+
+template <typename T>
+__device__ __forceinline__ float elem(const uint4& raw, int j) {
+  return hvd::to_float(reinterpret_cast<const T*>(&raw)[j]);
+}
+
+// Waits for the `count` threads of named barrier `id` (ids 1-15; 0 is
+// __syncthreads').
+__device__ __forceinline__ void group_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// dx of every row, and one [d] row of dgamma/dbeta partials a block.
+// Narrow (WIDE false): blocks of kBwdWarps warps, kBwdWarps / group rows
+// at a time; gamma and the partials in registers; the next row loaded
+// before the arithmetic of the current one.  Wide: one group of `group`
+// warps a block (at most 512 threads, so 128 registers a thread); gamma
+// and the partials in shared memory.
+template <typename T, int NV, bool VEC, bool WIDE>
+__global__ void __launch_bounds__(WIDE ? 32 * kMaxGroup : 32 * kBwdWarps, 1)
+    ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                  const float* __restrict__ mean,
+                  const float* __restrict__ rstd, const T* __restrict__ dy,
+                  T* __restrict__ dx, float* __restrict__ dg_part,
+                  float* __restrict__ db_part, int n, int d, int group) {
+  constexpr int V = Vec<T>::kN;
+  extern __shared__ float smem[];
+  float* xch = smem;          // the row sums of a group's warps
+  float* cols = smem + kXch;  // wide: gamma, dgamma, dbeta [d] each
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = WIDE ? 1 : kBwdWarps / group;  // rows at a time
+  const int gi = warp / group, wi = warp - gi * group;
+  const int chunk0 = wi * 32 + lane, cstep = group * 32;
+  auto col = [&](int s) { return (chunk0 + s * cstep) * V; };
+
+  float gam[NV][V], dg[NV][V], db[NV][V];
+#pragma unroll
+  for (int s = 0; s < NV; ++s)
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int c = col(s) + j;
+      const float gv = c < d ? gamma[c] : 0.f;
+      if constexpr (WIDE) {
+        if (c < d) {  // the thread owns column c
+          cols[c] = gv;
+          cols[d + c] = cols[2 * d + c] = 0.f;
+        }
+      } else {
+        gam[s][j] = gv;
+        dg[s][j] = db[s][j] = 0.f;
+      }
+    }
+  // wide: chunks past d read gamma of column d - 1, which another thread
+  // owns (times dy = 0)
+  if constexpr (WIDE) __syncthreads();
+
+  const int row_step = gridDim.x * groups;
+  int r = blockIdx.x * groups + gi;
+  int parity = 0;
+  Slice<NV> cur, nxt;
+  if (r < n) load_slice<T, NV, VEC>(cur, x, dy, mean, rstd, r, d, chunk0,
+                                    cstep);
+  for (; r < n; r += row_step) {
+    const int rn = r + row_step;
+    if (!WIDE && rn < n)
+      load_slice<T, NV, VEC>(nxt, x, dy, mean, rstd, rn, d, chunk0, cstep);
+
+    // chunks past d hold zeros: dy = 0 and gamma = 0 add nothing
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int s = 0; s < NV; ++s)
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float g = WIDE ? cols[min(col(s) + j, d - 1)] : gam[s][j];
+        const float xh = (elem<T>(cur.x[s], j) - cur.mu) * cur.rs;
+        const float dyg = elem<T>(cur.dy[s], j) * g;
         s1 += dyg;
         s2 += dyg * xh;
-        xhat_s[i + j] = xh;
-        dy_s[i + j] = dv[j];
       }
+    s1 = hvd::warp_sum(s1);
+    s2 = hvd::warp_sum(s2);
+    if (group > 1) {  // the group's warps in index order, the same sum in all
+      if (lane == 0) {
+        xch[(parity * kMaxGroup + warp) * 2] = s1;
+        xch[(parity * kMaxGroup + warp) * 2 + 1] = s2;
+      }
+      group_sync(1 + gi, group * 32);
+      s1 = s2 = 0.f;
+      for (int w = 0; w < group; ++w) {
+        s1 += xch[(parity * kMaxGroup + gi * group + w) * 2];
+        s2 += xch[(parity * kMaxGroup + gi * group + w) * 2 + 1];
+      }
+      parity ^= 1;  // the next row writes the other half, so no WAR race
     }
-    const float m1 = hvd::block_sum(s1, red) / d;
-    const float m2 = hvd::block_sum(s2, red) / d;
-    for (int i = start; i < d; i += step) {
+    const float m1 = s1 / d, m2 = s2 / d;
+
+    const size_t off = static_cast<size_t>(r) * d;
+#pragma unroll
+    for (int s = 0; s < NV; ++s) {
+      const int c = col(s);
+      if (c >= d) continue;
       float o[V];
-      #pragma unroll
-      for (int j = 0; j < width; ++j) {
-        const float xh = xhat_s[i + j], dv = dy_s[i + j];
-        o[j] = rs * (dv * gamma[i + j] - m1 - xh * m2);
-        dg_s[i + j] += dv * xh;
-        db_s[i + j] += dv;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float dv = elem<T>(cur.dy[s], j);
+        const float xh = (elem<T>(cur.x[s], j) - cur.mu) * cur.rs;
+        if constexpr (WIDE) {
+          const int cj = min(c + j, d - 1);  // past d: dv = 0 adds nothing
+          o[j] = cur.rs * (dv * cols[cj] - m1 - xh * m2);
+          cols[d + cj] += dv * xh;
+          cols[2 * d + cj] += dv;
+        } else {
+          o[j] = cur.rs * (dv * gam[s][j] - m1 - xh * m2);
+          dg[s][j] += dv * xh;
+          db[s][j] += dv;
+        }
       }
       if constexpr (VEC) {
-        hvd::store_vec(dx + off + i, o);
+        hvd::store_vec(dx + off + c, o);
       } else {
-        dx[off + i] = hvd::from_float<T>(o[0]);
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          if (c + j < d) dx[off + c + j] = hvd::from_float<T>(o[j]);
       }
+    }
+    if constexpr (WIDE) {
+      if (rn < n)
+        load_slice<T, NV, VEC>(cur, x, dy, mean, rstd, rn, d, chunk0, cstep);
+    } else {
+      cur = nxt;
     }
   }
 
-  const size_t poff = static_cast<size_t>(blockIdx.x) * d;
-  for (int i = start; i < d; i += step)
-    #pragma unroll
-    for (int j = 0; j < width; ++j) {
-      dg_part[poff + i + j] = dg_s[i + j];
-      db_part[poff + i + j] = db_s[i + j];
+  float* out_g = dg_part + static_cast<size_t>(blockIdx.x) * d;
+  float* out_b = db_part + static_cast<size_t>(blockIdx.x) * d;
+  if constexpr (WIDE) {  // each thread writes the columns it owns
+#pragma unroll
+    for (int s = 0; s < NV; ++s)
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int c = col(s) + j;
+        if (c < d) {
+          out_g[c] = cols[d + c];
+          out_b[c] = cols[2 * d + c];
+        }
+      }
+  } else {  // the groups' partials, summed in group order
+    float* sdg = cols;               // [groups][d]
+    float* sdb = cols + groups * d;  // [groups][d]
+#pragma unroll
+    for (int s = 0; s < NV; ++s)
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int c = col(s) + j;
+        if (c < d) {
+          sdg[gi * d + c] = dg[s][j];
+          sdb[gi * d + c] = db[s][j];
+        }
+      }
+    __syncthreads();
+    for (int c = threadIdx.x; c < d; c += blockDim.x) {
+      float a = 0.f, b = 0.f;
+      for (int g = 0; g < groups; ++g) {
+        a += sdg[g * d + c];
+        b += sdb[g * d + c];
+      }
+      out_g[c] = a;
+      out_b[c] = b;
     }
+  }
 }
 
-// dgamma/dbeta = column sums of the [num_blocks, d] partials, summed over
-// blocks in index order so that the result is deterministic.
-__global__ void ln_bwd_reduce_kernel(const float* __restrict__ dg_part,
-                                     const float* __restrict__ db_part,
-                                     int num_blocks, int d,
-                                     float* __restrict__ dgamma,
-                                     float* __restrict__ dbeta) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= d) return;
+// dgamma/dbeta = column sums of the [num_blocks, d] partials in two
+// fixed-order levels: thread row ty of a block sums blocks [ty * per,
+// (ty + 1) * per) in index order, then row 0 sums the kRedRows results in
+// order.  A block takes 32 columns.
+constexpr int kRedRows = 16;
+
+__global__ void __launch_bounds__(32 * kRedRows)
+    ln_bwd_reduce_kernel(const float* __restrict__ dg_part,
+                         const float* __restrict__ db_part, int num_blocks,
+                         int d, float* __restrict__ dgamma,
+                         float* __restrict__ dbeta) {
+  __shared__ float red[2][kRedRows][33];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + tx;
+  const int per = (num_blocks + kRedRows - 1) / kRedRows;
+  const int end = min(num_blocks, (ty + 1) * per);
   float a = 0.f, b = 0.f;
-  for (int i = 0; i < num_blocks; ++i) {
-    a += dg_part[static_cast<size_t>(i) * d + c];
-    b += db_part[static_cast<size_t>(i) * d + c];
+  if (c < d)
+    for (int i = ty * per; i < end; ++i) {
+      a += dg_part[static_cast<size_t>(i) * d + c];
+      b += db_part[static_cast<size_t>(i) * d + c];
+    }
+  red[0][ty][tx] = a;
+  red[1][ty][tx] = b;
+  __syncthreads();
+  if (ty != 0 || c >= d) return;
+  a = b = 0.f;
+  for (int k = 0; k < kRedRows; ++k) {
+    a += red[0][k][tx];
+    b += red[1][k][tx];
   }
   dgamma[c] = a;
   dbeta[c] = b;
@@ -208,9 +383,57 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// Largest d the kernels take: the backward stages 4 fp32 rows in shared
-// memory (227 KB a block on the H100).  ops/cuda/layer_norm.py MAX_D.
-constexpr int kMaxD = (232448 / 4 - 32) / 4;
+constexpr int kSmemMax = 232448;  // shared memory a block may use
+
+// Largest d the kernels take (ops/cuda/layer_norm.py MAX_D).  Within it:
+// the forward stages one fp32 row in shared memory, and the wide backward
+// holds 8 chunks a lane in at most 16 warps (16384 fp32) and 3 fp32 rows
+// of shared memory (19328 columns in 227 KB).
+constexpr int kMaxD = (kSmemMax / 4 - 32) / 4;
+
+template <typename T, int NV, bool VEC, bool WIDE>
+cudaError_t launch_bwd_as(int blocks, int threads, size_t smem,
+                          cudaStream_t s, const T* x, const float* gamma,
+                          const float* mean, const float* rstd, const T* dy,
+                          T* dx, float* dg_part, float* db_part, int n,
+                          int d, int group) {
+  const auto kernel = ln_bwd_kernel<T, NV, VEC, WIDE>;
+  static const cudaError_t once = allow_smem(kernel, kSmemMax);
+  if (once != cudaSuccess) return once;
+  kernel<<<blocks, threads, smem, s>>>(x, gamma, mean, rstd, dy, dx, dg_part,
+                                       db_part, n, d, group);
+  return cudaGetLastError();
+}
+
+// Chooses the row geometry from d: `group` warps a row, NV chunks a lane.
+template <typename T, bool VEC>
+cudaError_t launch_bwd(int blocks, cudaStream_t s, const T* x,
+                       const float* gamma, const float* mean,
+                       const float* rstd, const T* dy, T* dx, float* dg_part,
+                       float* db_part, int n, int d) {
+  const int chunks = (d + Vec<T>::kN - 1) / Vec<T>::kN;
+  int group = (chunks + 32 * kMaxSlots - 1) / (32 * kMaxSlots);
+  if (group > kBwdWarps) {
+    group = (chunks + 32 * kWideSlots - 1) / (32 * kWideSlots);
+    if (group > kMaxGroup) return cudaErrorInvalidValue;
+    const size_t smem = (kXch + 3 * static_cast<size_t>(d)) * sizeof(float);
+    return launch_bwd_as<T, kWideSlots, VEC, true>(
+        blocks, 32 * group, smem, s, x, gamma, mean, rstd, dy, dx, dg_part,
+        db_part, n, d, group);
+  }
+  while (kBwdWarps % group) ++group;  // 1, 2, 4 or 8 warps a row
+  const size_t smem =
+      (kXch + 2 * static_cast<size_t>(kBwdWarps / group) * d) * sizeof(float);
+  const int threads = 32 * kBwdWarps;
+#define HVD_LN_BWD(NV)                                                      \
+  launch_bwd_as<T, NV, VEC, false>(blocks, threads, smem, s, x, gamma, mean, \
+                                   rstd, dy, dx, dg_part, db_part, n, d,     \
+                                   group)
+  if (group == 1 && chunks <= 32) return HVD_LN_BWD(1);
+  if (group == 1 && chunks <= 64) return HVD_LN_BWD(2);
+  return HVD_LN_BWD(kMaxSlots);
+#undef HVD_LN_BWD
+}
 
 }  // namespace
 
@@ -238,32 +461,33 @@ int hvd_layer_norm_fwd(const void* x, const void* gamma, const void* beta,
   return cudaGetLastError();
 }
 
-// partials: fp32 [2, num_blocks, d] scratch owned by the caller.
+// partials: fp32 [2, num_blocks, d] scratch owned by the caller;
+// num_blocks, with n and d, fixes the order of every sum.
 int hvd_layer_norm_bwd(const void* x, const void* gamma, const void* mean,
                        const void* rstd, const void* dy, void* dx,
                        void* partials, void* dgamma, void* dbeta, int n,
                        int d, int num_blocks, int dtype, void* stream) {
   if (n == 0 || num_blocks <= 0 || d > kMaxD) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = (4 * static_cast<size_t>(d) + 32) * sizeof(float);
   float* dg_part = static_cast<float*>(partials);
   float* db_part = dg_part + static_cast<size_t>(num_blocks) * d;
   HVD_DISPATCH(dtype, {
+    const auto* xs = static_cast<const scalar_t*>(x);
+    const auto* dys = static_cast<const scalar_t*>(dy);
+    auto* dxs = static_cast<scalar_t*>(dx);
     const bool vec = d % Vec<scalar_t>::kN == 0 && aligned16(x) &&
                      aligned16(dy) && aligned16(dx);
-    auto kernel = vec ? ln_bwd_kernel<scalar_t, true>
-                      : ln_bwd_kernel<scalar_t, false>;
-    cudaError_t err = allow_smem(kernel, smem);
+    const auto* g = static_cast<const float*>(gamma);
+    const auto* mu = static_cast<const float*>(mean);
+    const auto* rs = static_cast<const float*>(rstd);
+    const cudaError_t err =
+        vec ? launch_bwd<scalar_t, true>(num_blocks, s, xs, g, mu, rs, dys,
+                                         dxs, dg_part, db_part, n, d)
+            : launch_bwd<scalar_t, false>(num_blocks, s, xs, g, mu, rs, dys,
+                                          dxs, dg_part, db_part, n, d);
     if (err != cudaSuccess) return err;
-    kernel<<<num_blocks, row_threads<scalar_t>(d), smem, s>>>(
-        static_cast<const scalar_t*>(x), static_cast<const float*>(gamma),
-        static_cast<const float*>(mean), static_cast<const float*>(rstd),
-        static_cast<const scalar_t*>(dy), static_cast<scalar_t*>(dx),
-        dg_part, db_part, n, d);
   });
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ln_bwd_reduce_kernel<<<(d + 255) / 256, 256, 0, s>>>(
+  ln_bwd_reduce_kernel<<<(d + 31) / 32, 32 * kRedRows, 0, s>>>(
       dg_part, db_part, num_blocks, d, static_cast<float*>(dgamma),
       static_cast<float*>(dbeta));
   return cudaGetLastError();

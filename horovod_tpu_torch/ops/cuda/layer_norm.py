@@ -25,10 +25,12 @@ import torch
 from horovod_tpu_torch.ops.cuda import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# fixed so that dgamma/dbeta are summed in the same order on every card
-_BWD_BLOCKS = 512
-# largest d the kernels take (csrc/layer_norm.cu kMaxD): the backward
-# stages 4 fp32 rows in shared memory, 227 KB a block on the H100
+# Blocks of the backward: at least _BWD_ROWS rows each (one a warp), at
+# most _BWD_BLOCKS (about one wave on an H100, where the kernel's registers
+# allow one 8-warp block an SM).  A function of n alone, so that
+# dgamma/dbeta are summed in the same order on every card.
+_BWD_ROWS, _BWD_BLOCKS = 8, 128
+# largest d the kernels take (csrc/layer_norm.cu kMaxD)
 MAX_D = (232448 // 4 - 32) // 4
 
 
@@ -140,7 +142,7 @@ def layer_norm_bwd(x2, gamma, mean, rstd, dy):
     dbeta = torch.empty_like(dgamma)
     if n == 0:
         return dx, dgamma.zero_(), dbeta.zero_()
-    blocks = min(n, _BWD_BLOCKS)
+    blocks = min(-(-n // _BWD_ROWS), _BWD_BLOCKS)
     partials = torch.empty(2, blocks, d, device=x2.device,
                            dtype=torch.float32)
     fn = _build.function("hvd_layer_norm_bwd", _P, _P, _P, _P, _P, _P, _P,

@@ -1,10 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card, at shapes the main path does not reach: odd row counts, widths that
 are no multiple of a 16-byte vector (the kernels' scalar path), fp32 and
-fp16, d = 8192, logits at scale 200; flash attention at head dims 16 to
-128 (48, 80 and 112 padded in the bf16 kernels), ragged lengths at the
-kernels' tile edges, and cross-attention lengths.  This file imports no
-JAX, so it also runs on a machine without it:
+fp16, d = 8192 and the widest row the LayerNorm takes, logits at scale
+200; flash attention at head dims 16 to 128 (48, 80 and 112 padded in the
+bf16 kernels), ragged lengths at the kernels' tile edges, and
+cross-attention lengths.  This file imports no JAX, so it also runs on a
+machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py
 
@@ -41,9 +42,14 @@ def _close(got, want, tol):
 @pytest.mark.parametrize("n,d,dtype", [
     (7, 1001, torch.float32),      # scalar path
     (33, 1024, torch.bfloat16),
-    (5, 8192, torch.float32),
+    (5, 8192, torch.float32),      # backward: wide path, 8 warps a row
     (600, 256, torch.float16),     # more rows than backward blocks
     (3, 12, torch.bfloat16),       # d below one block of threads
+    (9, 8192, torch.bfloat16),     # backward: 8 warps share a row
+    (7, 1001, torch.bfloat16),     # scalar path, one warp a row
+    (1, 1024, torch.bfloat16),     # one row
+    (1003, 1024, torch.bfloat16),  # no multiple of the rows of a block
+    (3, ln.MAX_D, torch.float32),  # the widest row: 15 warps
 ])
 def test_layer_norm_kernels_match_plain(dev, n, d, dtype):
     rng = np.random.RandomState(n + d)
@@ -70,11 +76,15 @@ def test_layer_norm_kernels_match_plain(dev, n, d, dtype):
     _close(db / scale, p_db / scale, 1e-4)
 
 
-def test_layer_norm_backward_is_deterministic(dev):
+@pytest.mark.parametrize("n,d,dtype", [
+    (4096, 512, torch.float32),
+    (16384, 1024, torch.bfloat16),  # the main path's shape
+])
+def test_layer_norm_backward_is_deterministic(dev, n, d, dtype):
     rng = np.random.RandomState(0)
-    x = torch.from_numpy(rng.randn(4096, 512).astype(np.float32)).to(dev)
-    g = torch.ones(512, device=dev)
-    dy = torch.from_numpy(rng.randn(4096, 512).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to(dev, dtype)
+    g = torch.ones(d, device=dev)
+    dy = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to(dev, dtype)
     _, mean, rstd = ln.layer_norm_fwd(x, g, g, 1e-6, True)
     first = ln.layer_norm_bwd(x, g, mean, rstd, dy)
     for _ in range(3):
@@ -214,6 +224,13 @@ def _close_rows(got, want, tol, what, noise=0.0):
     (2, 128, 320, 2, 64, False),
     (2, 320, 128, 2, 128, True),
     (2, 320, 128, 2, 128, False),
+    # dq: the second warpgroup of a 128-row block wholly past T_q, and a
+    # warpgroup that skips whole key tiles above its diagonal
+    (2, 64, 192, 2, 128, True),
+    (2, 64, 192, 2, 128, False),
+    (2, 65, 192, 2, 64, True),
+    (2, 65, 192, 2, 64, False),
+    (1, 192, 320, 2, 128, True),
 ])
 def test_flash_kernels_match_plain(dev, dtype, b, tq, tkv, h, d, causal):
     """Tolerances: fp32 outputs within 1e-5 of each row's largest entry of
@@ -281,10 +298,12 @@ def test_flash_row_check_fails_a_dropped_tile(dev):
             _close_rows(got, want, 2e-2, what)
 
 
-def test_flash_backward_is_deterministic(dev):
+@pytest.mark.parametrize("b,t,h", [(2, 512, 4), (1, 2048, 8)])
+def test_flash_backward_is_deterministic(dev, b, t, h):
     """Bitwise equal over runs; at T = 512 each 128-key dk/dv block walks
-    up to eight 64-query tiles through its pipeline."""
-    q, k, v, do = _qkvdo(dev, torch.bfloat16, 2, 512, 512, 4, 128, seed=9)
+    up to eight 64-query tiles through its pipeline, at T = 2048 (the main
+    path's) each 128-row dq block up to 32 key tiles through its own."""
+    q, k, v, do = _qkvdo(dev, torch.bfloat16, b, t, t, h, 128, seed=9)
     out, lse = fa.flash_attention_fwd(q, k, v, True, 0.125)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     first = (fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True, 0.125),
