@@ -396,6 +396,10 @@ def check_flash():
 
     b, t, h, d = ATTN_B, ATTN_T, ATTN_H, ATTN_D
     scale = 1 / d ** 0.5
+    plan = fa.flash_attention_fwd_plan(b, h, t, d)
+    print(f"flash forward: persistent grid of {plan['grid']} blocks over "
+          f"{b * h * -(-t // 128)} work tiles, {plan['k_stages']} K and "
+          f"{plan['v_stages']} V stages", flush=True)
     q, k, v, do = flash_inputs(torch.bfloat16, b, t, t, h, d, seed=1)
     errs, lse, delta = run_flash(q, k, v, do, True, scale, 2e-2,
                                  f"[{b}, {t}, {h}, {d}] bf16 causal")
@@ -598,7 +602,7 @@ def _profile_step(model, opt, tokens):
         opt.step()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    table = events.table(sort_by="self_device_time_total", row_limit=40)
+    table = events.table(sort_by="self_device_time_total", row_limit=60)
     # operator rows repeat the time of the kernels they launch, and so do
     # user ranges such as Optimizer.step: sum only the device's own rows
     # (kernels and copies)

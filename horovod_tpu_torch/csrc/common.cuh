@@ -1,5 +1,6 @@
 // Shared helpers for the port's hand-written kernels: element types,
-// 16-byte vector loads and stores, and block-wide reductions.
+// 16-byte vector loads and stores, named barriers, and block-wide
+// reductions.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -63,6 +64,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// Named barriers (ids 1-15; 0 is __syncthreads').  bar_sync waits until
+// `count` threads (a multiple of 32, whole warps) have reached barrier
+// `id`; bar_arrive counts this warp's threads toward it without waiting.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // Sum of v over the block; every thread gets the result.  `scratch`

@@ -18,23 +18,39 @@
 // bf16, every kernel (namespace sm90k): wgmma, TMA, one producer warp.
 // - Block of 384 threads: two consumer warpgroups and a producer
 //   warpgroup, of which one warp makes the copies.
-//   Forward: 128 query rows a block, 64 a warpgroup (wgmma m64), looping
-//   over 128-key K/V tiles.  dq: 128 query rows a block, 64 a warpgroup,
-//   looping over 64-key K/V tiles.  dk/dv: 128 keys a block, 64 a
-//   warpgroup, looping over 64-query Q/dO tiles.  Q (forward), Q and dO
-//   (dq), K and V (dk/dv) load once and stay in shared memory.
+//   Forward: persistent, one block an SM (or one a work tile, if fewer).
+//   A work tile is 128 query rows of one (b, h), 64 a warpgroup (wgmma
+//   m64), looping over 128-key K/V tiles; the tiles go out longest first
+//   (q tile descending, b*h fastest) in a fixed snake over the blocks
+//   (block x takes tiles i G + x for even i, i G + G - 1 - x for odd i, G
+//   blocks), which evens the causal tiles' lengths out: at the main shape
+//   the busiest of 132 blocks has 3% more key tiles than the mean (a
+//   plain stride, 9%).  The schedule does not depend on timing.  dq: 128
+//   query rows a block, 64 a warpgroup, looping over 64-key K/V tiles.
+//   dk/dv: 128 keys a block, 64 a warpgroup, looping over 64-query Q/dO
+//   tiles.  Q (forward, per tile), Q and dO (dq), K and V (dk/dv) load
+//   once and stay in shared memory.
 // - Copies: TMA through 4-D tensor maps (D, H, T, B) over the tensors' own
 //   strides (the qkv.unbind views need no copy), built in the C entry
 //   point and passed as __grid_constant__ parameters.  The box is 64
 //   columns (128 bytes) wide with 128-byte swizzle; D = 128 is two boxes
 //   side by side.  Rows past T and columns past D are zero-filled by the
 //   copy engine, so D <= 64 runs the 64-column instance and 64 < D <= 128
-//   the 128-column one.  The producer warp keeps 3 stages of K/V
-//   (forward, dq) or of Q/dO/lse/delta (dk/dv) in flight, each handed over
-//   through a "full" mbarrier (TMA transaction bytes) and returned through
-//   an "empty" one (one arrival per consumer warp).  lse is used as
-//   log2(e) * lse, or +inf for rows past T_q or fully masked, so that p =
-//   exp2(s - lse) is 0 there without a test: staged by the producer in
+//   the 128-column one.  Each stage is handed over through a "full"
+//   mbarrier (TMA transaction bytes) and returned through an "empty" one
+//   (one arrival per consumer warp).  Forward: Q in two buffers, so that
+//   the producer loads the next tile's Q, and its first K and V stages,
+//   while the consumers finish the current tile; K and V in separate
+//   rings (3 K and 2 V stages at D = 128, 3 and 3 at D = 64): K is
+//   returned as soon as S has retired, V after P V, and the producer
+//   loads K of key tile k + 1 before V of tile k.  The rings' phases, the
+//   Q buffer and the turn order run on counters that carry from one work
+//   tile of a block to the next; m, l and O start afresh at each tile.
+//   2 + 3 + 2 tiles of 32 KB fill 225 KB at D = 128, so 3 K stages leave
+//   room for only 2 of V (3 + 2, 2 + 2 and 2 + 3 timed alike on an H100).
+//   dq: 3 stages of K/V; dk/dv: 3 stages of Q/dO/lse/delta.  lse is used
+//   as log2(e) * lse, or +inf for rows past T_q or fully masked, so that p
+//   = exp2(s - lse) is 0 there without a test: staged by the producer in
 //   dk/dv, held in registers for a thread's two rows in dq.
 // - Products on wgmma with fp32 accumulators in registers.  Forward: S =
 //   Q K^T (m64n128k16, A and B K-major in shared memory), then O += P V
@@ -46,20 +62,35 @@
 //   Q^T and dP^T = V dO^T (m64n64k16 from shared memory), then dV += P^T dO
 //   and dK += dS^T Q with P^T and dS^T from registers, dO and Q MN-major.
 //   No P, dS or their transposes go through shared memory.  The forward
-//   overlaps within a warpgroup: S of tile k is started together with O +=
-//   P V of tile k - 1, and the softmax of tile k runs while P V is on the
-//   tensor cores (so two K/V stages are in use and the third is being
-//   filled).  dq runs its products in order: the same overlap, tried
-//   there, was the slower of the two.
+//   overlaps within a warpgroup (S of tile k is started together with O +=
+//   P V of tile k - 1, O is rescaled while S runs, and the softmax of tile
+//   k runs while P V is on the tensor cores), between the two (ping-pong:
+//   named barriers hand the turn to issue products from one warpgroup to
+//   the other, so that one's softmax runs while the other's products run),
+//   and across work tiles (the turn that starts a tile's first S also
+//   starts the previous tile's last P V, whose epilogue follows the new
+//   tile's softmax).  dq runs its products in order: the overlap, tried
+//   there, was the slower.
+// - Forward epilogue: O / l in bf16 goes into the warpgroup's own 64 rows
+//   of the Q buffer the tile retires, in the swizzled layout, and one
+//   thread a warpgroup stores them with a TMA store through an O map
+//   (rows past T_q and columns past D are clipped); the buffer goes back
+//   to the producer once the store has read it (cp.async.bulk
+//   wait_group.read), checked two turns later, so that the storing thread
+//   seldom waits.  lse is a plain fp32 store.  dq and dk/dv store from
+//   registers.
 // - Softmax in log2 units with exp2 (ex2.approx), log2(e) folded into the
-//   scale; the causal and ragged masks only on tiles that meet the
-//   diagonal or the ragged edge.  P and dS are rounded to bf16 before
-//   their products; max, sums, lse, delta and accumulators stay fp32.
+//   scale (in the forward, p = exp2(FFMA(s, scale, -max)) with the row max
+//   taken on the raw scores); the causal and ragged masks only on tiles
+//   that meet the diagonal or the ragged edge.  P and dS are rounded to
+//   bf16 before their products; max, sums, lse, delta and accumulators
+//   stay fp32.
 // - Registers: the block starts with 168 a thread (65536 / 384);
 //   setmaxnreg gives the producer warpgroup 24 and each consumer thread
 //   240, which holds dk/dv's two 64 x 128 fp32 accumulators (128
-//   registers) beside S^T and dP^T, and dq's one beside S and dP, without
-//   spilling (-Xptxas -v: no spills in any instance).
+//   registers) beside S^T and dP^T, dq's one beside S and dP, and the
+//   forward's O beside S and P, without spilling (-Xptxas -v: no spills in
+//   any instance).
 //
 // fp32, every kernel: full fp32 products (no TF32) with scalar FMAs, in
 // the accumulator layout of mma.sync m16n8.  One block of 4 warps per
@@ -74,7 +105,7 @@
 //   last key tile that meets the diagonal (reference :172-178, :270-271),
 //   dk/dv starts at the first query tile that meets it (:325-329).  The
 //   mask is top-left, q_pos >= k_pos from index 0 (:146-159), also when
-//   T_q != T_kv.  Blocks start with the longest rows.
+//   T_q != T_kv.  The longest rows go first.
 // - Any T: the ragged edge tile is zero-filled in the loads and masked,
 //   which gives what the reference gives with smaller blocks.
 // - out, dq, dk, dv are written as contiguous [B, T, H, D]; lse and delta
@@ -84,7 +115,10 @@
 //   (:163-165, :181, :257-261), so fully masked rows give out 0, lse -1e30
 //   and no gradient.
 // Not yet done (later work): overlap of the elementwise work with the
-// products inside a dq or dk/dv warpgroup; TMA stores of the outputs.
+// products inside a dq or dk/dv warpgroup, or a ping-pong of their
+// warpgroups; TMA stores of dq, dk and dv; persistent dq and dk/dv.
+#include <algorithm>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -173,6 +207,11 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_min(float v) {
+  v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
 __device__ __forceinline__ float quad_sum(float v) {
@@ -610,7 +649,6 @@ constexpr int kConsumerWarps = 8;
 // its share to the two consumer warpgroups (2 x 128 x 240 + 128 x 24 =
 // 168 x 384).
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-constexpr int kFwdStages = 3;    // K/V stages
 constexpr int kBwdStages = 3;    // Q/dO/lse/delta stages
 constexpr int kFwdM = 128;       // query rows of a forward block
 constexpr int kFwdN = 128;       // keys of a forward K/V tile
@@ -645,6 +683,13 @@ __device__ __forceinline__ uint64_t kmajor_desc(const bf16* tile, int rows,
                     16, 1024);
 }
 
+// kmajor_desc(tile, rows, row0, kk) - kmajor_desc(tile, rows, row0, 0)
+// (the start address in 16-byte units; no carry: shared memory < 256 KB).
+__host__ __device__ constexpr uint64_t kmajor_step(int rows, int kk) {
+  return static_cast<uint64_t>((kk / 4) * half_elems(rows) * 2 +
+                               (kk % 4) * 32) / 16;
+}
+
 // MN-major operand [k][n] of a rows x D tile: k-slice kk is rows
 // [16 kk, 16 kk + 16); n runs over D, the next 64 columns one half on.
 __device__ __forceinline__ uint64_t mnmajor_desc(const bf16* tile, int rows,
@@ -652,16 +697,25 @@ __device__ __forceinline__ uint64_t mnmajor_desc(const bf16* tile, int rows,
   return sw128_desc(tile + kk * 16 * 64, half_elems(rows) * 2, 1024);
 }
 
-// Shared memory, in bytes from a 1024-aligned base.
-template <int D> struct FwdLayout {
-  static constexpr int kStages = kFwdStages;
-  static constexpr int kQ = kFwdM * D * 2;
+// Shared memory, in bytes from a 1024-aligned base.  Forward: two Q
+// buffers (the one a tile retires also stages its O for the TMA store), KS
+// K stages and VS V stages; at D = 128, 2 + 3 + 2 tiles of 32 KB and the
+// barriers fill 225 KB of the 227 KB a block may use.
+template <int D, int KS, int VS> struct FwdLayout {
+  static constexpr int kQ = kFwdM * D * 2;       // one Q (or O) tile
   static constexpr int kKV = kFwdN * D * 2;      // one K or V tile
-  static constexpr int kStage = 2 * kKV;
-  static constexpr int kBars = kQ + kStages * kStage;
-  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8;
+  static constexpr int kK0 = 2 * kQ;
+  static constexpr int kV0 = kK0 + KS * kKV;
+  static constexpr int kBars = kV0 + VS * kKV;
+  // q_full[2], q_empty[2], k_full[KS], k_empty[KS], v_full[VS], v_empty[VS]
+  static constexpr int kBytes = kBars + (4 + 2 * KS + 2 * VS) * 8;
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base
 };
+
+// K and V stages of the forward for head dim D.
+template <int D> struct FwdStages;
+template <> struct FwdStages<64> { static constexpr int kK = 3, kV = 3; };
+template <> struct FwdStages<128> { static constexpr int kK = 3, kV = 2; };
 
 // Every tile starts on a 1024-byte boundary (the swizzle's period).
 template <int D> struct BwdLayout {
@@ -688,65 +742,115 @@ template <int D> struct DqLayout {
 };
 
 // ------------------------------------------------------------- forward
-// Block: 128 query rows of one (b, h); consumer warpgroup wg owns rows
-// [64 wg, 64 wg + 64).  Q stays in shared memory; K and V come in 128-key
-// tiles through kStages stages.
-template <int D>
+// Persistent: gridDim.x blocks (at most one an SM) walk the work tiles,
+// each 128 query rows of one (b, h).  Tile t is q tile n_qt - 1 - t / BH
+// (the longest rows first) of bh = t % BH; block x takes tiles i * G + x
+// for even i and i * G + G - 1 - x for odd i (G = gridDim.x), a snake
+// that evens out the causal tiles' lengths over the blocks.  Consumer
+// warpgroup wg owns rows [64 wg, 64 wg + 64) of every tile.
+template <int D, int KS, int VS>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_sm90(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
-                   const __grid_constant__ CUtensorMap v_map, Problem pb,
-                   bf16* __restrict__ out, float* __restrict__ lse) {
-  using L = FwdLayout<D>;
-  constexpr int kStages = L::kStages;
+                   const __grid_constant__ CUtensorMap v_map,
+                   const __grid_constant__ CUtensorMap o_map, Problem pb,
+                   int n_bh, float* __restrict__ lse) {
+  using L = FwdLayout<D, KS, VS>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
-  bf16* sQ = reinterpret_cast<bf16*>(sm);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::kBars);
-  uint64_t* full = q_full + 1;
-  uint64_t* empty = full + kStages;
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* k_full = q_empty + 2;
+  uint64_t* k_empty = k_full + KS;
+  uint64_t* v_full = k_empty + KS;
+  uint64_t* v_empty = v_full + VS;
+  auto sQ = [&](int i) { return reinterpret_cast<bf16*>(sm + i * L::kQ); };
   auto sK = [&](int s) {
-    return reinterpret_cast<bf16*>(sm + L::kQ + s * L::kStage);
+    return reinterpret_cast<bf16*>(sm + L::kK0 + s * L::kKV);
   };
   auto sV = [&](int s) {
-    return reinterpret_cast<bf16*>(sm + L::kQ + s * L::kStage + L::kKV);
+    return reinterpret_cast<bf16*>(sm + L::kV0 + s * L::kKV);
   };
 
-  const int bh = blockIdx.x, b = bh / pb.h, h = bh - b * pb.h;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdM;  // longest first
-  const int q_end = min(q0 + kFwdM, pb.tq);
+  const int n_qt = (pb.tq + kFwdM - 1) / kFwdM;
+  const int n_tiles = n_qt * n_bh;
   const int all = (pb.tkv + kFwdN - 1) / kFwdN;
-  // the last key tile holds key q_end - 1 (top-left causal)
-  const int nk = pb.causal ? min(all, (q_end - 1) / kFwdN + 1) : all;
+  // the i-th tile of this block, or -1 past the last
+  auto tile_of = [&](int i) {
+    const int x = (i & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+    const int t = i * gridDim.x + x;
+    return t < n_tiles ? t : -1;
+  };
+  struct Work {
+    int b, h, bh, q0, nk;
+  };
+  auto work = [&](int t) {
+    Work w;
+    const int r = t / n_bh;
+    w.bh = t - r * n_bh;
+    w.b = w.bh / pb.h;
+    w.h = w.bh - w.b * pb.h;
+    w.q0 = (n_qt - 1 - r) * kFwdM;
+    // the last key tile holds key q_end - 1 (top-left causal)
+    const int q_end = min(w.q0 + kFwdM, pb.tq);
+    w.nk = pb.causal ? min(all, (q_end - 1) / kFwdN + 1) : all;
+    return w;
+  };
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumerWarps);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], 2);  // the storing thread of each warpgroup
+    }
+    for (int s = 0; s < KS; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&k_empty[s], kConsumerWarps);
+    }
+    for (int s = 0; s < VS; ++s) {
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], kConsumerWarps);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
+  // Key tiles are counted over all of a block's work tiles (`it`), and so
+  // are the Q buffers (`i`): the rings' phases carry from tile to tile.
   if (warp >= kConsumerWarps) {
     setmaxnreg_dec<kProducerRegs>();
     if (warp == kProducerWarp && lane == 0) {
-      mbar_arrive_expect_tx(q_full, L::kQ);
-      for (int hf = 0; hf < D / 64; ++hf)
-        tma_load_4d(sQ + hf * half_elems(kFwdM), &q_map, q_full, 64 * hf, h,
-                    q0, b);
-      for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % kStages;
-        mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
-        mbar_arrive_expect_tx(&full[s], L::kStage);
-        for (int hf = 0; hf < D / 64; ++hf) {
-          tma_load_4d(sK(s) + hf * half_elems(kFwdN), &k_map, &full[s],
-                      64 * hf, h, kt * kFwdN, b);
-          tma_load_4d(sV(s) + hf * half_elems(kFwdN), &v_map, &full[s],
-                      64 * hf, h, kt * kFwdN, b);
+      int it = 0;
+      for (int i = 0, t; (t = tile_of(i)) >= 0; ++i) {
+        const Work w = work(t);
+        const int qb = i & 1;
+        // the O of tile i - 2, staged in this buffer, has been read out
+        mbar_wait(&q_empty[qb], ((i >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(&q_full[qb], L::kQ);
+        for (int hf = 0; hf < D / 64; ++hf)
+          tma_load_4d(sQ(qb) + hf * half_elems(kFwdM), &q_map, &q_full[qb],
+                      64 * hf, w.h, w.q0, w.b);
+        // K of key tile kt ahead of V of kt - 1: S needs K one turn
+        // before P V needs V
+        for (int kt = 0; kt <= w.nk; ++kt) {
+          if (kt < w.nk) {
+            const int j = it + kt, s = j % KS;
+            mbar_wait(&k_empty[s], ((j / KS) & 1) ^ 1);
+            mbar_arrive_expect_tx(&k_full[s], L::kKV);
+            for (int hf = 0; hf < D / 64; ++hf)
+              tma_load_4d(sK(s) + hf * half_elems(kFwdN), &k_map, &k_full[s],
+                          64 * hf, w.h, kt * kFwdN, w.b);
+          }
+          if (kt > 0) {
+            const int j = it + kt - 1, s = j % VS;
+            mbar_wait(&v_empty[s], ((j / VS) & 1) ^ 1);
+            mbar_arrive_expect_tx(&v_full[s], L::kKV);
+            for (int hf = 0; hf < D / 64; ++hf)
+              tma_load_4d(sV(s) + hf * half_elems(kFwdN), &v_map, &v_full[s],
+                          64 * hf, w.h, (kt - 1) * kFwdN, w.b);
+          }
         }
+        it += w.nk;
       }
     }
     return;
@@ -756,44 +860,76 @@ __global__ void __launch_bounds__(kThreads, 1)
   setmaxnreg_inc<kConsumerRegs>();
   const int wg = warp >> 2, w4 = warp & 3;
   const int g = lane >> 2, t2 = (lane & 3) * 2;
-  const int row0 = q0 + wg * 64 + w4 * 16 + g;  // and row0 + 8
-  const int wg_row_min = q0 + wg * 64;
+  const bool storer = (threadIdx.x & 127) == 0;  // issues the O store
   const float c = pb.scale * kLog2e;  // scores in log2 units
 
-  float o[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // Ping-pong: the warpgroups take turns to issue their products, so that
+  // one's softmax runs while the other's products are on the tensor cores.
+  // Named barrier 1 + wg is warpgroup wg's turn (its 128 threads wait, the
+  // other's 128 arrive); warpgroup 0 goes first.  Both warpgroups run the
+  // same turns in the same order (a warpgroup whose rows lie past T_q
+  // computes on the zero-filled rows), so the turns stay in step.
+  auto turn_wait = [&] { hvd::bar_sync(1 + wg, 256); };
+  auto turn_pass = [&] { hvd::bar_arrive(2 - wg, 256); };
+  if (wg == 1) turn_pass();
 
-  // S = Q K^T of the tile in stage st: this warpgroup's 64 rows, 128 keys
-  auto start_scores = [&](float (&sc)[kFwdN / 2], int st) {
+  auto wait_k = [&](int j) { mbar_wait(&k_full[j % KS], (j / KS) & 1); };
+  auto wait_v = [&](int j) { mbar_wait(&v_full[j % VS], (j / VS) & 1); };
+  auto release = [&](uint64_t* empty) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty);
+  };
+
+  float o[D / 2], sc[kFwdN / 2], alpha[2], m[2], l[2];
+  uint32_t pa[kFwdN / 16][4];
+
+  // The descriptors of k-slice kk are those of slice 0 plus a constant
+  // (their address field counts 16 bytes), so a turn computes two.
+  // S = Q K^T of key tile j: this warpgroup's 64 rows, 128 keys
+  auto start_scores = [&](int j, const bf16* q_tile) {
+    const uint64_t a0 = kmajor_desc(q_tile, kFwdM, wg * 64, 0);
+    const uint64_t b0 = kmajor_desc(sK(j % KS), kFwdN, 0, 0);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<kFwdN>(sc, kmajor_desc(sQ, kFwdM, wg * 64, kk),
-                      kmajor_desc(sK(st), kFwdN, 0, kk), kk > 0);
+      wgmma_ss<kFwdN>(sc, a0 + kmajor_step(kFwdM, kk),
+                      b0 + kmajor_step(kFwdN, kk), kk > 0);
     wgmma_commit();
   };
-  // O += P V of the tile in stage st, P (bf16) from registers
-  auto start_pv = [&](const uint32_t (&pa)[kFwdN / 16][4], int st) {
+  // O += P V of key tile j, P (bf16) from registers.  No wgmma of these
+  // two may sit behind a branch (say, to skip the masked half of a
+  // diagonal tile): ptxas then serializes the whole pipeline (C7520).
+  auto start_pv = [&](int j) {
+    const uint64_t b0 = mnmajor_desc(sV(j % VS), kFwdN, 0);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kFwdN / 16; ++kk)
-      wgmma_rs<D>(o, pa[kk], mnmajor_desc(sV(st), kFwdN, kk));
+      wgmma_rs<D>(o, pa[kk], b0 + kk * 16 * 64 * 2 / 16);
     wgmma_commit();
   };
-  auto release = [&](int st) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[st]);
+  // O *= alpha of the last softmax, before the P V that adds to it
+  auto rescale = [&] {
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * jj + e] *= alpha[e >> 1];
   };
-  // Online softmax of tile kt in log2 units: S becomes P (fp32) in place,
-  // m and l move on, alpha rescales O.  Masks only on the tiles that meet
-  // the diagonal or the ragged edge of the keys.
-  auto softmax = [&](float (&sc)[kFwdN / 2], int kt, float (&alpha)[2]) {
+  // Online softmax of key tile kt of the work tile at q0, in log2 units:
+  // S becomes P (fp32) in place, m and l move on, alpha rescales O.  The
+  // row max of c s comes from the raw scores (c max s, or c min s for c <
+  // 0: the same value, since rounding keeps the order), so that p =
+  // exp2(c s - m) is one FFMA and one exp2 an element.  Masks only on the
+  // tiles that meet the diagonal or the ragged edge of the keys: a masked
+  // score becomes the sentinel `none` (+-1e30, never a max) and then p = 0.
+  auto softmax = [&](int q0, int kt) {
+    const int wg_row_min = q0 + wg * 64;
+    const int row0 = wg_row_min + w4 * 16 + g;  // and row0 + 8
     const int k0 = kt * kFwdN;
     const bool need_mask = (pb.causal && k0 + kFwdN - 1 > wg_row_min) ||
                            k0 + kFwdN > pb.tkv;
-    float mx[2] = {m[0], m[1]};
+    const bool up = c >= 0.f;  // the same in every thread
+    const float none = up ? kNegInf : -kNegInf;
+    float mr[2] = {none, none};
     if (need_mask) {
 #pragma unroll
       for (int j = 0; j < kFwdN / 8; ++j)
@@ -803,8 +939,41 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int row = row0 + (e >> 1) * 8;
           const bool keep = col < pb.tkv && (!pb.causal || row >= col);
           float& x = sc[4 * j + e];
-          x = keep ? x * c : kNegInf;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+          x = keep ? x : none;
+          mr[e >> 1] = up ? fmaxf(mr[e >> 1], x) : fminf(mr[e >> 1], x);
+        }
+    } else if (up) {
+#pragma unroll
+      for (int j = 0; j < kFwdN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mr[e >> 1] = fmaxf(mr[e >> 1], sc[4 * j + e]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kFwdN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mr[e >> 1] = fminf(mr[e >> 1], sc[4 * j + e]);
+    }
+    float base[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mr[r] = up ? quad_max(mr[r]) : quad_min(mr[r]);
+      const float mx = fmaxf(m[r], mr[r] != none ? mr[r] * c : kNegInf);
+      // exp2(-1e30 - finite) is 0: a row seen for the first time drops
+      // its empty past; a row with no key yet keeps l = 0, o = 0
+      alpha[r] = fast_exp2(m[r] - mx);
+      base[r] = mx > kNegInf / 2 ? mx : 0.f;
+      m[r] = mx;
+    }
+    if (need_mask) {
+#pragma unroll
+      for (int j = 0; j < kFwdN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float& x = sc[4 * j + e];
+          x = x == none ? 0.f : fast_exp2(fmaf(x, c, -base[e >> 1]));
+          rsum[e >> 1] += x;
         }
     } else {
 #pragma unroll
@@ -812,87 +981,156 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float& x = sc[4 * j + e];
-          x *= c;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+          x = fast_exp2(fmaf(x, c, -base[e >> 1]));
+          rsum[e >> 1] += x;
         }
     }
-    float base[2], rsum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = quad_max(mx[i]);
-      // exp2(-1e30 - finite) is 0: a row seen for the first time drops
-      // its empty past; a row with no key yet keeps l = 0, o = 0
-      alpha[i] = fast_exp2(m[i] - mx[i]);
-      base[i] = mx[i] > kNegInf / 2 ? mx[i] : 0.f;
+    for (int r = 0; r < 2; ++r)
+      l[r] = l[r] * alpha[r] + quad_sum(rsum[r]);
+  };
+
+  // Epilogue of work tile w (Q buffer qb, statistics mm, ll): O / l in
+  // bf16 into this warpgroup's 64 rows of the Q buffer (its last S has
+  // retired; the other warpgroup reads only its own rows), in the
+  // 128-byte-swizzled layout of a load: the 16-byte chunk ch of row r at
+  // ch ^ (r % 8), where r % 8 = g.  Then one thread stores the rows
+  // through the O map, which clips rows past T_q.  The buffer goes back
+  // to the producer once the store has read it (retire_store).
+  int stored = -1;  // Q buffer whose O store may still be reading it
+  auto epilogue = [&](const Work& w, int qb, const float (&mm)[2],
+                      const float (&ll)[2]) {
+    bf16* const o_tile = sQ(qb);
+    const int wg_row_min = w.q0 + wg * 64;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float l_safe = ll[r] > 0.f ? ll[r] : 1.f;
+      const float inv = 1.f / l_safe;
+      bf16* orow = o_tile + (wg * 64 + w4 * 16 + g + 8 * r) * 64;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + (j / 8) * half_elems(kFwdM) +
+                                     ((j % 8) ^ g) * 8 + t2) =
+            pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+      const int row = wg_row_min + w4 * 16 + g + 8 * r;
+      if (t2 == 0 && row < pb.tq)
+        lse[static_cast<long long>(w.bh) * pb.tq + row] =
+            mm[r] > kNegInf / 2 ? (mm[r] + log2f(l_safe)) * kLn2 : kNegInf;
     }
-#pragma unroll
-    for (int j = 0; j < kFwdN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float& x = sc[4 * j + e];
-        x = fast_exp2(x - base[e >> 1]);
-        rsum[e >> 1] += x;
+    fence_proxy_async();
+    hvd::bar_sync(3 + wg, 128);
+    if (storer && wg_row_min < pb.tq) {
+      for (int hf = 0; hf < D / 64; ++hf)
+        tma_store_4d(&o_map, o_tile + hf * half_elems(kFwdM) + wg * 64 * 64,
+                     64 * hf, w.h, wg_row_min, w.b);
+      bulk_commit();
+    }
+    stored = qb;
+  };
+  auto retire_store = [&] {
+    if (stored >= 0) {
+      if (storer) {
+        bulk_wait_read<0>();
+        mbar_arrive(&q_empty[stored]);
       }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] = l[i] * alpha[i] + quad_sum(rsum[i]);
-      m[i] = mx[i];
+      stored = -1;
     }
   };
 
-  // Tile 0 alone; then each step starts S of tile kt and O += P V of tile
-  // kt - 1 together, and runs the softmax of kt while P V is on the
-  // tensor cores.
-  float sc[kFwdN / 2], alpha[2];
-  uint32_t pa[kFwdN / 16][4];
-  mbar_wait(q_full, 0);
-  mbar_wait(&full[0], 0);
-  start_scores(sc, 0);
-  wgmma_wait<0>();
-  fence_regs(sc);
-  softmax(sc, 0, alpha);
-  pack_a<kFwdN / 2>(pa, sc);
-  for (int kt = 1; kt < nk; ++kt) {
-    const int st = kt % kStages, prev = (kt - 1) % kStages;
-    mbar_wait(&full[st], (kt / kStages) & 1);
-    start_scores(sc, st);
-    start_pv(pa, prev);
-    wgmma_wait<1>();  // S done; P V of kt - 1 may still run
+  // One stream of turns over all of the block's key tiles: the first S
+  // alone; then each turn starts S of key tile `it`, rescales O while S
+  // runs and starts O += P V of key tile it - 1, and the softmax of `it`
+  // runs while P V is on the tensor cores.  A turn whose S opens the next
+  // work tile also finishes the last one (its last P V, then its epilogue
+  // after the new tile's softmax), so the tensor cores do not wait at the
+  // seams between work tiles; m, l and O start afresh there.  The last P V
+  // of the block alone.
+  int i = 0, t = tile_of(0);
+  if (t >= 0) {
+    Work w = work(t);
+    int it = 0;  // key tiles whose S has been started, over all tiles
+    mbar_wait(&q_full[0], 0);
+    wait_k(0);
+    turn_wait();
+    start_scores(0, sQ(0));
+    turn_pass();
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+    m[0] = m[1] = kNegInf;
+    l[0] = l[1] = 0.f;
+    wgmma_wait<0>();
     fence_regs(sc);
-    softmax(sc, kt, alpha);
+    release(&k_empty[0]);
+    softmax(w.q0, 0);
+    pack_a<kFwdN / 2>(pa, sc);
+    ++it;
+    for (;;) {
+      const bf16* q_tile = sQ(i & 1);
+      for (int kt = 1; kt < w.nk; ++kt, ++it) {
+        wait_k(it);
+        turn_wait();
+        start_scores(it, q_tile);
+        rescale();
+        wait_v(it - 1);
+        start_pv(it - 1);
+        turn_pass();
+        if (kt == 2) retire_store();  // the store has had a turn to read
+        wgmma_wait<1>();  // S done; P V of it - 1 may still run
+        fence_regs(sc);
+        release(&k_empty[it % KS]);
+        softmax(w.q0, kt);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+        release(&v_empty[(it - 1) % VS]);
+        pack_a<kFwdN / 2>(pa, sc);
+      }
+      const int tn = tile_of(i + 1);
+      if (tn < 0) break;
+      // the next work tile's first S beside this one's last P V
+      const Work wn = work(tn);
+      const int qn = (i + 1) & 1;
+      retire_store();  // if not yet: the producer needs it for this Q
+      mbar_wait(&q_full[qn], ((i + 1) >> 1) & 1);
+      wait_k(it);
+      turn_wait();
+      start_scores(it, sQ(qn));
+      rescale();
+      wait_v(it - 1);
+      start_pv(it - 1);
+      turn_pass();
+      const float mp[2] = {m[0], m[1]}, lp[2] = {l[0], l[1]};
+      m[0] = m[1] = kNegInf;
+      l[0] = l[1] = 0.f;
+      wgmma_wait<1>();
+      fence_regs(sc);
+      release(&k_empty[it % KS]);
+      softmax(wn.q0, 0);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      release(&v_empty[(it - 1) % VS]);
+      epilogue(w, i & 1, mp, lp);
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+      pack_a<kFwdN / 2>(pa, sc);
+      ++it;
+      ++i;
+      w = wn;
+    }
+    turn_wait();
+    rescale();
+    wait_v(it - 1);
+    start_pv(it - 1);
+    turn_pass();
     wgmma_wait<0>();
     fence_regs(o);
     fence_regs(pa);
-    release(prev);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e >> 1];
-    pack_a<kFwdN / 2>(pa, sc);
+    release(&v_empty[(it - 1) % VS]);
+    epilogue(w, i & 1, m, l);
   }
-  start_pv(pa, (nk - 1) % kStages);
-  wgmma_wait<0>();
-  fence_regs(o);
-  fence_regs(pa);
-  release((nk - 1) % kStages);
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
-    if (row >= pb.tq) continue;
-    const float l_safe = l[i] > 0.f ? l[i] : 1.f;
-    const float inv = 1.f / l_safe;
-    bf16* orow = out + ((static_cast<long long>(b) * pb.tq + row) * pb.h + h) *
-                           pb.d;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      if (j * 8 < pb.d)
-        store2(orow + j * 8 + t2, o[4 * j + 2 * i] * inv,
-               o[4 * j + 2 * i + 1] * inv);
-    if (t2 == 0)
-      lse[static_cast<long long>(bh) * pb.tq + row] =
-          m[i] > kNegInf / 2 ? (m[i] + log2f(l_safe)) * kLn2 : kNegInf;
-  }
+  if (wg == 0) turn_wait();  // warpgroup 1's last pass
+  if (storer) bulk_wait_read<0>();
 }
 
 // --------------------------------------------------------------- dk, dv
@@ -1311,21 +1549,54 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int b, int t, int h,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// SMs of the current card, read once.
+cudaError_t sm_count(int* n) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    cached = sms;
+  }
+  *n = cached;
+  return cudaSuccess;
+}
+
+// The forward's persistent grid: one block an SM, or one a work tile.
+cudaError_t fwd_grid(int b, int h, int tq, int* grid) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const long long tiles =
+      static_cast<long long>(b) * h * ((tq + kFwdM - 1) / kFwdM);
+  *grid = static_cast<int>(std::min<long long>(tiles, sms));
+  return cudaSuccess;
+}
+
 template <int D>
 cudaError_t launch_fwd(const Problem& pb, int b, const void* q, const void* k,
                        const void* v, void* out, void* lse, cudaStream_t s) {
-  using L = FwdLayout<D>;
-  static const cudaError_t once = allow_smem(flash_fwd_sm90<D>, L::kAlloc);
+  constexpr int KS = FwdStages<D>::kK, VS = FwdStages<D>::kV;
+  using L = FwdLayout<D, KS, VS>;
+  const auto kernel = flash_fwd_sm90<D, KS, VS>;
+  static const cudaError_t once = allow_smem(kernel, L::kAlloc);
   if (once != cudaSuccess) return once;
-  CUtensorMap mq, mk, mv;
+  // out is contiguous [b, tq, h, d]; its map stores 64-row boxes
+  const Strides os{static_cast<long long>(pb.tq) * pb.h * pb.d,
+                   static_cast<long long>(pb.h) * pb.d, pb.d};
+  CUtensorMap mq, mk, mv, mo;
   cudaError_t err;
+  int grid = 0;
   if ((err = make_map(&mq, q, b, pb.tq, pb.h, pb.d, pb.qs, kFwdM)) ||
       (err = make_map(&mk, k, b, pb.tkv, pb.h, pb.d, pb.ks, kFwdN)) ||
-      (err = make_map(&mv, v, b, pb.tkv, pb.h, pb.d, pb.vs, kFwdN)))
+      (err = make_map(&mv, v, b, pb.tkv, pb.h, pb.d, pb.vs, kFwdN)) ||
+      (err = make_map(&mo, out, b, pb.tq, pb.h, pb.d, os, 64)) ||
+      (err = fwd_grid(b, pb.h, pb.tq, &grid)))
     return err;
-  const dim3 grid(b * pb.h, (pb.tq + kFwdM - 1) / kFwdM);
-  flash_fwd_sm90<D><<<grid, kThreads, L::kAlloc, s>>>(
-      mq, mk, mv, pb, static_cast<bf16*>(out), static_cast<float*>(lse));
+  kernel<<<grid, kThreads, L::kAlloc, s>>>(mq, mk, mv, mo, pb, b * pb.h,
+                                           static_cast<float*>(lse));
   return cudaGetLastError();
 }
 
@@ -1400,6 +1671,16 @@ int hvd_flash_fwd(const void* q, const void* k, const void* v, void* out,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The bf16 forward's launch plan for [b, tq, h, d]: its persistent grid
+// and its K and V stages.
+int hvd_flash_fwd_plan(int b, int h, int tq, int d, int* grid, int* k_stages,
+                       int* v_stages) {
+  if (!valid(b, h, tq, 1, d)) return cudaErrorInvalidValue;
+  *k_stages = d <= 64 ? sm90k::FwdStages<64>::kK : sm90k::FwdStages<128>::kK;
+  *v_stages = d <= 64 ? sm90k::FwdStages<64>::kV : sm90k::FwdStages<128>::kV;
+  return sm90k::fwd_grid(b, h, tq, grid);
 }
 
 // dout strided like q (strides: 12 int64, q, k, v, dout); lse, delta fp32

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
-// mbarriers, TMA tile loads through a tensor map, and warpgroup matrix
-// products (wgmma) with operands in 128-byte-swizzled shared memory.
+// mbarriers, TMA tile loads and stores through a tensor map, and
+// warpgroup matrix products (wgmma) with operands in 128-byte-swizzled
+// shared memory.
 //
 // Shared-memory tiles are written by TMA with CU_TENSOR_MAP_SWIZZLE_128B
 // and a box 64 bf16 (128 bytes) wide: a tile of R rows is R x 128 bytes,
@@ -80,6 +81,36 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// One box of shared memory at src (laid out as a load of the same map
+// would leave it) to a 4-D tensor map at (c0, c1, c2, c3).  Elements
+// outside the tensor are not written.  The copy joins this thread's
+// current bulk group (bulk_commit, bulk_wait_read).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed bulk groups still read
+// their shared-memory source.
+template <int N> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's earlier writes to shared memory before later reads
+// of it by the async proxy (a TMA store).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Moves registers between warpgroups: every warp of the warpgroup runs it.

@@ -12,36 +12,52 @@
 // about 96 MiB, 30 us.
 //
 // Design against that bound: every element crosses HBM once per
-// direction, and enough loads are in flight to cover the memory's latency.
-//   forward:  one block per row.  Threads load 16 bytes each, stage the
-//             row in shared memory as fp32, reduce the mean, then the
-//             centred variance as the TPU kernel does (not E[x^2] -
-//             mean^2), and write the normalised row.  mean/rstd are plain
-//             fp32 [N] vectors, written only when a gradient is needed.
-//   backward: rows belong to warps, not blocks.  A row is cut into
-//             16-byte chunks; a group of `group` warps shares it, each
-//             lane holding up to 4 chunks of x and dy in registers (8 on
-//             the wide path below; d = 1024 bf16 is one warp a row).  The row's two sums (of dy*g
-//             and dy*g*x-hat) come from warp shuffles, and, for a group of
-//             several warps, an exchange through shared memory behind a
-//             barrier of that group alone: no block-wide barrier per row.
+// direction, and enough 16-byte loads are in flight to cover the memory's
+// latency.  Both directions give rows to warps, not blocks.  A row is cut
+// into 16-byte chunks; a group of `group` warps shares it, each lane
+// holding up to 4 chunks in registers (8 on the wide path below; d = 1024
+// bf16 is one warp a row, 4 chunks a lane).  A row's sums are butterfly
+// warp shuffles, so every lane holds the bitwise-same result, and, for a
+// group of several warps, an exchange through shared memory behind a
+// named barrier of that group alone: no block-wide barrier per row.  The
+// geometry is a function of d and the dtype alone, so every row's
+// arithmetic is the same whatever n and the block count are.
+//   forward:  blocks of 8 warps (2 resident an SM: 128 registers a
+//             thread) walk the rows in a fixed grid; the wrapper sizes the
+//             grid from the card's SM count.  gamma and beta are loaded
+//             once a warp, as 16-byte vectors, into registers.  Each warp
+//             asks L2 for its next row (prefetch.global.L2, no registers)
+//             before the arithmetic of the current one, so two rows are
+//             in flight a warp; holding the next row in registers instead
+//             needed more than 128 a thread and spilled.  The mean is a
+//             group sum of x, then the centred variance a second one of
+//             (x - mean)^2 from the same registers, as the TPU kernel
+//             computes it (not E[x^2] - mean^2).  out is written as 16-byte
+//             vectors; mean/rstd are plain fp32 [N] vectors, written only
+//             when a gradient is needed.  Widths that are no multiple of 16
+//             bytes, or unaligned rows, take the same kernel with element
+//             loads and stores (the scalar path; 1 block an SM bound, so
+//             that its extra registers do not spill).
+//   backward: the row's two sums (of dy*g and dy*g*x-hat) as above.
 //             Narrow rows (group <= 8, blocks of 8 warps): gamma and the
 //             lane's dgamma/dbeta partials live in registers for the whole
 //             kernel, and each warp loads its next row before the
-//             arithmetic of the current one, so two rows are in flight a
-//             warp.  Wide rows (more than 8 warps at 4 chunks a lane; one
-//             group of up to 16 warps a block): gamma and the partials
-//             sit in shared memory, each column owned by one thread.  At the end a block sums its groups' partials in a
-//             fixed order and writes one fp32 [d] row of a [num_blocks, d]
-//             scratch; a second kernel sums the scratch over blocks in two
-//             fixed-order levels (chunks of blocks, then the chunks).  The
-//             TPU kernel accumulated across sequential grid steps
-//             (layer_norm.py:69-77); GPU blocks run in no order, and
-//             atomics would make the result change from run to run.  The
-//             geometry depends on (n, d, dtype) and the caller's block
-//             count alone, so the result is bitwise the same on any card.
-// Not yet done (later work): TMA loads, several rows per block for small d
-// in the forward.
+//             arithmetic of the current one.  At the end a block sums its
+//             groups' partials in a fixed order and writes one fp32 [d]
+//             row of a [num_blocks, d] scratch; a second kernel sums the
+//             scratch over blocks in two fixed-order levels (chunks of
+//             blocks, then the chunks).  The TPU kernel accumulated across
+//             sequential grid steps (layer_norm.py:69-77); GPU blocks run
+//             in no order, and atomics would make the result change from
+//             run to run.  The block count comes from n alone, so the
+//             result is bitwise the same on any card.
+//   wide rows (more than 8 warps at 4 chunks a lane; one group of up to
+//             16 warps a block): gamma, beta (forward) or gamma and the
+//             partials (backward) sit in shared memory; the backward
+//             loads no row ahead.
+// Not yet done (later work): TMA loads; wide rows without spills.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -49,79 +65,198 @@ namespace {
 using hvd::Vec;
 using hvd::aligned16;
 
-template <typename T, bool VEC>
-__global__ void ln_fwd_kernel(const T* __restrict__ x,
-                              const float* __restrict__ gamma,
-                              const float* __restrict__ beta,
-                              T* __restrict__ out, float* __restrict__ mean_out,
-                              float* __restrict__ rstd_out, int d,
-                              float eps) {
-  extern __shared__ float smem[];
-  float* row = smem;      // [d] the row in fp32
-  float* red = smem + d;  // [32] reduction scratch
-  constexpr int V = Vec<T>::kN;
-  const size_t off = static_cast<size_t>(blockIdx.x) * d;
-  const T* xr = x + off;
-  T* outr = out + off;
-  constexpr int width = VEC ? V : 1;
-  const int start = threadIdx.x * width;
-  const int step = blockDim.x * width;
-
-  float sum = 0.f;
-  for (int i = start; i < d; i += step) {
-    float v[V];
-    if constexpr (VEC) {
-      hvd::load_vec(xr + i, v);
-    } else {
-      v[0] = hvd::to_float(xr[i]);
-    }
-    #pragma unroll
-    for (int j = 0; j < width; ++j) {
-      row[i + j] = v[j];
-      sum += v[j];
-    }
-  }
-  const float mean = hvd::block_sum(sum, red) / d;
-
-  // each thread reads back only the elements it staged itself
-  float sq = 0.f;
-  for (int i = start; i < d; i += step)
-    #pragma unroll
-    for (int j = 0; j < width; ++j) {
-      const float c = row[i + j] - mean;
-      sq += c * c;
-    }
-  const float var = hvd::block_sum(sq, red) / d;
-  const float rstd = rsqrtf(var + eps);
-
-  for (int i = start; i < d; i += step) {
-    float o[V];
-    #pragma unroll
-    for (int j = 0; j < width; ++j)
-      o[j] = (row[i + j] - mean) * rstd * gamma[i + j] + beta[i + j];
-    if constexpr (VEC) {
-      hvd::store_vec(outr + i, o);
-    } else {
-      outr[i] = hvd::from_float<T>(o[0]);
-    }
-  }
-  if (mean_out != nullptr && threadIdx.x == 0) {
-    mean_out[blockIdx.x] = mean;
-    rstd_out[blockIdx.x] = rstd;
-  }
-}
-
-// ------------------------------------------------------------ backward
+// ------------------------------------------------------- row geometry
 // A row of d elements is cut into chunks of V = 16 / sizeof(T) elements
 // (one 16-byte vector; on the scalar path the last chunk may be partial).
 // Chunk (s * group + w) * 32 + lane is slot s of lane `lane` of warp w of
-// the row's group, so neighbouring lanes read neighbouring 16 bytes.
-constexpr int kBwdWarps = 8;    // warps of a block on the narrow path
+// the row's group, so neighbouring lanes read neighbouring 16 bytes.  The
+// geometry (group, NV) is a function of d and the dtype alone (geometry
+// below), so a row's sums are taken in the same order whatever n is.
+constexpr int kRowWarps = 8;    // warps of a block on the narrow path
 constexpr int kMaxSlots = 4;    // chunks of a row a lane holds (narrow)
 constexpr int kWideSlots = 8;   // chunks of a row a lane holds (wide)
 constexpr int kMaxGroup = 16;   // warps sharing a row (wide path: a block)
 constexpr int kXch = 2 * kMaxGroup * 2;  // floats: [parity][warp][s1, s2]
 
+// Slots s < NV of one lane's chunks of row `off / d`: 16-byte loads on the
+// vector path, element by element on the scalar one; zeros past d.
+template <typename T, int NV, bool VEC>
+__device__ __forceinline__ void load_chunks(uint4 (&dst)[NV],
+                                            const T* __restrict__ src,
+                                            size_t off, int d, int chunk0,
+                                            int cstep) {
+  constexpr int V = Vec<T>::kN;
+#pragma unroll
+  for (int s = 0; s < NV; ++s) {
+    const int c = (chunk0 + s * cstep) * V;
+    dst[s] = make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (VEC) {
+      if (c < d) dst[s] = *reinterpret_cast<const uint4*>(src + off + c);
+    } else {
+      T* e = reinterpret_cast<T*>(&dst[s]);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (c + j < d) e[j] = src[off + c + j];
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float elem(const uint4& raw, int j) {
+  return hvd::to_float(reinterpret_cast<const T*>(&raw)[j]);
+}
+
+// Sum of v over the `group` warps that share a row, the same in every
+// lane: a butterfly warp sum, then (group > 1) the warps' sums in index
+// order through xch behind the group's own named barrier.  Each call
+// writes the half of xch that `parity` names and flips it, so a warp that
+// runs ahead to the next call cannot overwrite what a slower one still
+// reads.
+__device__ __forceinline__ float group_sum(float v, float* xch, int& parity,
+                                           int group, int gi, int warp,
+                                           int lane) {
+  v = hvd::warp_sum(v);
+  if (group == 1) return v;
+  if (lane == 0) xch[parity * kMaxGroup + warp] = v;
+  hvd::bar_sync(1 + gi, group * 32);
+  v = 0.f;
+  for (int w = 0; w < group; ++w) v += xch[parity * kMaxGroup + gi * group + w];
+  parity ^= 1;
+  return v;
+}
+
+// ------------------------------------------------------------- forward
+// out (and mean, rstd) of every row.  Narrow (WIDE false): blocks of
+// kRowWarps warps, kRowWarps / group rows at a time; gamma and beta in
+// registers for the whole kernel (16-byte loads, once a warp).  Wide: one
+// group of `group` warps a block; gamma and beta in shared memory.  Both
+// ask L2 for the warp's next row before the arithmetic of the current
+// one, so two rows are in flight a warp.  The mean is a group sum of x, the
+// variance a second one of (x - mean)^2 from the same registers (centred,
+// as the TPU kernel computes it).  ONE: a warp a row (group 1), so that
+// the slots lie a compile-time stride apart and their addresses take no
+// registers of their own.
+template <typename T, int NV, bool VEC, bool WIDE, bool ONE>
+__global__ void __launch_bounds__(WIDE ? 32 * kMaxGroup : 32 * kRowWarps,
+                                  WIDE || !VEC ? 1 : 2)
+    ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                  const float* __restrict__ beta, T* __restrict__ out,
+                  float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                  int n, int d, int row_group, float eps) {
+  constexpr int V = Vec<T>::kN;
+  const int group = ONE ? 1 : row_group;
+  constexpr int GS = WIDE ? 1 : NV;  // slots of gamma/beta in registers
+  extern __shared__ float smem[];
+  float* xch = smem;          // a group's partial sums, [parity][warp]
+  float* cols = smem + kXch;  // wide: gamma, beta [d] each
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = WIDE ? 1 : kRowWarps / group;  // rows at a time
+  const int gi = warp / group, wi = warp - gi * group;
+  const int chunk0 = wi * 32 + lane, cstep = group * 32;
+  auto col = [&](int s) { return (chunk0 + s * cstep) * V; };
+
+  float gam[GS][V], bet[GS][V];
+  if constexpr (WIDE) {
+    for (int c = threadIdx.x; c < d; c += blockDim.x) {
+      cols[c] = gamma[c];
+      cols[d + c] = beta[c];
+    }
+    __syncthreads();
+  } else {
+#pragma unroll
+    for (int s = 0; s < NV; ++s) {
+      const int c = col(s);
+      if (VEC && c < d) {  // V floats: V / 4 16-byte loads each
+#pragma unroll
+        for (int j = 0; j < V; j += 4) {
+          const float4 g4 = *reinterpret_cast<const float4*>(gamma + c + j);
+          const float4 b4 = *reinterpret_cast<const float4*>(beta + c + j);
+          gam[s][j] = g4.x, gam[s][j + 1] = g4.y;
+          gam[s][j + 2] = g4.z, gam[s][j + 3] = g4.w;
+          bet[s][j] = b4.x, bet[s][j + 1] = b4.y;
+          bet[s][j + 2] = b4.z, bet[s][j + 3] = b4.w;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          gam[s][j] = c + j < d ? gamma[c + j] : 0.f;
+          bet[s][j] = c + j < d ? beta[c + j] : 0.f;
+        }
+      }
+    }
+  }
+
+  const int row_step = gridDim.x * groups;
+  int parity = 0;
+  for (int r = blockIdx.x * groups + gi; r < n; r += row_step) {
+    const size_t off = static_cast<size_t>(r) * d;
+    uint4 cur[NV];
+    load_chunks<T, NV, VEC>(cur, x, off, d, chunk0, cstep);
+    // the next row's 128-byte lines, the group's share of them, asked of
+    // L2 before this row's arithmetic
+    const int rn = r + row_step;
+    if (rn < n) {
+      const char* p =
+          reinterpret_cast<const char*>(x + static_cast<size_t>(rn) * d);
+      for (int off = chunk0 * 128; off < d * static_cast<int>(sizeof(T));
+           off += cstep * 128)
+        asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p + off));
+    }
+
+    // chunks past d hold zeros: they add nothing to the first sum
+    float s1 = 0.f;
+#pragma unroll
+    for (int s = 0; s < NV; ++s)
+#pragma unroll
+      for (int j = 0; j < V; ++j) s1 += elem<T>(cur[s], j);
+    const float mu =
+        group_sum(s1, xch, parity, group, gi, warp, lane) / d;
+    float s2 = 0.f;
+#pragma unroll
+    for (int s = 0; s < NV; ++s)
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (col(s) + (VEC ? 0 : j) < d) {
+          const float c = elem<T>(cur[s], j) - mu;
+          s2 += c * c;
+        }
+    const float rs = rsqrtf(
+        group_sum(s2, xch, parity, group, gi, warp, lane) / d + eps);
+
+#pragma unroll
+    for (int s = 0; s < NV; ++s) {
+      const int c = col(s);
+      if (c >= d) continue;
+      float o[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        float g, b;
+        if constexpr (WIDE) {
+          const int cj = min(c + j, d - 1);  // past d: not stored
+          g = cols[cj];
+          b = cols[d + cj];
+        } else {
+          g = gam[s][j];
+          b = bet[s][j];
+        }
+        o[j] = (elem<T>(cur[s], j) - mu) * rs * g + b;
+      }
+      if constexpr (VEC) {
+        hvd::store_vec(out + off + c, o);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          if (c + j < d) out[off + c + j] = hvd::from_float<T>(o[j]);
+      }
+    }
+    if (mean_out != nullptr && wi == 0 && lane == 0) {
+      mean_out[r] = mu;
+      rstd_out[r] = rs;
+    }
+  }
+}
+
+// ------------------------------------------------------------ backward
 // One lane's chunks of one row as loaded, and the row's statistics.
 template <int NV> struct Slice {
   uint4 x[NV], dy[NV];
@@ -136,51 +271,21 @@ __device__ __forceinline__ void load_slice(Slice<NV>& sl,
                                            const float* __restrict__ rstd,
                                            int r, int d, int chunk0,
                                            int cstep) {
-  constexpr int V = Vec<T>::kN;
   const size_t off = static_cast<size_t>(r) * d;
-#pragma unroll
-  for (int s = 0; s < NV; ++s) {
-    const int c = (chunk0 + s * cstep) * V;
-    sl.x[s] = sl.dy[s] = make_uint4(0u, 0u, 0u, 0u);
-    if constexpr (VEC) {
-      if (c < d) {
-        sl.x[s] = *reinterpret_cast<const uint4*>(x + off + c);
-        sl.dy[s] = *reinterpret_cast<const uint4*>(dy + off + c);
-      }
-    } else {
-      T* ex = reinterpret_cast<T*>(&sl.x[s]);
-      T* ed = reinterpret_cast<T*>(&sl.dy[s]);
-#pragma unroll
-      for (int j = 0; j < V; ++j)
-        if (c + j < d) {
-          ex[j] = x[off + c + j];
-          ed[j] = dy[off + c + j];
-        }
-    }
-  }
+  load_chunks<T, NV, VEC>(sl.x, x, off, d, chunk0, cstep);
+  load_chunks<T, NV, VEC>(sl.dy, dy, off, d, chunk0, cstep);
   sl.mu = mean[r];
   sl.rs = rstd[r];
 }
 
-template <typename T>
-__device__ __forceinline__ float elem(const uint4& raw, int j) {
-  return hvd::to_float(reinterpret_cast<const T*>(&raw)[j]);
-}
-
-// Waits for the `count` threads of named barrier `id` (ids 1-15; 0 is
-// __syncthreads').
-__device__ __forceinline__ void group_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
 // dx of every row, and one [d] row of dgamma/dbeta partials a block.
-// Narrow (WIDE false): blocks of kBwdWarps warps, kBwdWarps / group rows
+// Narrow (WIDE false): blocks of kRowWarps warps, kRowWarps / group rows
 // at a time; gamma and the partials in registers; the next row loaded
 // before the arithmetic of the current one.  Wide: one group of `group`
 // warps a block (at most 512 threads, so 128 registers a thread); gamma
 // and the partials in shared memory.
 template <typename T, int NV, bool VEC, bool WIDE>
-__global__ void __launch_bounds__(WIDE ? 32 * kMaxGroup : 32 * kBwdWarps, 1)
+__global__ void __launch_bounds__(WIDE ? 32 * kMaxGroup : 32 * kRowWarps, 1)
     ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                   const float* __restrict__ mean,
                   const float* __restrict__ rstd, const T* __restrict__ dy,
@@ -191,7 +296,7 @@ __global__ void __launch_bounds__(WIDE ? 32 * kMaxGroup : 32 * kBwdWarps, 1)
   float* xch = smem;          // the row sums of a group's warps
   float* cols = smem + kXch;  // wide: gamma, dgamma, dbeta [d] each
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int groups = WIDE ? 1 : kBwdWarps / group;  // rows at a time
+  const int groups = WIDE ? 1 : kRowWarps / group;  // rows at a time
   const int gi = warp / group, wi = warp - gi * group;
   const int chunk0 = wi * 32 + lane, cstep = group * 32;
   auto col = [&](int s) { return (chunk0 + s * cstep) * V; };
@@ -247,7 +352,7 @@ __global__ void __launch_bounds__(WIDE ? 32 * kMaxGroup : 32 * kBwdWarps, 1)
         xch[(parity * kMaxGroup + warp) * 2] = s1;
         xch[(parity * kMaxGroup + warp) * 2 + 1] = s2;
       }
-      group_sync(1 + gi, group * 32);
+      hvd::bar_sync(1 + gi, group * 32);
       s1 = s2 = 0.f;
       for (int w = 0; w < group; ++w) {
         s1 += xch[(parity * kMaxGroup + gi * group + w) * 2];
@@ -368,13 +473,6 @@ __global__ void __launch_bounds__(32 * kRedRows)
   dbeta[c] = b;
 }
 
-template <typename T>
-int row_threads(int d) {
-  const int vecs = (d + Vec<T>::kN - 1) / Vec<T>::kN;
-  int t = (vecs + 31) / 32 * 32;
-  return t < 32 ? 32 : (t > 1024 ? 1024 : t);
-}
-
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -385,11 +483,73 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 constexpr int kSmemMax = 232448;  // shared memory a block may use
 
-// Largest d the kernels take (ops/cuda/layer_norm.py MAX_D).  Within it:
-// the forward stages one fp32 row in shared memory, and the wide backward
-// holds 8 chunks a lane in at most 16 warps (16384 fp32) and 3 fp32 rows
-// of shared memory (19328 columns in 227 KB).
+// Largest d the kernels take (ops/cuda/layer_norm.py MAX_D).  Within it
+// a row takes at most 16 warps at 8 chunks a lane (16384 fp32), and the
+// wide backward's 3 fp32 rows of shared memory fit in 227 KB (19328
+// columns); the bound is that of a forward that stages one fp32 row in
+// shared memory, kept so that the wrappers take the same widths as
+// before.
 constexpr int kMaxD = (kSmemMax / 4 - 32) / 4;
+
+// Row geometry from d and the dtype alone: `group` warps a row and `nv`
+// chunks a lane; wide above kRowWarps warps at kMaxSlots chunks a lane.
+struct Geometry {
+  int group, nv;
+  bool wide;
+};
+
+template <typename T>
+Geometry geometry(int d) {
+  const int chunks = (d + Vec<T>::kN - 1) / Vec<T>::kN;
+  int group = (chunks + 32 * kMaxSlots - 1) / (32 * kMaxSlots);
+  if (group > kRowWarps)
+    return {(chunks + 32 * kWideSlots - 1) / (32 * kWideSlots), kWideSlots,
+            true};
+  while (kRowWarps % group) ++group;  // 1, 2, 4 or 8 warps a row
+  const int nv = group == 1 && chunks <= 32   ? 1
+                 : group == 1 && chunks <= 64 ? 2
+                                              : kMaxSlots;
+  return {group, nv, false};
+}
+
+template <typename T, int NV, bool VEC, bool WIDE, bool ONE = false>
+cudaError_t launch_fwd_as(int blocks, int threads, size_t smem,
+                          cudaStream_t s, const T* x, const float* gamma,
+                          const float* beta, T* out, float* mean, float* rstd,
+                          int n, int d, int group, float eps) {
+  const auto kernel = ln_fwd_kernel<T, NV, VEC, WIDE, ONE>;
+  static const cudaError_t once = allow_smem(kernel, kSmemMax);
+  if (once != cudaSuccess) return once;
+  kernel<<<blocks, threads, smem, s>>>(x, gamma, beta, out, mean, rstd, n, d,
+                                       group, eps);
+  return cudaGetLastError();
+}
+
+// Blocks: as many as have a row for each of their groups, at most
+// max_blocks (the wrapper's choice from the card's SM count).
+template <typename T, bool VEC>
+cudaError_t launch_fwd(int max_blocks, cudaStream_t s, const T* x,
+                       const float* gamma, const float* beta, T* out,
+                       float* mean, float* rstd, int n, int d, float eps) {
+  const Geometry g = geometry<T>(d);
+  if (g.group > kMaxGroup) return cudaErrorInvalidValue;
+  const int rows = g.wide ? 1 : kRowWarps / g.group;  // a block at a time
+  const int blocks = static_cast<int>(
+      std::min<long long>((n + rows - 1) / rows, max_blocks));
+  if (g.wide)
+    return launch_fwd_as<T, kWideSlots, VEC, true>(
+        blocks, 32 * g.group, (kXch + 2 * static_cast<size_t>(d)) * 4, s, x,
+        gamma, beta, out, mean, rstd, n, d, g.group, eps);
+#define HVD_LN_FWD(NV, ONE)                                              \
+  launch_fwd_as<T, NV, VEC, false, ONE>(blocks, 32 * kRowWarps, kXch * 4, \
+                                        s, x, gamma, beta, out, mean,    \
+                                        rstd, n, d, g.group, eps)
+  if (g.nv == 1) return HVD_LN_FWD(1, true);
+  if (g.nv == 2) return HVD_LN_FWD(2, true);
+  if (g.group == 1) return HVD_LN_FWD(kMaxSlots, true);
+  return HVD_LN_FWD(kMaxSlots, false);
+#undef HVD_LN_FWD
+}
 
 template <typename T, int NV, bool VEC, bool WIDE>
 cudaError_t launch_bwd_as(int blocks, int threads, size_t smem,
@@ -405,32 +565,25 @@ cudaError_t launch_bwd_as(int blocks, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-// Chooses the row geometry from d: `group` warps a row, NV chunks a lane.
 template <typename T, bool VEC>
 cudaError_t launch_bwd(int blocks, cudaStream_t s, const T* x,
                        const float* gamma, const float* mean,
                        const float* rstd, const T* dy, T* dx, float* dg_part,
                        float* db_part, int n, int d) {
-  const int chunks = (d + Vec<T>::kN - 1) / Vec<T>::kN;
-  int group = (chunks + 32 * kMaxSlots - 1) / (32 * kMaxSlots);
-  if (group > kBwdWarps) {
-    group = (chunks + 32 * kWideSlots - 1) / (32 * kWideSlots);
-    if (group > kMaxGroup) return cudaErrorInvalidValue;
-    const size_t smem = (kXch + 3 * static_cast<size_t>(d)) * sizeof(float);
+  const Geometry g = geometry<T>(d);
+  if (g.group > kMaxGroup) return cudaErrorInvalidValue;
+  if (g.wide)
     return launch_bwd_as<T, kWideSlots, VEC, true>(
-        blocks, 32 * group, smem, s, x, gamma, mean, rstd, dy, dx, dg_part,
-        db_part, n, d, group);
-  }
-  while (kBwdWarps % group) ++group;  // 1, 2, 4 or 8 warps a row
+        blocks, 32 * g.group, (kXch + 3 * static_cast<size_t>(d)) * 4, s, x,
+        gamma, mean, rstd, dy, dx, dg_part, db_part, n, d, g.group);
   const size_t smem =
-      (kXch + 2 * static_cast<size_t>(kBwdWarps / group) * d) * sizeof(float);
-  const int threads = 32 * kBwdWarps;
-#define HVD_LN_BWD(NV)                                                      \
-  launch_bwd_as<T, NV, VEC, false>(blocks, threads, smem, s, x, gamma, mean, \
-                                   rstd, dy, dx, dg_part, db_part, n, d,     \
-                                   group)
-  if (group == 1 && chunks <= 32) return HVD_LN_BWD(1);
-  if (group == 1 && chunks <= 64) return HVD_LN_BWD(2);
+      (kXch + 2 * static_cast<size_t>(kRowWarps / g.group) * d) * 4;
+#define HVD_LN_BWD(NV)                                                   \
+  launch_bwd_as<T, NV, VEC, false>(blocks, 32 * kRowWarps, smem, s, x,   \
+                                   gamma, mean, rstd, dy, dx, dg_part,   \
+                                   db_part, n, d, g.group)
+  if (g.nv == 1) return HVD_LN_BWD(1);
+  if (g.nv == 2) return HVD_LN_BWD(2);
   return HVD_LN_BWD(kMaxSlots);
 #undef HVD_LN_BWD
 }
@@ -439,26 +592,31 @@ cudaError_t launch_bwd(int blocks, cudaStream_t s, const T* x,
 
 extern "C" {
 
+// max_blocks: the most blocks the forward may launch (the wrapper's
+// choice from the card's SM count); the rows are spread over them.
 int hvd_layer_norm_fwd(const void* x, const void* gamma, const void* beta,
                        void* out, void* mean, void* rstd, int n, int d,
-                       float eps, int dtype, void* stream) {
-  if (d > kMaxD) return cudaErrorInvalidValue;
+                       float eps, int max_blocks, int dtype, void* stream) {
+  if (d > kMaxD || max_blocks <= 0) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = (static_cast<size_t>(d) + 32) * sizeof(float);
   HVD_DISPATCH(dtype, {
+    const auto* xs = static_cast<const scalar_t*>(x);
+    const auto* g = static_cast<const float*>(gamma);
+    const auto* b = static_cast<const float*>(beta);
+    auto* os = static_cast<scalar_t*>(out);
+    auto* mu = static_cast<float*>(mean);
+    auto* rs = static_cast<float*>(rstd);
     const bool vec = d % Vec<scalar_t>::kN == 0 && aligned16(x) &&
-                     aligned16(out);
-    auto kernel = vec ? ln_fwd_kernel<scalar_t, true>
-                      : ln_fwd_kernel<scalar_t, false>;
-    cudaError_t err = allow_smem(kernel, smem);
+                     aligned16(out) && aligned16(gamma) && aligned16(beta);
+    const cudaError_t err =
+        vec ? launch_fwd<scalar_t, true>(max_blocks, s, xs, g, b, os, mu, rs,
+                                         n, d, eps)
+            : launch_fwd<scalar_t, false>(max_blocks, s, xs, g, b, os, mu,
+                                          rs, n, d, eps);
     if (err != cudaSuccess) return err;
-    kernel<<<n, row_threads<scalar_t>(d), smem, s>>>(
-        static_cast<const scalar_t*>(x), static_cast<const float*>(gamma),
-        static_cast<const float*>(beta), static_cast<scalar_t*>(out),
-        static_cast<float*>(mean), static_cast<float*>(rstd), d, eps);
   });
-  return cudaGetLastError();
+  return cudaSuccess;
 }
 
 // partials: fp32 [2, num_blocks, d] scratch owned by the caller;

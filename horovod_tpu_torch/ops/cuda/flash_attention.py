@@ -2,10 +2,10 @@
 tensors.
 
 Port of ``horovod_tpu/ops/pallas/flash_attention.py``.  The kernels are in
-``csrc/flash_attention.cu`` (the bf16 forward and dk/dv on ``wgmma`` with
-TMA tile pipelines, the rest on ``mma.sync`` or scalar fp32); the note
-there gives the TPU kernels they replace, their bound on the H100 and
-their design.
+``csrc/flash_attention.cu`` (in bf16 on ``wgmma`` with TMA tile
+pipelines, the forward a persistent kernel with one block an SM; in fp32
+with scalar FMAs); the note there gives the TPU kernels they replace,
+their bound on the H100 and their design.
 
 - ``flash_attention_fwd``, ``flash_attention_bwd_dq`` and
   ``flash_attention_bwd_dkv`` are the three kernel wrappers.  A CUDA
@@ -162,6 +162,18 @@ def flash_attention_fwd(q, k, v, causal, scale):
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_fwd_plan(b, h, tq, d):
+    """The bf16 forward kernel's launch plan on the current card for q of
+    shape ``[b, tq, h, d]``: ``{"grid": blocks, "k_stages": ...,
+    "v_stages": ...}`` (one block an SM, or one a 128-row work tile)."""
+    fn = _build.function("hvd_flash_fwd_plan", _I, _I, _I, _I, _P, _P, _P)
+    vals = [ctypes.c_int() for _ in range(3)]
+    _build.check(fn(b, h, tq, d, *map(ctypes.byref, vals)),
+                 "flash_attention_fwd_plan")
+    return dict(zip(("grid", "k_stages", "v_stages"),
+                    (v.value for v in vals)))
 
 
 def _check_bwd(what, q, k, v, dout, lse, delta):

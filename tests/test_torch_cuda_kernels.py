@@ -93,6 +93,49 @@ def test_layer_norm_backward_is_deterministic(dev, n, d, dtype):
             assert torch.equal(a, b)
 
 
+def test_layer_norm_forward_at_main_shape(dev):
+    """The forward at the main path's shape, with and without statistics,
+    against its plain version."""
+    rng = np.random.RandomState(11)
+    n, d = 16384, 1024
+    x = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    g = torch.from_numpy(1 + 0.1 * rng.randn(d).astype(np.float32)).to(dev)
+    b = torch.from_numpy(0.1 * rng.randn(d).astype(np.float32)).to(dev)
+    out, mean, rstd = ln.layer_norm_fwd(x, g, b, 1e-6, True)
+    p_out, p_mean, p_rstd = ln.layer_norm_fwd_plain(x, g, b, 1e-6)
+    _close(out, p_out, TOL[torch.bfloat16])
+    _close(mean, p_mean, 1e-5)
+    _close(rstd, p_rstd, 1e-4)
+    out2, _, _ = ln.layer_norm_fwd(x, g, b, 1e-6, False)
+    assert torch.equal(out2, out)
+
+
+@pytest.mark.parametrize("n,d,dtype", [
+    (16384, 1024, torch.bfloat16),  # the main path's: one warp a row
+    (3000, 1001, torch.bfloat16),   # scalar path
+    (700, 8192, torch.bfloat16),    # 8 warps share a row
+    (40, 12000, torch.bfloat16),    # wide rows: one group a block
+])
+def test_layer_norm_forward_rows_are_independent(dev, n, d, dtype):
+    """out, mean and rstd of x[i:j] are bitwise those rows of the result
+    for the whole x: the ranges start and end inside a block's rows and
+    cross the rows that one pass of the grid covers, so a prefetch that
+    mixed rows, or a row whose sums depended on where it fell, would
+    show."""
+    rng = np.random.RandomState(n)
+    x = torch.from_numpy(rng.randn(n, d).astype(np.float32)).to(dev, dtype)
+    g = torch.from_numpy(rng.randn(d).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.randn(d).astype(np.float32)).to(dev)
+    full = ln.layer_norm_fwd(x, g, b, 1e-6, True)
+    for i, j in ((0, 1), (3, 5), (5, 37), (n // 3, n // 3 + 2113),
+                 (n - 9, n)):
+        j = min(j, n)
+        part = ln.layer_norm_fwd(x[i:j], g, b, 1e-6, True)
+        for got, want in zip(part, full):
+            assert torch.equal(got, want[i:j]), (i, j)
+
+
 @pytest.mark.parametrize("n,v,dtype,scale", [
     (5, 1001, torch.float32, 3.0),     # scalar path
     (16, 32768, torch.bfloat16, 1.0),
@@ -267,6 +310,50 @@ def test_flash_kernels_match_plain(dev, dtype, b, tq, tkv, h, d, causal):
                                                   causal, scale)
     _close_rows(dk, p_dk, tol, "dk", noise)
     _close_rows(dv, p_dv, tol, "dv")
+
+
+@pytest.mark.parametrize("b,t,h,d,causal,scale", [
+    # more work tiles (9 x 36 = 324) than twice the persistent grid, the
+    # last tile of every (b, h) ragged
+    (4, 1100, 9, 128, True, None),
+    (4, 1100, 9, 128, False, None),
+    (4, 1100, 9, 64, True, None),
+    # fewer work tiles (2 x 3 = 6) than SMs
+    (1, 256, 3, 128, True, None),
+    (3, 100, 2, 64, False, None),
+    # a negative scale (the row max comes from the smallest score) and a
+    # zero one (every kept key weighs the same; masked keys none)
+    (2, 300, 2, 128, True, -0.1),
+    (2, 300, 2, 128, True, 0.0),
+])
+def test_flash_forward_persistent_matches_plain(dev, b, t, h, d, causal,
+                                                scale):
+    """The persistent bf16 forward, whose blocks walk many tiles or only
+    one, against its plain version (tolerances as at
+    ``test_flash_kernels_match_plain``)."""
+    q, k, v, _ = _qkvdo(dev, torch.bfloat16, b, t, t, h, d, seed=t + h)
+    scale = 1 / d ** 0.5 if scale is None else scale
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, causal, scale)
+    _close_rows(out, p_out, 2e-2, "out")
+    _close(lse, p_lse, 1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_slice_alone_is_bitwise_batched(dev, causal):
+    """One (b, h) computed alone (one block a tile) is bitwise the same
+    (b, h) computed inside the batch (each block walking several tiles of
+    other heads): no m, l, O or barrier phase leaks from one tile of a
+    block to the next."""
+    b, t, h, d = 4, 1100, 9, 128
+    q, k, v, _ = _qkvdo(dev, torch.bfloat16, b, t, t, h, d, seed=3)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, 0.125)
+    for bi, hi in ((0, 0), (1, 4), (3, 8)):
+        one = lambda x: x[bi:bi + 1, :, hi:hi + 1]
+        o1, l1 = fa.flash_attention_fwd(one(q), one(k), one(v), causal,
+                                        0.125)
+        assert torch.equal(o1, one(out)), (bi, hi)
+        assert torch.equal(l1[0, 0], lse[bi, hi]), (bi, hi)
 
 
 def test_flash_row_check_fails_a_dropped_tile(dev):
