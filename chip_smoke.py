@@ -17,7 +17,9 @@ Phases, each of which must pass:
    the LayerNorm's each a CUDA graph; the cross-entropy kernels mean of 20
    calls); then the flash kernels at ragged shapes (T = 96, 129 causal;
    T_q = 64 against T_kv = 128 and 128 against 320, not causal; 130
-   against 70, causal) in fp32 and bf16;
+   against 70, causal) in fp32 and bf16, at head dims 24, 40, 192 and 256
+   and at B*H = 65536 (the generic kernels), with the times of the D =
+   192 and 256 instances;
 4. check a small fp32 transformer on the card (kernels, flash attention
    included) against the same weights on the CPU (plain versions):
    logits, loss and gradients;
@@ -26,7 +28,14 @@ Phases, each of which must pass:
    ``DistributedOptimizer(AdamW(lr=1e-4, weight_decay=1e-4))`` over NCCL
    for a few steps on a fixed batch: the loss must be finite and fall,
    and every kernel's launch count must rise by its expected count per
-   step.
+   step; the eager plane's cycle thread runs beside it (``hvd.init``);
+6. run the eager collective plane on the card at ``min(cards, 4)``
+   ranks (one process a card above one): every collective in fp32, bf16,
+   fp16 and int32, join, barrier, ``broadcast_object`` and the in-place
+   variants against torch ops on the card, a stream-ordering check, and
+   ``grouped_allreduce`` of the full-width model's gradients against
+   ``allreduce_gradients``; prints the median negotiation time and the
+   fused allreduce's time and GB/s.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
@@ -296,6 +305,7 @@ def check_kernels():
     del logits, dlogits, p_dlogits, lg, lib_loss
     kernels += check_flash()
     check_flash_ragged()
+    check_flash_wide()
     for k in kernels:
         print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3e} "
               f"ms {k['ms']:.4f} plain_ms {k['plain_ms']:.4f} "
@@ -469,6 +479,49 @@ def check_flash_ragged():
             print(f"flash ragged {tag}: max abs err {errs}", flush=True)
 
 
+def check_flash_wide():
+    """Phase 3, the head dims and head counts the ``wgmma`` kernels do not
+    take, which run the generic kernels: D = 24, 40, 192 and 256 in fp32
+    and bf16, causal and not ([2, 160, 3, D] against [2, 96, 3, D] keys
+    when causal, else T = 130), and B*H = 65536 at T = 16 (D = 16: bf16
+    on the wgmma kernels; D = 24).  Tolerances as in
+    ``check_flash_ragged``.  Then the times of the D = 192 and 256
+    instances at ``[4, 1024, 8, D]`` bf16 and fp32, causal (mean of 10
+    calls)."""
+    import torch
+
+    from horovod_tpu_torch.ops.cuda import flash_attention as fa
+
+    for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        for d in (24, 40, 192, 256):
+            for causal in (True, False):
+                tq, tkv = (160, 96) if causal else (130, 130)
+                q, k, v, do = flash_inputs(dtype, 2, tq, tkv, 3, d, seed=d)
+                tag = f"D {d} T_q {tq} T_kv {tkv} causal {causal} {dtype}"
+                errs, _, _ = run_flash(q, k, v, do, causal, d ** -0.5, rel,
+                                       tag)
+                print(f"flash wide {tag}: max abs err {errs}", flush=True)
+        for d in (16, 24):
+            q, k, v, do = flash_inputs(dtype, 256, 16, 16, 256, d, seed=d)
+            tag = f"B*H 65536 T 16 D {d} {dtype}"
+            errs, _, _ = run_flash(q, k, v, do, True, 0.25, rel, tag)
+            print(f"flash heads {tag}: max abs err {errs}", flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (192, 256):
+            q, k, v, do = flash_inputs(dtype, 4, 1024, 1024, 8, d, seed=d)
+            out, lse = fa.flash_attention_fwd(q, k, v, True, d ** -0.5)
+            delta = (do.float() * out.float()).sum(-1).transpose(
+                1, 2).contiguous()
+            args = (q, k, v, do, lse, delta, True, d ** -0.5)
+            ms = [time_ms(lambda: fa.flash_attention_fwd(q, k, v, True,
+                                                         d ** -0.5), 10),
+                  time_ms(lambda: fa.flash_attention_bwd_dq(*args), 10),
+                  time_ms(lambda: fa.flash_attention_bwd_dkv(*args), 10)]
+            print(f"flash wide time [4, 1024, 8, {d}] {dtype} causal: fwd "
+                  f"{ms[0]:.4f} ms, dq {ms[1]:.4f} ms, dkv {ms[2]:.4f} ms",
+                  flush=True)
+
+
 def check_small_model():
     """Phase 4: the kernels inside the model agree with the plain path."""
     import numpy as np
@@ -513,8 +566,8 @@ def train(layers, steps, smi, profile=False):
     import torch
 
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.models import Transformer, TransformerConfig, \
-        lm_loss
+    from horovod_tpu_torch.common import basics as hvd_basics
+    from horovod_tpu_torch.models import Transformer, TransformerConfig
     from horovod_tpu_torch.ops import cuda as kernels
 
     hvd.init()
@@ -535,21 +588,12 @@ def train(layers, steps, smi, profile=False):
         tokens = torch.from_numpy(np.random.RandomState(0).randint(
             0, VOCAB, (batch, seq))).to(hvd.device())
         print(f"train: depth {layers} layers (full: 8), {n_params} "
-              f"parameters, batch {batch} x seq {seq}", flush=True)
+              f"parameters, batch {batch} x seq {seq}; eager plane "
+              f"running: {hvd_basics._get_state().controller.is_running()}",
+              flush=True)
 
         kernels.reset_launch_counts()
-        losses, times = [], []
-        for _ in range(steps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            opt.zero_grad(set_to_none=True)
-            logits = model(tokens)
-            loss = lm_loss(logits, tokens)
-            loss.backward()
-            opt.step()
-            losses.append(loss.item())
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
+        logits, losses, times = _timed_steps(model, opt, tokens, steps)
         counts = kernels.launch_counts()
         profiled_ms = _profile_step(model, opt, tokens) if profile else None
         if tuple(logits.shape) != (batch, seq, VOCAB):
@@ -587,6 +631,443 @@ def train(layers, steps, smi, profile=False):
     return counts, {"losses": losses, "step_s": times,
                     "tokens_per_s": batch * seq / steady,
                     "layers": layers, "params": n_params}
+
+
+def _timed_steps(model, opt, tokens, steps):
+    """``steps`` training steps; -> (the last logits, the losses, each
+    step's seconds on the host clock, the card synchronised around it)."""
+    import torch
+
+    from horovod_tpu_torch.models import lm_loss
+
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        logits = model(tokens)
+        loss = lm_loss(logits, tokens)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return logits, losses, times
+
+
+# Phase 6 tolerances against the same function in torch ops on the card:
+# fp32 sums in another order; bf16 and fp16 one rounding of each partial
+# sum (the ring's order, not torch's); integers exactly.  Each relative to
+# the tensor's largest entry as an absolute floor too, for sums that
+# cancel.
+EAGER_TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 4e-3,
+             "int32": 0}
+
+
+def eager_checks(layers):
+    """Phase 6 on this rank, ``hvd.init()`` done: every eager collective
+    on tensors on the card against the same function in torch ops (each
+    rank makes every rank's inputs from seeds), a stream-ordering check,
+    then ``grouped_allreduce`` of the full-width model's gradients (fp32,
+    the shapes of phase 5's parameters, values from seeds) against
+    ``allreduce_gradients``: bitwise at one rank, within fp32 rounding
+    above.  -> the rank's numbers."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import mpi_ops
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.common.ops_enum import reduce_scatter_split_sizes
+    from horovod_tpu_torch.models import Transformer, TransformerConfig
+
+    dev, r, n = hvd.device(), hvd.rank(), hvd.size()
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+              "float16": torch.float16, "int32": torch.int32}
+    checked = []
+
+    def every(shape_of, dtype, seed):
+        """Every rank's input: rank q's from seed and q."""
+        out = []
+        for q in range(n):
+            gen = torch.Generator(device=dev).manual_seed(seed * 1009 + q)
+            shape = shape_of(q) if callable(shape_of) else shape_of
+            if dtype == torch.int32:
+                out.append(torch.randint(-1000, 1000, shape, generator=gen,
+                                         device=dev, dtype=dtype))
+            else:
+                out.append(torch.randn(shape, generator=gen,
+                                       device=dev).to(dtype))
+        return out
+
+    def reduced(xs, average, pre=1.0, post=1.0):
+        """The plane's arithmetic in torch ops: prescale in the dtype, the
+        sum, the average and the postscale in the dtype; integers summed
+        exactly and scaled once in float64, truncated."""
+        dtype = xs[0].dtype
+        if dtype.is_floating_point:
+            s = torch.stack([x * pre if pre != 1.0 else x
+                             for x in xs]).float().sum(0).to(dtype)
+            if average:
+                s = s / n
+            return s * post if post != 1.0 else s
+        s = torch.stack(xs).long().sum(0)
+        factor = pre * post / (n if average else 1)
+        return (s.double() * factor if factor != 1.0 else s).to(dtype)
+
+    def expect(what, got, want):
+        torch.cuda.synchronize()
+        tol = EAGER_TOL[str(want.dtype).replace("torch.", "")]
+        same = (got.dtype == want.dtype and got.shape == want.shape
+                and got.device == want.device)
+        if same and tol == 0:
+            same = torch.equal(got, want)
+        elif same:
+            scale = max([1.0] + [float(want.float().abs().max())]
+                        * (want.numel() > 0))
+            same = torch.allclose(got.float(), want.float(), rtol=tol,
+                                  atol=tol * scale)
+        if not same:
+            raise AssertionError(
+                f"eager {what} on rank {r}: got {got.dtype} "
+                f"{tuple(got.shape)} on {got.device}, want {want.dtype} "
+                f"{tuple(want.shape)}"
+                + (f", max abs err {max_err(got, want):.3e}"
+                   if got.shape == want.shape else ""))
+        checked.append(what)
+
+    splits = [d + 1 for d in range(n)]
+    rows = 2 * n + 1
+    counts = reduce_scatter_split_sizes(rows, n)
+    for name, dtype in dtypes.items():
+        xs = every((257, 33), dtype, 1)
+        expect(f"allreduce average {name}",
+               hvd.allreduce(xs[r], name=f"p6.avg.{name}"), reduced(xs, True))
+        expect(f"allreduce sum {name}",
+               hvd.allreduce(xs[r], op=hvd.Sum, name=f"p6.sum.{name}"),
+               reduced(xs, False))
+        expect(f"allreduce scaled {name}",
+               hvd.allreduce(xs[r], op=hvd.Average, prescale_factor=0.5,
+                             postscale_factor=3.0, name=f"p6.scaled.{name}"),
+               reduced(xs, True, 0.5, 3.0))
+        ys = every(lambda q: (q + 1, 5), dtype, 2)
+        expect(f"allgather {name}", hvd.allgather(ys[r], name=f"p6.ag.{name}"),
+               torch.cat(ys))
+        expect(f"broadcast {name}",
+               hvd.broadcast(xs[r], root_rank=n - 1, name=f"p6.bc.{name}"),
+               xs[n - 1])
+        zs = every((sum(splits), 4), dtype, 3)
+        got, recv = hvd.synchronize(hvd.alltoall_async(
+            zs[r], splits=torch.tensor(splits), name=f"p6.a2a.{name}"))
+        recv = recv.tolist()
+        off = sum(splits[:r])
+        expect(f"alltoall {name}", got,
+               torch.cat([z[off:off + splits[r]] for z in zs]))
+        if list(recv) != [splits[r]] * n:
+            raise AssertionError(f"alltoall {name}: received splits {recv}")
+        ws = every((rows, 3), dtype, 4)
+        off = sum(counts[:r])
+        expect(f"reduce_scatter {name}",
+               hvd.reduce_scatter(ws[r], name=f"p6.rs.{name}"),
+               reduced(ws, True)[off:off + counts[r]])
+
+    gs = [every((100 + 7 * i,), dt, 10 + i)
+          for i, dt in enumerate(dtypes.values())]
+    outs = hvd.grouped_allreduce([g[r] for g in gs], op=hvd.Sum,
+                                 name="p6.grouped")
+    for name, g, o in zip(dtypes, gs, outs):
+        expect(f"grouped_allreduce {name}", o, reduced(g, False))
+    # the in-place variants of mpi_ops write into the caller's tensors
+    xs = every((64, 3), torch.float32, 5)
+    t = xs[r].clone()
+    if mpi_ops.allreduce_(t, name="p6.ar_") is not t:
+        raise AssertionError("allreduce_ returned another tensor")
+    expect("mpi_ops allreduce_", t, reduced(xs, True))
+    t = xs[r].clone()
+    mpi_ops.broadcast_(t, 0, name="p6.bc_")
+    expect("mpi_ops broadcast_", t, xs[0])
+    ts = [g[r].clone() for g in gs]
+    mpi_ops.grouped_allreduce_(ts, op=hvd.Sum, name="p6.grouped_")
+    for name, g, t in zip(dtypes, gs, ts):
+        expect(f"mpi_ops grouped_allreduce_ {name}", t, reduced(g, False))
+
+    # join: the first half of the ranks stops after one step; the others'
+    # second step sums without them; the last to join is one of the others
+    for i in range(1 if r < n // 2 else 2):
+        doers = [q for q in range(n) if i < (1 if q < n // 2 else 2)]
+        expect(f"join step {i}", hvd.allreduce(
+            torch.full((4,), float(r + 1), device=dev), op=hvd.Sum,
+            name=f"p6.join.{i}"),
+            torch.full((4,), float(sum(q + 1 for q in doers)), device=dev))
+    last = hvd.join()
+    if not n // 2 <= last < n:
+        raise AssertionError(f"join returned {last}")
+    hvd.barrier(name="p6.barrier")
+    obj = hvd.broadcast_object({"from": r, "xs": list(range(1000))}
+                               if r == 0 else None, root_rank=0)
+    if obj != {"from": 0, "xs": list(range(1000))}:
+        raise AssertionError("broadcast_object")
+
+    # stream order: the tensor is submitted while 128 kernels queued on
+    # the current stream are still writing it (about 5 ms of work)
+    big = torch.zeros(1 << 24, device=dev)
+    for _ in range(128):
+        big.add_(1.0)
+    got = hvd.synchronize(hvd.allreduce_async(big, op=hvd.Sum,
+                                              name="p6.stream"))
+    expect("stream order", got, torch.full_like(big, 128.0 * n))
+    del big, got
+
+    cfg = TransformerConfig(vocab_size=VOCAB, n_layers=layers,
+                            d_model=D_MODEL, n_heads=D_MODEL // 128,
+                            d_ff=4 * D_MODEL, max_len=2048,
+                            dtype=torch.bfloat16)
+    shapes = [p.shape for p in
+              Transformer(cfg, device=dev, seed=0).parameters()]
+    gen = torch.Generator(device=dev).manual_seed(100 + r)
+    grads = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    nbytes = sum(g.numel() * g.element_size() for g in grads)
+    want = hvd.allreduce_gradients(grads)
+    got = hvd.grouped_allreduce(grads, name="p6.grads")
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        if n == 1 and not torch.equal(a, b):
+            raise AssertionError(f"gradient {i}: eager and direct differ")
+        scale = float(b.abs().max())
+        if not torch.allclose(a, b, rtol=1e-5, atol=1e-6 * scale):
+            raise AssertionError(f"gradient {i}: eager and direct differ "
+                                 f"beyond fp32 rounding")
+    checked.append("grouped_allreduce of the full-width gradients")
+
+    def timed(fn, iters=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    del got, want
+    eager_ms = timed(lambda: hvd.grouped_allreduce(grads, name="p6.grads"))
+    direct_ms = timed(lambda: hvd.allreduce_gradients(grads))
+    controller = basics._get_state().controller
+    res = {"rank": r, "world": n,
+           "params": sum(g.numel() for g in grads), "bytes": nbytes,
+           "eager_ms": eager_ms, "eager_gb_s": nbytes / eager_ms / 1e6,
+           "direct_ms": direct_ms, "direct_gb_s": nbytes / direct_ms / 1e6,
+           "negotiation_ms_median": 1e3 * statistics.median(
+               controller.negotiation_times()),
+           "cycles": len(controller.negotiation_times()),
+           "cache_hits": controller.cache_hits}
+    del grads
+    checked += sync_batch_norm_under_optimizer()
+    res["checks"] = len(checked)
+    res.update(step_with_and_without_plane(layers))
+    return res
+
+
+def sync_batch_norm_under_optimizer(steps=3):
+    """``SyncBatchNorm`` trained by ``DistributedOptimizer`` (SGD) on each
+    rank's 8 rows of a global batch, with an eager allreduce in flight
+    through every step: the plane's collectives (the allreduce, the
+    statistics' allgather, the backward's allreduce) and the optimizer's
+    run on two communicators and must not deadlock.  Held against one
+    ``BatchNorm1d`` model trained on the whole batch on this card: fp32,
+    rtol 1e-4 with an absolute floor of 1e-5 of the tensor's largest
+    entry (the statistics summed in another order, three steps).
+    -> the names of the checks."""
+    import torch
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+
+    dev, r, n = hvd.device(), hvd.rank(), hvd.size()
+    rows, width = 8, 64
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(rows * n, width, generator=gen, device=dev)
+    y = torch.randn(rows * n, 4, generator=gen, device=dev)
+
+    def make(norm):
+        torch.manual_seed(5)
+        return torch.nn.Sequential(
+            torch.nn.Linear(width, 32), norm, torch.nn.ReLU(),
+            torch.nn.Linear(32, 4)).to(dev)
+
+    model, ref = make(hvd.SyncBatchNorm(32)), make(torch.nn.BatchNorm1d(32))
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1),
+        named_parameters=model.named_parameters())
+    ref_opt = torch.optim.SGD(ref.parameters(), lr=0.1)
+    mine = slice(r * rows, (r + 1) * rows)
+    checked = []
+    for step in range(steps):
+        h = hvd.allreduce_async(
+            torch.full((1024,), float(r + step), device=dev), op=hvd.Sum,
+            name=f"p6.sbn.flight.{step}")
+        opt.zero_grad()
+        F.mse_loss(model(x[mine]), y[mine]).backward()
+        opt.step()
+        got = hvd.synchronize(h)
+        torch.cuda.synchronize()
+        if not torch.equal(got, torch.full_like(
+                got, float(n * step + n * (n - 1) // 2))):
+            raise AssertionError(f"allreduce in flight, step {step}")
+        ref_opt.zero_grad()
+        F.mse_loss(ref(x), y).backward()
+        ref_opt.step()
+    want = ref.state_dict()
+    for k, got in model.state_dict().items():
+        scale = max(1.0, float(want[k].abs().max()))
+        if not torch.allclose(got.double(), want[k].double(), rtol=1e-4,
+                              atol=1e-5 * scale):
+            raise AssertionError(
+                f"SyncBatchNorm under DistributedOptimizer on rank {r}: "
+                f"{k} max abs err {max_err(got, want[k]):.3e}")
+        checked.append(f"sync_batch_norm {k}")
+    return checked
+
+
+def step_with_and_without_plane(layers, steps=6, pairs=3):
+    """Phase 5's training step at ``hvd.size()`` ranks, each on a batch of
+    its own, the gradients averaged by ``DistributedOptimizer``, in
+    blocks of ``steps`` that alternate between the eager plane's cycle
+    thread running and idle, and the plane stopped (a negotiated stop;
+    the optimizer does not use the plane; a new plane, with groups of
+    its own, starts before each running block), ``pairs`` of each, after
+    two steps of warm-up: a drift of the host over the run falls on both
+    sides.  -> the median step of the running and of the stopped blocks
+    (each block's first step left out), each block's median, and the
+    cycles the plane ran meanwhile."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.models import Transformer, TransformerConfig
+
+    batch, seq = 8, 2048
+    cfg = TransformerConfig(vocab_size=VOCAB, n_layers=layers,
+                            d_model=D_MODEL, n_heads=D_MODEL // 128,
+                            d_ff=4 * D_MODEL, max_len=seq,
+                            dtype=torch.bfloat16)
+    model = Transformer(cfg, seed=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    tokens = torch.from_numpy(np.random.RandomState(100 + hvd.rank()).randint(
+        0, VOCAB, (batch, seq))).to(hvd.device())
+    _, losses, _ = _timed_steps(model, opt, tokens, 2)
+    on, off, medians, cycles, on_s = [], [], [], 0, 0.0
+    for block in range(2 * pairs):
+        state = basics._get_state()
+        running = block % 2 == 0
+        if running and block > 0:
+            basics._state = dataclasses.replace(
+                state, controller=basics._start_eager_plane(
+                    state.rank, state.size, state.device,
+                    "nccl" if state.device.type == "cuda" else "gloo"))
+        controller = basics._get_state().controller
+        if controller.is_running() != running:
+            raise AssertionError(f"block {block}: the eager plane is "
+                                 f"{'' if running else 'not '}stopped")
+        start = controller.cycles
+        _, block_losses, times = _timed_steps(model, opt, tokens, steps)
+        losses += block_losses
+        medians.append(1e3 * statistics.median(times[1:]))
+        (on if running else off).extend(times[1:])
+        if running:
+            cycles += controller.cycles - start
+            on_s += sum(times)
+            controller.shutdown()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"step losses {losses}")
+    return {"step_ms_plane_on": 1e3 * statistics.median(on),
+            "step_ms_plane_off": 1e3 * statistics.median(off),
+            "step_ms_blocks": medians,
+            "plane_cycles_during_steps": cycles,
+            "plane_cycles_per_s": cycles / on_s}
+
+
+def eager_phase(smi, layers):
+    """Phase 6: :func:`eager_checks` at ``world = min(cards, 4)`` ranks,
+    in this process at one card, else one process a card over NCCL (two
+    ranks on one card are refused by NCCL)."""
+    import socket
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    world = min(torch.cuda.device_count(), 4)
+    if world == 1:
+        hvd.init()
+        try:
+            results = [eager_checks(layers)]
+        finally:
+            hvd.shutdown()
+    else:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        procs = []
+        try:
+            for r in range(world):
+                env = dict(os.environ, HVD_RANK=str(r), HVD_SIZE=str(world),
+                           HVD_LOCAL_RANK=str(r), HVD_LOCAL_SIZE=str(world),
+                           HVD_RENDEZVOUS_ADDR="127.0.0.1",
+                           HVD_RENDEZVOUS_PORT=str(port))
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--eager-rank", str(layers)], env=env,
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"eager rank {r} exited "
+                                     f"{p.returncode}:\n{out}")
+        results = [json.loads(line.split(" ", 1)[1]) for out in outs
+                   for line in out.splitlines()
+                   if line.startswith("EAGER_RESULT ")]
+    for res in results:
+        print(f"eager rank {res['rank']} of {res['world']}: {res['checks']} "
+              f"checks passed; negotiation median "
+              f"{res['negotiation_ms_median']:.4f} ms over {res['cycles']} "
+              f"cycles; grouped_allreduce of {res['params']} fp32 gradients "
+              f"{res['eager_ms']:.3f} ms ({res['eager_gb_s']:.1f} GB/s), "
+              f"allreduce_gradients {res['direct_ms']:.3f} ms "
+              f"({res['direct_gb_s']:.1f} GB/s); {res['cache_hits']} cache "
+              f"hits on {smi}", flush=True)
+        print(f"eager rank {res['rank']} of {res['world']}: step at "
+              f"{res['world']} GPU(s) {res['step_ms_plane_on']:.2f} ms with "
+              f"the plane running ({res['plane_cycles_during_steps']} "
+              f"cycles, {res['plane_cycles_per_s']:.1f} a second), "
+              f"{res['step_ms_plane_off']:.2f} ms with it stopped; block "
+              f"medians (running and stopped in turns) "
+              f"{[round(t, 2) for t in res['step_ms_blocks']]} ms on {smi}",
+              flush=True)
+    return results
+
+
+def _eager_rank(layers):
+    """One rank of phase 6 above one card (``--eager-rank``)."""
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    try:
+        res = eager_checks(layers)
+    finally:
+        hvd.shutdown()
+    print("EAGER_RESULT " + json.dumps(res), flush=True)
+    return 0
 
 
 def _profile_step(model, opt, tokens):
@@ -631,7 +1112,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile one extra training step")
+    ap.add_argument("--eager-rank", type=int, metavar="LAYERS",
+                    help=argparse.SUPPRESS)  # one rank of phase 6
     args = ap.parse_args(argv)
+    if args.eager_rank is not None:
+        return _eager_rank(args.eager_rank)
 
     import torch
 
@@ -659,10 +1144,11 @@ def main(argv=None):
     counts, run = train(LAYERS, STEPS, smi, args.profile)
     for k in kernels:
         k["launches"] = counts[k["name"]]
+    eager = eager_phase(smi, LAYERS)
 
     with open(os.path.join(_out_dir(), "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "kernels": kernels, "train": run}, f,
-                  indent=1)
+        json.dump({"card": smi, "kernels": kernels, "train": run,
+                   "eager": eager}, f, indent=1)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -2,13 +2,19 @@
 
 Horovod's training surface on ``torch.distributed`` (NCCL on the card,
 gloo on the CPU), with the JAX package's Pallas kernels rewritten as CUDA
-kernels for the H100 (``horovod_tpu_torch/csrc``).  Entry points run on
-the card unless the caller passes ``device="cpu"``.
+kernels for the H100 (``horovod_tpu_torch/csrc``), and Horovod's eager
+collective plane: named async collectives negotiated across ranks, fused
+and run on NCCL (``mpi_ops``, Horovod's torch surface with integer
+handles, over ``ops/eager.py`` and ``ops/controller.py``).
+Entry points run on the card unless the caller passes ``device="cpu"``.
 
     import horovod_tpu_torch as hvd
     hvd.init()
     opt = hvd.DistributedOptimizer(torch.optim.AdamW(model.parameters()))
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    total = hvd.allreduce(torch.ones(3, device=hvd.device()), op=hvd.Sum)
+    h = hvd.allreduce_async_(grad)   # an integer handle
+    hvd.synchronize(h)               # grad now holds the average
 """
 
 from horovod_tpu_torch.common.basics import (  # noqa: F401
@@ -24,11 +30,39 @@ from horovod_tpu_torch.common.basics import (  # noqa: F401
     size,
 )
 from horovod_tpu_torch.common.compression import Compression  # noqa: F401
+from horovod_tpu_torch.common.handles import HvdError  # noqa: F401
+from horovod_tpu_torch.common.objects import broadcast_object  # noqa: F401
 from horovod_tpu_torch.common.ops_enum import (  # noqa: F401
     Adasum,
     Average,
     ReduceOp,
     Sum,
+)
+from horovod_tpu_torch.mpi_ops import (  # noqa: F401
+    allgather,
+    allgather_async,
+    allreduce,
+    allreduce_,
+    allreduce_async,
+    allreduce_async_,
+    alltoall,
+    alltoall_async,
+    barrier,
+    broadcast,
+    broadcast_,
+    broadcast_async,
+    broadcast_async_,
+    grouped_allgather,
+    grouped_allgather_async,
+    grouped_allreduce,
+    grouped_allreduce_,
+    grouped_allreduce_async,
+    grouped_allreduce_async_,
+    join,
+    poll,
+    reduce_scatter,
+    reduce_scatter_async,
+    synchronize,
 )
 from horovod_tpu_torch.optimizer import (  # noqa: F401
     DistributedOptimizer,
@@ -36,3 +70,4 @@ from horovod_tpu_torch.optimizer import (  # noqa: F401
     broadcast_optimizer_state,
     broadcast_parameters,
 )
+from horovod_tpu_torch.sync_batch_norm import SyncBatchNorm  # noqa: F401

@@ -15,6 +15,18 @@ Rendezvous, in order of precedence:
 The backend is NCCL on the card (the default) and gloo only when the
 caller asks for the CPU.  Asking for the card on a machine without one
 raises.
+
+``init`` also starts the eager collective plane (``ops/controller.py``):
+two process groups of its own, made in the same order on every rank (a
+gloo group for the negotiation's metadata and a data group, NCCL on the
+card), and its cycle thread.  ``DistributedOptimizer`` keeps the default
+group, used from the caller's thread: two threads sharing one NCCL
+communicator could issue their collectives in different orders on
+different ranks and deadlock.  Two communicators need the same order of
+launches on every rank too: the optimizer waits for the plane to issue
+what this rank submitted before each of its collectives
+(``Controller.drain``).  ``shutdown`` stops the plane (a negotiated step:
+every rank calls it) before it destroys the groups.
 """
 
 import dataclasses
@@ -24,6 +36,8 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.ops.controller import Controller
+from horovod_tpu_torch.ops.nccl_executor import Executor
 from horovod_tpu_torch.utils import env as env_util
 
 _state = None
@@ -39,6 +53,7 @@ class _State:
     cross_rank: int
     cross_size: int
     device: torch.device
+    controller: object   # ops.controller.Controller, the eager plane
 
 
 def resolve_device(device=None):
@@ -93,7 +108,17 @@ def init(device=None, store_path=None, timeout=timedelta(seconds=300)):
             dist.init_process_group(backend, store=store, rank=rank,
                                     world_size=size, timeout=timeout)
         _state = _State(rank, size, local_rank, local_size, cross_rank,
-                        cross_size, device)
+                        cross_size, device,
+                        _start_eager_plane(rank, size, device, backend))
+
+
+def _start_eager_plane(rank, size, device, backend):
+    meta = dist.new_group(backend="gloo")
+    data = dist.new_group(backend=backend)
+    controller = Controller(rank, size, meta,
+                            Executor(data, rank, size, device))
+    controller.start()
+    return controller
 
 
 def shutdown():
@@ -101,6 +126,7 @@ def shutdown():
     with _state_lock:
         if _state is None:
             return
+        _state.controller.shutdown()
         if dist.is_initialized():
             dist.destroy_process_group()
         _state = None

@@ -70,3 +70,31 @@ class Compression:
     none = NoneCompressor
     bf16 = BF16Compressor
     fp16 = FP16Compressor
+
+
+# Canonical names travel in the negotiation (request signatures, fusion
+# bucket keys); classes stay the Python API surface.
+COMPRESSION_NAMES = {
+    "none": NoneCompressor,
+    "bf16": BF16Compressor,
+    "fp16": FP16Compressor,
+}
+
+
+def resolve_compression(value, default="none") -> str:
+    """Normalize a user-facing compression argument: ``None`` (the
+    default), a canonical name, or a ``Compressor`` class or instance, to
+    its canonical name.  ``"int8"`` (block-scaled int8) raises
+    ``NotImplementedError``: it is ROADMAP A.6."""
+    if value is None:
+        value = default
+    name = value.lower() if isinstance(value, str) else getattr(
+        value, "name", None)
+    if name == "int8":
+        raise NotImplementedError(
+            "int8 block-scaled compression is not ported yet (ROADMAP A.6)")
+    if isinstance(name, str) and name in COMPRESSION_NAMES:
+        return name
+    raise ValueError(
+        f"unknown compression {value!r}; expected one of "
+        f"{sorted(COMPRESSION_NAMES)} or a Compression class")

@@ -1,0 +1,99 @@
+"""Async-op handles (copy of ``horovod_tpu/common/handles.py``'s
+``HvdError``, ``Handle`` and ``HandleManager``).
+
+The reference exposes integer handles managed by a poll/wait map
+(``horovod/torch/handle_manager.{h,cc}``).  The eager plane returns
+:class:`Handle` objects; ``mpi_ops`` wraps them in integers.
+
+A handle of a collective on the card also carries ``event``, the CUDA
+event its result is complete at on the plane's stream (the reference's
+``ReadyEvent`` in reverse): ``ops.eager.wait`` makes the caller's
+stream wait on it.
+"""
+
+import threading
+
+
+class HvdError(RuntimeError):
+    """Raised when a collective fails (reference: Response::ERROR path)."""
+
+
+class Handle:
+    """Completion handle for one rank's view of one collective."""
+
+    __slots__ = ("_event", "_result", "_error", "name", "event")
+
+    def __init__(self, name=""):
+        self._event = threading.Event()
+        self._result = None
+        self._error = None
+        self.name = name
+        self.event = None
+
+    def set_result(self, result, event=None):
+        # first completion wins: a shutdown and the op's own failure path
+        # may both reach the same handle
+        if self._event.is_set():
+            return
+        self._result = result
+        self.event = event
+        self._event.set()
+
+    def set_error(self, message):
+        if self._event.is_set():
+            return
+        self._error = (message if isinstance(message, HvdError)
+                       else HvdError(message))
+        self._event.set()
+
+    def poll(self) -> bool:
+        return self._event.is_set()
+
+    def wait(self, timeout=None):
+        if not self._event.wait(timeout):
+            raise TimeoutError(
+                f"collective '{self.name}' did not complete within {timeout}s")
+        if self._error is not None:
+            raise self._error
+        return self._result
+
+
+class HandleManager:
+    """Integer-handle indirection used by the torch surface (reference:
+    ``horovod/torch/handle_manager.cc:47``)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._next = 0
+        self._handles = {}
+
+    def allocate(self, handle) -> int:
+        with self._lock:
+            idx = self._next
+            self._next += 1
+            self._handles[idx] = handle
+        return idx
+
+    def get(self, idx: int):
+        with self._lock:
+            if idx not in self._handles:
+                raise ValueError(f"unknown handle {idx}")
+            return self._handles[idx]
+
+    def poll(self, idx: int) -> bool:
+        return self.get(idx).poll()
+
+    def wait(self, idx: int, timeout=None):
+        handle = self.get(idx)
+        try:
+            result = handle.wait(timeout)
+        except TimeoutError:
+            raise  # handle stays registered: the collective may still
+            # complete, and a retry must be able to collect the result
+        except Exception:
+            with self._lock:  # terminal (HvdError): drop the entry
+                self._handles.pop(idx, None)
+            raise
+        with self._lock:
+            self._handles.pop(idx, None)
+        return result

@@ -1,5 +1,6 @@
-"""Reduction-op enum (copy of ``horovod_tpu/common/ops_enum.py``'s
-``ReduceOp`` surface: Average / Sum / Adasum)."""
+"""Reduction-op and request enums (copy of
+``horovod_tpu/common/ops_enum.py``: ``ReduceOp``, ``RequestType`` and the
+reduce-scatter partition)."""
 
 import enum
 
@@ -13,3 +14,23 @@ class ReduceOp(enum.IntEnum):
 Average = ReduceOp.AVERAGE
 Sum = ReduceOp.SUM
 Adasum = ReduceOp.ADASUM
+
+
+class RequestType(enum.IntEnum):
+    """What a rank asks the negotiation for (reference: message.h
+    RequestType)."""
+
+    ALLREDUCE = 0
+    ALLGATHER = 1
+    BROADCAST = 2
+    JOIN = 3
+    ADASUM = 4
+    ALLTOALL = 5
+    REDUCE_SCATTER = 6
+
+
+def reduce_scatter_split_sizes(dim0, num_ranks):
+    """First-dimension block sizes for REDUCE_SCATTER, np.array_split
+    style: the first ``dim0 % num_ranks`` ranks get one extra row."""
+    base, extra = divmod(int(dim0), int(num_ranks))
+    return [base + 1 if r < extra else base for r in range(num_ranks)]

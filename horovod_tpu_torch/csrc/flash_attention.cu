@@ -13,9 +13,13 @@
 // the outputs once is about 0.04 ms at 3.35 TB/s, so the tensor cores, not
 // the memory, are the limit.
 //
-// Two designs live here, chosen by dtype in the C entry points.
+// Two designs live here, chosen in the C entry points by dtype and head
+// dim: bf16 with D a multiple of 16 up to 128 (the main path's D = 128
+// among them) runs the wgmma kernels; every other D up to 256, in bf16,
+// and every fp32 shape run the generic kernels.
 //
-// bf16, every kernel (namespace sm90k): wgmma, TMA, one producer warp.
+// bf16, D in {16, 32, ..., 128} (namespace sm90k): wgmma, TMA, one
+// producer warp.
 // - Block of 384 threads: two consumer warpgroups and a producer
 //   warpgroup, of which one warp makes the copies.
 //   Forward: persistent, one block an SM (or one a work tile, if fewer).
@@ -92,10 +96,20 @@
 //   forward's O beside S and P, without spilling (-Xptxas -v: no spills in
 //   any instance).
 //
-// fp32, every kernel: full fp32 products (no TF32) with scalar FMAs, in
-// the accumulator layout of mma.sync m16n8.  One block of 4 warps per
-// (b*h, 64-row tile), each warp 16 rows; 64-row tiles of K/V (Q/dO) staged
-// in shared memory by synchronous loads; P and dS through shared memory.
+// Generic (fp32, and bf16 at the other D): full fp32 products (no TF32)
+// with scalar FMAs on operands read in their own type, in the accumulator
+// layout of mma.sync m16n8.  One block of 4 warps per (b*h, 64-row tile),
+// each warp 16 rows; B*H on grid.x, so it may reach 2^31 - 1, the tile on
+// grid.y.  Instances by head-dim bound 64, 128 and 256 (accumulators of
+// D/8 column groups); the loop's inner tile (keys of the forward and dq,
+// queries of dk/dv) is 64 rows, 32 at D > 128 so that the fp32 tiles fit
+// in shared memory.  Tiles are staged by synchronous loads (16-byte
+// vectors where base, strides and D allow, else element by element), the
+// columns past D zero-filled to the next multiple of 8, so that they add
+// nothing to the products; stores mask them (element by element at odd
+// D).  P and dS through shared memory, rounded to the input type.  At D =
+// 256 dk/dv's two accumulators alone take 256 registers a thread, so that
+// instance spills (-Xptxas -v).
 //
 // Common to both:
 // - No block writes another block's output, so the backward needs no
@@ -124,16 +138,38 @@
 
 namespace {
 
-constexpr int kTile = 64;               // rows of every tile
+constexpr int kTile = 64;               // rows of a block's own tile
 constexpr int kWarps = 4;               // 16 rows of the tile per warp
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;              // widest head dim of any instance
 constexpr float kNegInf = -1e30f;
 
-// Shared-memory row pitch in elements: rows padded by 16 bytes, so that
-// the rows one warp reads at the same column fall in distinct banks.
-template <typename T> __host__ __device__ constexpr int padded(int cols) {
-  return cols + 16 / static_cast<int>(sizeof(T));
+// The generic kernels come in three instances by head-dim bound MD = 64,
+// 128 and 256 (accumulators of MD / 8 column groups a warp).  The loop's
+// inner tile (keys in the forward and dq, queries in dk/dv) is 64 rows,
+// 32 at MD = 256, which keeps dq's and dk/dv's fp32 tiles inside 227 KB.
+template <int MD> __host__ __device__ constexpr int inner_rows() {
+  return MD > 128 ? 32 : 64;
+}
+
+// Shared-memory row pitch in elements for d columns: d rounded up to the
+// 8-column groups of the products, then 16 bytes more, so that the rows
+// one warp reads at the same column fall in distinct banks.
+template <typename T> __host__ __device__ constexpr int pitch(int d) {
+  return (d + 7) / 8 * 8 + 16 / static_cast<int>(sizeof(T));
+}
+
+template <typename T> __device__ __forceinline__ float to_f(T x);
+template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
+    __nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16(x);
 }
 
 // Element strides of a [B, T, H, D] tensor whose D is contiguous.
@@ -141,28 +177,30 @@ struct Strides {
   long long b, t, h;
 };
 
-// Warp-level fp32 product, in full fp32 with scalar FMAs, into
-// accumulators laid out as mma.sync m16n8 C fragments: c[j] holds, for
-// this lane (g = lane / 4, t2 = 2 * (lane % 4)), rows {g, g + 8} and
-// columns {8j + t2, 8j + t2 + 1} of a [16, 8 * NT] result:
+// Warp-level product, in full fp32 with scalar FMAs on operands read as
+// T, into accumulators laid out as mma.sync m16n8 C fragments: c[j]
+// holds, for this lane (g = lane / 4, t2 = 2 * (lane % 4)), rows {g, g +
+// 8} and columns {8j + t2, 8j + t2 + 1} of a [16, 8 * NT] result:
 //   c[j][0] = (g, 8j + t2)      c[j][1] = (g, 8j + t2 + 1)
 //   c[j][2] = (g + 8, 8j + t2)  c[j][3] = (g + 8, 8j + t2 + 1)
 // C[16, ncols] += A[16, kdim] B[kdim, ncols].  A is row-major with pitch
 // lda.  B is stored [n][k] with pitch ldb (the product is A B^T, kKN false)
-// or [k][n] (kKN true).  ncols is a multiple of 8, at most 8 * NT.
-template <bool kKN, int NT>
-__device__ __forceinline__ void warp_mma(float (&c)[NT][4], const float* A,
-                                         int lda, const float* B, int ldb,
+// or [k][n] (kKN true).  Column groups at or past ncols are skipped; the
+// columns of the last group past ncols must read as zeros.
+template <bool kKN, int NT, typename T>
+__device__ __forceinline__ void warp_mma(float (&c)[NT][4], const T* A,
+                                         int lda, const T* B, int ldb,
                                          int kdim, int ncols) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t2 = (lane & 3) * 2;
   for (int k = 0; k < kdim; ++k) {
-    const float a0 = A[g * lda + k], a1 = A[(g + 8) * lda + k];
+    const float a0 = to_f(A[g * lda + k]), a1 = to_f(A[(g + 8) * lda + k]);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       if (j * 8 < ncols) {
         const int n = j * 8 + t2;
-        const float b0 = kKN ? B[k * ldb + n] : B[n * ldb + k];
-        const float b1 = kKN ? B[k * ldb + n + 1] : B[(n + 1) * ldb + k];
+        const float b0 = to_f(kKN ? B[k * ldb + n] : B[n * ldb + k]);
+        const float b1 =
+            to_f(kKN ? B[k * ldb + n + 1] : B[(n + 1) * ldb + k]);
         c[j][0] = fmaf(a0, b0, c[j][0]);
         c[j][1] = fmaf(a0, b1, c[j][1]);
         c[j][2] = fmaf(a1, b0, c[j][2]);
@@ -178,29 +216,58 @@ template <> __device__ __forceinline__ void store2<float>(float* p, float a,
                                                           float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-// (bf16: the stores of the sm90k kernels)
 template <> __device__ __forceinline__ void store2<__nv_bfloat16>(
     __nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// Rows [row0, row0 + kTile) of a [n_rows, d] slab whose rows lie
-// row_stride elements apart, into shared memory with pitch ld.  Rows past
-// n_rows are zero-filled.  16-byte vectors: d * sizeof(T), row_stride *
-// sizeof(T) and the base address are multiples of 16 (checked by the
-// wrapper).
+// Columns col and col + 1 (col even) of a d-column output row: a pair
+// store where d is even (the pair then lies inside the row and on its
+// alignment), else one element at a time, masked at d.
 template <typename T>
+__device__ __forceinline__ void store_cols(T* row, int col, int d, float a,
+                                           float b) {
+  if (col >= d) return;
+  if ((d & 1) == 0) {
+    store2(row + col, a, b);
+    return;
+  }
+  row[col] = from_f<T>(a);
+  if (col + 1 < d) row[col + 1] = from_f<T>(b);
+}
+
+// Rows [row0, row0 + kRows) of a [n_rows, d] slab whose rows lie
+// row_stride elements apart, into shared memory with pitch ld, d rounded
+// up to 8 columns.  Rows past n_rows and columns past d are zero-filled.
+// vec: 16-byte vectors (d * sizeof(T), the strides and the base address
+// are multiples of 16 bytes); else one element at a time.
+template <typename T, int kRows>
 __device__ __forceinline__ void load_tile(T* dst, const T* src,
                                           long long row_stride, int row0,
-                                          int n_rows, int d, int ld) {
-  constexpr int V = 16 / sizeof(T);
-  const int per_row = d / V;
-  for (int i = threadIdx.x; i < kTile * per_row; i += kThreads) {
-    const int r = i / per_row, c = (i - r * per_row) * V;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+                                          int n_rows, int d, int ld,
+                                          bool vec) {
+  const int d8 = (d + 7) / 8 * 8;
+  if (vec) {
+    constexpr int V = 16 / sizeof(T);
+    const int per_row = d / V;
+    for (int i = threadIdx.x; i < kRows * per_row; i += kThreads) {
+      const int r = i / per_row, c = (i - r * per_row) * V;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (row0 + r < n_rows)
+        val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride +
+                                              c);
+      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+    }
+    const int tail = d8 - d;  // 0 or 4 columns (fp32 only)
+    for (int i = threadIdx.x; i < kRows * tail; i += kThreads)
+      dst[(i / tail) * ld + d + i % tail] = from_f<T>(0.f);
+    return;
+  }
+  for (int i = threadIdx.x; i < kRows * d8; i += kThreads) {
+    const int r = i / d8, c = i - r * d8;
+    dst[r * ld + c] = (row0 + r < n_rows && c < d)
+                          ? src[(row0 + r) * row_stride + c]
+                          : from_f<T>(0.f);
   }
 }
 
@@ -219,50 +286,61 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Number of kTile-row key tiles that the query rows [q0, q_end) of a
-// causal problem see: the last one holds key q_end - 1.
+// Number of kN-row key tiles that the query rows [q0, q0 + kTile) of a
+// problem see; causal: the last one holds key q_end - 1.
+template <int kN>
 __device__ __forceinline__ int key_tiles(int q0, int tq, int tkv,
                                          bool causal) {
-  const int all = (tkv + kTile - 1) / kTile;
+  const int all = (tkv + kN - 1) / kN;
   if (!causal) return all;
   const int q_end = min(q0 + kTile, tq);
-  return min(all, (q_end - 1) / kTile + 1);
+  return min(all, (q_end - 1) / kN + 1);
 }
 
 struct Problem {
   int h, tq, tkv, d;
   float scale;
   bool causal;
+  bool vec;  // every input takes 16-byte vector loads (generic kernels)
   Strides qs, ks, vs, dos;
 };
 
-// Shared memory of each kernel, in bytes, for head dim d.
-template <typename T> __host__ __device__ constexpr int fwd_smem(int d) {
-  return (3 * kTile * padded<T>(d) + kTile * padded<T>(kTile)) * sizeof(T);
+// Shared memory of each generic kernel, in bytes, for head dim d.
+template <typename T, int MD> __host__ __device__ constexpr int fwd_smem(
+    int d) {
+  return (kTile * pitch<T>(d) + 2 * inner_rows<MD>() * pitch<T>(d) +
+          kTile * pitch<T>(inner_rows<MD>())) * sizeof(T);
 }
-template <typename T> __host__ __device__ constexpr int dq_smem(int d) {
-  return (4 * kTile * padded<T>(d) + kTile * padded<T>(kTile)) * sizeof(T);
+template <typename T, int MD> __host__ __device__ constexpr int dq_smem(
+    int d) {
+  return (2 * kTile * pitch<T>(d) + 2 * inner_rows<MD>() * pitch<T>(d) +
+          kTile * pitch<T>(inner_rows<MD>())) * sizeof(T);
 }
-template <typename T> __host__ __device__ constexpr int dkv_smem(int d) {
-  return (4 * kTile * padded<T>(d) + 2 * kTile * padded<T>(kTile)) *
-             sizeof(T) + 2 * kTile * sizeof(float);
+template <typename T, int MD> __host__ __device__ constexpr int dkv_smem(
+    int d) {
+  return (2 * kTile * pitch<T>(d) + 2 * inner_rows<MD>() * pitch<T>(d) +
+          2 * kTile * pitch<T>(inner_rows<MD>())) * sizeof(T) +
+         2 * inner_rows<MD>() * sizeof(float);
 }
+static_assert(dkv_smem<float, 256>(256) <= 232448, "dk/dv tiles too large");
+static_assert(dq_smem<float, 256>(256) <= 232448, "dq tiles too large");
 
 // ------------------------------------------------------------- forward
-template <typename T>
+template <typename T, int MD>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(Problem pb, const T* __restrict__ q,
                      const T* __restrict__ k, const T* __restrict__ v,
                      T* __restrict__ out, float* __restrict__ lse) {
+  constexpr int kN = inner_rows<MD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int d = pb.d, ld = padded<T>(d), ldp = padded<T>(kTile);
+  const int d = pb.d, ld = pitch<T>(d), ldp = pitch<T>(kN);
   T* sQ = reinterpret_cast<T*>(smem_raw);
   T* sK = sQ + kTile * ld;
-  T* sV = sK + kTile * ld;
-  T* sP = sV + kTile * ld;
+  T* sV = sK + kN * ld;
+  T* sP = sV + kN * ld;
 
-  const int bh = blockIdx.y, b = bh / pb.h, h = bh - b * pb.h;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // longest first
+  const int bh = blockIdx.x, b = bh / pb.h, h = bh - b * pb.h;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // longest first
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t2 = (lane & 3) * 2;
   const int wrow = warp * 16;
@@ -271,33 +349,33 @@ __global__ void __launch_bounds__(kThreads)
   const T* qg = q + b * pb.qs.b + h * pb.qs.h;
   const T* kg = k + b * pb.ks.b + h * pb.ks.h;
   const T* vg = v + b * pb.vs.b + h * pb.vs.h;
-  load_tile(sQ, qg, pb.qs.t, q0, pb.tq, d, ld);
+  load_tile<T, kTile>(sQ, qg, pb.qs.t, q0, pb.tq, d, ld, pb.vec);
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[kMaxD / 8][4];
+  float o[MD / 8][4];
 #pragma unroll
-  for (int j = 0; j < kMaxD / 8; ++j)
+  for (int j = 0; j < MD / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
 
-  const int nk = key_tiles(q0, pb.tq, pb.tkv, pb.causal);
+  const int nk = key_tiles<kN>(q0, pb.tq, pb.tkv, pb.causal);
   for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
+    const int k0 = kt * kN;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile(sK, kg, pb.ks.t, k0, pb.tkv, d, ld);
-    load_tile(sV, vg, pb.vs.t, k0, pb.tkv, d, ld);
+    load_tile<T, kN>(sK, kg, pb.ks.t, k0, pb.tkv, d, ld, pb.vec);
+    load_tile<T, kN>(sV, vg, pb.vs.t, k0, pb.tkv, d, ld, pb.vec);
     __syncthreads();
 
-    float s[kTile / 8][4];
+    float s[kN / 8][4];
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    warp_mma<false, kTile / 8>(s, sQ + wrow * ld, ld, sK, ld, d, kTile);
+    warp_mma<false, kN / 8>(s, sQ + wrow * ld, ld, sK, ld, d, kN);
 
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + j * 8 + t2 + (e & 1), row = rows[e >> 1];
@@ -312,7 +390,7 @@ __global__ void __launch_bounds__(kThreads)
       alpha[i] = m[i] > kNegInf / 2 ? expf(m[i] - mx[i]) : 0.f;
     }
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1;
@@ -325,19 +403,19 @@ __global__ void __launch_bounds__(kThreads)
       m[i] = mx[i];
     }
 #pragma unroll
-    for (int j = 0; j < kMaxD / 8; ++j)
+    for (int j = 0; j < MD / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
 
     // P (rounded to T) through shared memory, this warp's 16 rows only
     T* pw = sP + wrow * ldp;
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
+    for (int j = 0; j < kN / 8; ++j) {
       store2(pw + g * ldp + j * 8 + t2, s[j][0], s[j][1]);
       store2(pw + (g + 8) * ldp + j * 8 + t2, s[j][2], s[j][3]);
     }
     __syncwarp();
-    warp_mma<true, kMaxD / 8>(o, pw, ldp, sV, ld, kTile, d);
+    warp_mma<true, MD / 8>(o, pw, ldp, sV, ld, kN, d);
     __syncwarp();
   }
 
@@ -349,32 +427,33 @@ __global__ void __launch_bounds__(kThreads)
     const float inv = 1.f / l_safe;
     T* orow = out + ((static_cast<long long>(b) * pb.tq + row) * pb.h + h) * d;
 #pragma unroll
-    for (int j = 0; j < kMaxD / 8; ++j)
-      if (j * 8 < d)
-        store2(orow + j * 8 + t2, o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
+    for (int j = 0; j < MD / 8; ++j)
+      store_cols(orow, j * 8 + t2, d, o[j][2 * i] * inv,
+                 o[j][2 * i + 1] * inv);
     if (t2 == 0)
       lse[static_cast<long long>(bh) * pb.tq + row] = m[i] + logf(l_safe);
   }
 }
 
 // ------------------------------------------------------------------ dq
-template <typename T>
+template <typename T, int MD>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(Problem pb, const T* __restrict__ q,
                         const T* __restrict__ k, const T* __restrict__ v,
                         const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq) {
+  constexpr int kN = inner_rows<MD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int d = pb.d, ld = padded<T>(d), ldp = padded<T>(kTile);
+  const int d = pb.d, ld = pitch<T>(d), ldp = pitch<T>(kN);
   T* sQ = reinterpret_cast<T*>(smem_raw);
   T* sDO = sQ + kTile * ld;
   T* sK = sDO + kTile * ld;
-  T* sV = sK + kTile * ld;
-  T* sDS = sV + kTile * ld;
+  T* sV = sK + kN * ld;
+  T* sDS = sV + kN * ld;
 
-  const int bh = blockIdx.y, b = bh / pb.h, h = bh - b * pb.h;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // longest first
+  const int bh = blockIdx.x, b = bh / pb.h, h = bh - b * pb.h;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // longest first
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t2 = (lane & 3) * 2;
   const int wrow = warp * 16;
@@ -382,9 +461,10 @@ __global__ void __launch_bounds__(kThreads)
 
   const T* kg = k + b * pb.ks.b + h * pb.ks.h;
   const T* vg = v + b * pb.vs.b + h * pb.vs.h;
-  load_tile(sQ, q + b * pb.qs.b + h * pb.qs.h, pb.qs.t, q0, pb.tq, d, ld);
-  load_tile(sDO, dout + b * pb.dos.b + h * pb.dos.h, pb.dos.t, q0, pb.tq, d,
-            ld);
+  load_tile<T, kTile>(sQ, q + b * pb.qs.b + h * pb.qs.h, pb.qs.t, q0, pb.tq,
+                      d, ld, pb.vec);
+  load_tile<T, kTile>(sDO, dout + b * pb.dos.b + h * pb.dos.h, pb.dos.t, q0,
+                      pb.tq, d, ld, pb.vec);
   float row_lse[2], row_delta[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -394,30 +474,30 @@ __global__ void __launch_bounds__(kThreads)
     row_delta[i] = in ? delta[at] : 0.f;
   }
 
-  float acc[kMaxD / 8][4];
+  float acc[MD / 8][4];
 #pragma unroll
-  for (int j = 0; j < kMaxD / 8; ++j)
+  for (int j = 0; j < MD / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  const int nk = key_tiles(q0, pb.tq, pb.tkv, pb.causal);
+  const int nk = key_tiles<kN>(q0, pb.tq, pb.tkv, pb.causal);
   for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
+    const int k0 = kt * kN;
     __syncthreads();
-    load_tile(sK, kg, pb.ks.t, k0, pb.tkv, d, ld);
-    load_tile(sV, vg, pb.vs.t, k0, pb.tkv, d, ld);
+    load_tile<T, kN>(sK, kg, pb.ks.t, k0, pb.tkv, d, ld, pb.vec);
+    load_tile<T, kN>(sV, vg, pb.vs.t, k0, pb.tkv, d, ld, pb.vec);
     __syncthreads();
 
-    float s[kTile / 8][4], dp[kTile / 8][4];
+    float s[kN / 8][4], dp[kN / 8][4];
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
+    for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    warp_mma<false, kTile / 8>(s, sQ + wrow * ld, ld, sK, ld, d, kTile);
-    warp_mma<false, kTile / 8>(dp, sDO + wrow * ld, ld, sV, ld, d, kTile);
+    warp_mma<false, kN / 8>(s, sQ + wrow * ld, ld, sK, ld, d, kN);
+    warp_mma<false, kN / 8>(dp, sDO + wrow * ld, ld, sV, ld, d, kN);
     T* dsw = sDS + wrow * ldp;
 #pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
+    for (int j = 0; j < kN / 8; ++j) {
       float ds[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -433,7 +513,7 @@ __global__ void __launch_bounds__(kThreads)
       store2(dsw + (g + 8) * ldp + j * 8 + t2, ds[2], ds[3]);
     }
     __syncwarp();
-    warp_mma<true, kMaxD / 8>(acc, dsw, ldp, sK, ld, kTile, d);
+    warp_mma<true, MD / 8>(acc, dsw, ldp, sK, ld, kN, d);
     __syncwarp();
   }
 
@@ -443,13 +523,13 @@ __global__ void __launch_bounds__(kThreads)
     T* drow =
         dq + ((static_cast<long long>(b) * pb.tq + rows[i]) * pb.h + h) * d;
 #pragma unroll
-    for (int j = 0; j < kMaxD / 8; ++j)
-      if (j * 8 < d) store2(drow + j * 8 + t2, acc[j][2 * i], acc[j][2 * i + 1]);
+    for (int j = 0; j < MD / 8; ++j)
+      store_cols(drow, j * 8 + t2, d, acc[j][2 * i], acc[j][2 * i + 1]);
   }
 }
 
 // --------------------------------------------------------------- dk, dv
-template <typename T>
+template <typename T, int MD>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(Problem pb, const T* __restrict__ q,
                          const T* __restrict__ k, const T* __restrict__ v,
@@ -457,19 +537,20 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          T* __restrict__ dk, T* __restrict__ dv) {
+  constexpr int kN = inner_rows<MD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int d = pb.d, ld = padded<T>(d), ldp = padded<T>(kTile);
+  const int d = pb.d, ld = pitch<T>(d), ldp = pitch<T>(kN);
   T* sK = reinterpret_cast<T*>(smem_raw);
   T* sV = sK + kTile * ld;
   T* sQ = sV + kTile * ld;
-  T* sDO = sQ + kTile * ld;
-  T* sP = sDO + kTile * ld;  // P^T: [key][query]
+  T* sDO = sQ + kN * ld;
+  T* sP = sDO + kN * ld;      // P^T: [key][query]
   T* sDS = sP + kTile * ldp;  // dS^T
   float* sLse = reinterpret_cast<float*>(sDS + kTile * ldp);
-  float* sDelta = sLse + kTile;
+  float* sDelta = sLse + kN;
 
-  const int bh = blockIdx.y, b = bh / pb.h, h = bh - b * pb.h;
-  const int k0 = blockIdx.x * kTile;
+  const int bh = blockIdx.x, b = bh / pb.h, h = bh - b * pb.h;
+  const int k0 = blockIdx.y * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t2 = (lane & 3) * 2;
   const int wrow = warp * 16;
@@ -479,24 +560,26 @@ __global__ void __launch_bounds__(kThreads)
   const T* dog = dout + b * pb.dos.b + h * pb.dos.h;
   const float* lse_bh = lse + static_cast<long long>(bh) * pb.tq;
   const float* delta_bh = delta + static_cast<long long>(bh) * pb.tq;
-  load_tile(sK, k + b * pb.ks.b + h * pb.ks.h, pb.ks.t, k0, pb.tkv, d, ld);
-  load_tile(sV, v + b * pb.vs.b + h * pb.vs.h, pb.vs.t, k0, pb.tkv, d, ld);
+  load_tile<T, kTile>(sK, k + b * pb.ks.b + h * pb.ks.h, pb.ks.t, k0, pb.tkv,
+                      d, ld, pb.vec);
+  load_tile<T, kTile>(sV, v + b * pb.vs.b + h * pb.vs.h, pb.vs.t, k0, pb.tkv,
+                      d, ld, pb.vec);
 
-  float dk_acc[kMaxD / 8][4], dv_acc[kMaxD / 8][4];
+  float dk_acc[MD / 8][4], dv_acc[MD / 8][4];
 #pragma unroll
-  for (int j = 0; j < kMaxD / 8; ++j)
+  for (int j = 0; j < MD / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
 
-  // query tiles strictly before this key tile see none of it
-  const int nq = (pb.tq + kTile - 1) / kTile;
-  const int first = pb.causal ? k0 / kTile : 0;
+  // query tiles wholly before this key tile see none of it
+  const int nq = (pb.tq + kN - 1) / kN;
+  const int first = pb.causal ? k0 / kN : 0;
   for (int qt = first; qt < nq; ++qt) {
-    const int q0 = qt * kTile;
+    const int q0 = qt * kN;
     __syncthreads();
-    load_tile(sQ, qg, pb.qs.t, q0, pb.tq, d, ld);
-    load_tile(sDO, dog, pb.dos.t, q0, pb.tq, d, ld);
-    if (threadIdx.x < kTile) {
+    load_tile<T, kN>(sQ, qg, pb.qs.t, q0, pb.tq, d, ld, pb.vec);
+    load_tile<T, kN>(sDO, dog, pb.dos.t, q0, pb.tq, d, ld, pb.vec);
+    if (threadIdx.x < kN) {
       const int row = q0 + threadIdx.x;
       sLse[threadIdx.x] = row < pb.tq ? lse_bh[row] : kNegInf;
       sDelta[threadIdx.x] = row < pb.tq ? delta_bh[row] : 0.f;
@@ -508,19 +591,17 @@ __global__ void __launch_bounds__(kThreads)
     T* pw = sP + wrow * ldp;
     T* dsw = sDS + wrow * ldp;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = half * (kTile / 2);
-      float st[kTile / 16][4], dpt[kTile / 16][4];
+    for (int part = 0; part < kN / 32; ++part) {
+      const int c0 = part * 32;
+      float st[4][4], dpt[4][4];
 #pragma unroll
-      for (int j = 0; j < kTile / 16; ++j)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-      warp_mma<false, kTile / 16>(st, sK + wrow * ld, ld, sQ + c0 * ld, ld,
-                                  d, kTile / 2);
-      warp_mma<false, kTile / 16>(dpt, sV + wrow * ld, ld, sDO + c0 * ld, ld,
-                                  d, kTile / 2);
+      warp_mma<false, 4>(st, sK + wrow * ld, ld, sQ + c0 * ld, ld, d, 32);
+      warp_mma<false, 4>(dpt, sV + wrow * ld, ld, sDO + c0 * ld, ld, d, 32);
 #pragma unroll
-      for (int j = 0; j < kTile / 16; ++j) {
+      for (int j = 0; j < 4; ++j) {
         float p[4], ds[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -541,8 +622,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncwarp();
-    warp_mma<true, kMaxD / 8>(dv_acc, pw, ldp, sDO, ld, kTile, d);
-    warp_mma<true, kMaxD / 8>(dk_acc, dsw, ldp, sQ, ld, kTile, d);
+    warp_mma<true, MD / 8>(dv_acc, pw, ldp, sDO, ld, kN, d);
+    warp_mma<true, MD / 8>(dk_acc, dsw, ldp, sQ, ld, kN, d);
   }
 
 #pragma unroll
@@ -551,11 +632,11 @@ __global__ void __launch_bounds__(kThreads)
     const long long at =
         ((static_cast<long long>(b) * pb.tkv + keys[i]) * pb.h + h) * d;
 #pragma unroll
-    for (int j = 0; j < kMaxD / 8; ++j) {
-      if (j * 8 < d) {
-        store2(dk + at + j * 8 + t2, dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
-        store2(dv + at + j * 8 + t2, dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
-      }
+    for (int j = 0; j < MD / 8; ++j) {
+      store_cols(dk + at, j * 8 + t2, d, dk_acc[j][2 * i],
+                 dk_acc[j][2 * i + 1]);
+      store_cols(dv + at, j * 8 + t2, d, dv_acc[j][2 * i],
+                 dv_acc[j][2 * i + 1]);
     }
   }
 }
@@ -569,45 +650,69 @@ cudaError_t allow_smem(K kernel, int bytes) {
                               bytes);
 }
 
+// B*H on grid.x (up to 2^31 - 1), the 64-row tiles of T on grid.y (up to
+// 65535 of them).
 bool valid(int b, int h, int tq, int tkv, int d) {
-  return b > 0 && h > 0 && tq > 0 && tkv > 0 && d % 16 == 0 && d >= 16 &&
-         d <= kMaxD && static_cast<long long>(b) * h <= 65535;
+  return b > 0 && h > 0 && tq > 0 && tkv > 0 && d >= 1 && d <= kMaxD &&
+         static_cast<long long>(b) * h <= 0x7fffffffLL &&
+         (tq + kTile - 1) / kTile <= 65535 &&
+         (tkv + kTile - 1) / kTile <= 65535;
 }
 
-// strides: 3 per tensor (batch, seq, head), in argument order
+// The bf16 head dims the wgmma kernels take (their TMA boxes hold 64 or
+// 128 columns, their K steps 16); every other bf16 D and all of fp32 run
+// the generic kernels.
+bool sm90k_route(int dtype, int d) {
+  return dtype == hvd::kBFloat16 && d % 16 == 0 && d <= 128;
+}
+
+// 16-byte vector loads: the base, the strides and a row of d elements
+// all multiples of 16 bytes.
+bool vec_ok(const void* p, const Strides& s, int d, int elem) {
+  const int v = 16 / elem;
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && d % v == 0 &&
+         s.b % v == 0 && s.t % v == 0 && s.h % v == 0;
+}
+
+// strides: 3 per tensor (batch, seq, head), in argument order (q, k, v
+// and, in the backward, dout)
 Problem problem(int h, int tq, int tkv, int d, float scale, int causal,
-                const long long* strides, int n_tensors) {
-  Problem pb{h, tq, tkv, d, scale, causal != 0, {}, {}, {}, {}};
+                const long long* strides, const void* const* ptrs,
+                int n_tensors, int dtype) {
+  Problem pb{h, tq, tkv, d, scale, causal != 0, true, {}, {}, {}, {}};
   Strides* dst[4] = {&pb.qs, &pb.ks, &pb.vs, &pb.dos};
-  for (int i = 0; i < n_tensors; ++i)
+  const int elem = dtype == hvd::kFloat32 ? 4 : 2;
+  for (int i = 0; i < n_tensors; ++i) {
     *dst[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+    pb.vec = pb.vec && vec_ok(ptrs[i], *dst[i], d, elem);
+  }
   return pb;
 }
 
-template <typename T>
+template <typename T, int MD>
 cudaError_t launch_fwd(const Problem& pb, int b, const void* q,
                        const void* k, const void* v, void* out, void* lse,
                        cudaStream_t s) {
   static const cudaError_t once =
-      allow_smem(flash_fwd_kernel<T>, fwd_smem<T>(kMaxD));
+      allow_smem(flash_fwd_kernel<T, MD>, fwd_smem<T, MD>(MD));
   if (once != cudaSuccess) return once;
-  const dim3 grid((pb.tq + kTile - 1) / kTile, b * pb.h);
-  flash_fwd_kernel<T><<<grid, kThreads, fwd_smem<T>(pb.d), s>>>(
+  const dim3 grid(b * pb.h, (pb.tq + kTile - 1) / kTile);
+  flash_fwd_kernel<T, MD><<<grid, kThreads, fwd_smem<T, MD>(pb.d), s>>>(
       pb, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
       static_cast<float*>(lse));
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int MD>
 cudaError_t launch_dq(const Problem& pb, int b, const void* q, const void* k,
                       const void* v, const void* dout, const void* lse,
                       const void* delta, void* dq, cudaStream_t s) {
   static const cudaError_t once =
-      allow_smem(flash_bwd_dq_kernel<T>, dq_smem<T>(kMaxD));
+      allow_smem(flash_bwd_dq_kernel<T, MD>, dq_smem<T, MD>(MD));
   if (once != cudaSuccess) return once;
-  const dim3 grid((pb.tq + kTile - 1) / kTile, b * pb.h);
-  flash_bwd_dq_kernel<T><<<grid, kThreads, dq_smem<T>(pb.d), s>>>(
+  const dim3 grid(b * pb.h, (pb.tq + kTile - 1) / kTile);
+  flash_bwd_dq_kernel<T, MD><<<grid, kThreads, dq_smem<T, MD>(pb.d), s>>>(
       pb, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -615,21 +720,55 @@ cudaError_t launch_dq(const Problem& pb, int b, const void* q, const void* k,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int MD>
 cudaError_t launch_dkv(const Problem& pb, int b, const void* q,
                        const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk,
                        void* dv, cudaStream_t s) {
   static const cudaError_t once =
-      allow_smem(flash_bwd_dkv_kernel<T>, dkv_smem<T>(kMaxD));
+      allow_smem(flash_bwd_dkv_kernel<T, MD>, dkv_smem<T, MD>(MD));
   if (once != cudaSuccess) return once;
-  const dim3 grid((pb.tkv + kTile - 1) / kTile, b * pb.h);
-  flash_bwd_dkv_kernel<T><<<grid, kThreads, dkv_smem<T>(pb.d), s>>>(
+  const dim3 grid(b * pb.h, (pb.tkv + kTile - 1) / kTile);
+  flash_bwd_dkv_kernel<T, MD><<<grid, kThreads, dkv_smem<T, MD>(pb.d), s>>>(
       pb, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<T*>(dk), static_cast<T*>(dv));
   return cudaGetLastError();
+}
+
+// The generic instance by head-dim bound.
+template <typename T>
+cudaError_t generic_fwd(const Problem& pb, int b, const void* q,
+                        const void* k, const void* v, void* out, void* lse,
+                        cudaStream_t s) {
+  if (pb.d <= 64) return launch_fwd<T, 64>(pb, b, q, k, v, out, lse, s);
+  if (pb.d <= 128) return launch_fwd<T, 128>(pb, b, q, k, v, out, lse, s);
+  return launch_fwd<T, 256>(pb, b, q, k, v, out, lse, s);
+}
+
+template <typename T>
+cudaError_t generic_dq(const Problem& pb, int b, const void* q,
+                       const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, void* dq,
+                       cudaStream_t s) {
+  if (pb.d <= 64)
+    return launch_dq<T, 64>(pb, b, q, k, v, dout, lse, delta, dq, s);
+  if (pb.d <= 128)
+    return launch_dq<T, 128>(pb, b, q, k, v, dout, lse, delta, dq, s);
+  return launch_dq<T, 256>(pb, b, q, k, v, dout, lse, delta, dq, s);
+}
+
+template <typename T>
+cudaError_t generic_dkv(const Problem& pb, int b, const void* q,
+                        const void* k, const void* v, const void* dout,
+                        const void* lse, const void* delta, void* dk,
+                        void* dv, cudaStream_t s) {
+  if (pb.d <= 64)
+    return launch_dkv<T, 64>(pb, b, q, k, v, dout, lse, delta, dk, dv, s);
+  if (pb.d <= 128)
+    return launch_dkv<T, 128>(pb, b, q, k, v, dout, lse, delta, dk, dv, s);
+  return launch_dkv<T, 256>(pb, b, q, k, v, dout, lse, delta, dk, dv, s);
 }
 
 // ===================================================== bf16 on Hopper
@@ -1654,30 +1793,35 @@ extern "C" {
 
 // q [b, tq, h, d], k/v [b, tkv, h, d], strided (D contiguous; strides: 9
 // int64, batch/seq/head of q, k, v).  out: contiguous [b, tq, h, d];
-// lse: fp32 [b*h, tq].
+// lse: fp32 [b*h, tq].  1 <= d <= 256.
 int hvd_flash_fwd(const void* q, const void* k, const void* v, void* out,
                   void* lse, int b, int h, int tq, int tkv, int d,
                   const long long* strides, float scale, int causal,
                   int dtype, void* stream) {
   if (!valid(b, h, tq, tkv, d)) return cudaErrorInvalidValue;
-  const Problem pb = problem(h, tq, tkv, d, scale, causal, strides, 3);
+  const void* ptrs[3] = {q, k, v};
+  const Problem pb =
+      problem(h, tq, tkv, d, scale, causal, strides, ptrs, 3, dtype);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sm90k_route(dtype, d))  // wgmma kernels, head dim padded to 64 or 128
+    return d <= 64 ? sm90k::launch_fwd<64>(pb, b, q, k, v, out, lse, s)
+                   : sm90k::launch_fwd<128>(pb, b, q, k, v, out, lse, s);
   switch (dtype) {
     case hvd::kFloat32:
-      return launch_fwd<float>(pb, b, q, k, v, out, lse, s);
-    case hvd::kBFloat16:  // wgmma kernels, head dim padded to 64 or 128
-      return d <= 64 ? sm90k::launch_fwd<64>(pb, b, q, k, v, out, lse, s)
-                     : sm90k::launch_fwd<128>(pb, b, q, k, v, out, lse, s);
+      return generic_fwd<float>(pb, b, q, k, v, out, lse, s);
+    case hvd::kBFloat16:
+      return generic_fwd<__nv_bfloat16>(pb, b, q, k, v, out, lse, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// The bf16 forward's launch plan for [b, tq, h, d]: its persistent grid
-// and its K and V stages.
+// The bf16 wgmma forward's launch plan for [b, tq, h, d]: its persistent
+// grid and its K and V stages (d a multiple of 16 up to 128).
 int hvd_flash_fwd_plan(int b, int h, int tq, int d, int* grid, int* k_stages,
                        int* v_stages) {
-  if (!valid(b, h, tq, 1, d)) return cudaErrorInvalidValue;
+  if (!valid(b, h, tq, 1, d) || !sm90k_route(hvd::kBFloat16, d))
+    return cudaErrorInvalidValue;
   *k_stages = d <= 64 ? sm90k::FwdStages<64>::kK : sm90k::FwdStages<128>::kK;
   *v_stages = d <= 64 ? sm90k::FwdStages<64>::kV : sm90k::FwdStages<128>::kV;
   return sm90k::fwd_grid(b, h, tq, grid);
@@ -1691,16 +1835,21 @@ int hvd_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const long long* strides, float scale, int causal,
                      int dtype, void* stream) {
   if (!valid(b, h, tq, tkv, d)) return cudaErrorInvalidValue;
-  const Problem pb = problem(h, tq, tkv, d, scale, causal, strides, 4);
+  const void* ptrs[4] = {q, k, v, dout};
+  const Problem pb =
+      problem(h, tq, tkv, d, scale, causal, strides, ptrs, 4, dtype);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sm90k_route(dtype, d))
+    return d <= 64 ? sm90k::launch_dq<64>(pb, b, q, k, v, dout, lse, delta,
+                                          dq, s)
+                   : sm90k::launch_dq<128>(pb, b, q, k, v, dout, lse, delta,
+                                           dq, s);
   switch (dtype) {
     case hvd::kFloat32:
-      return launch_dq<float>(pb, b, q, k, v, dout, lse, delta, dq, s);
+      return generic_dq<float>(pb, b, q, k, v, dout, lse, delta, dq, s);
     case hvd::kBFloat16:
-      return d <= 64 ? sm90k::launch_dq<64>(pb, b, q, k, v, dout, lse, delta,
-                                            dq, s)
-                     : sm90k::launch_dq<128>(pb, b, q, k, v, dout, lse,
-                                             delta, dq, s);
+      return generic_dq<__nv_bfloat16>(pb, b, q, k, v, dout, lse, delta, dq,
+                                       s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1713,16 +1862,21 @@ int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       int d, const long long* strides, float scale,
                       int causal, int dtype, void* stream) {
   if (!valid(b, h, tq, tkv, d)) return cudaErrorInvalidValue;
-  const Problem pb = problem(h, tq, tkv, d, scale, causal, strides, 4);
+  const void* ptrs[4] = {q, k, v, dout};
+  const Problem pb =
+      problem(h, tq, tkv, d, scale, causal, strides, ptrs, 4, dtype);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sm90k_route(dtype, d))
+    return d <= 64 ? sm90k::launch_dkv<64>(pb, b, q, k, v, dout, lse, delta,
+                                           dk, dv, s)
+                   : sm90k::launch_dkv<128>(pb, b, q, k, v, dout, lse, delta,
+                                            dk, dv, s);
   switch (dtype) {
     case hvd::kFloat32:
-      return launch_dkv<float>(pb, b, q, k, v, dout, lse, delta, dk, dv, s);
+      return generic_dkv<float>(pb, b, q, k, v, dout, lse, delta, dk, dv, s);
     case hvd::kBFloat16:
-      return d <= 64 ? sm90k::launch_dkv<64>(pb, b, q, k, v, dout, lse,
-                                             delta, dk, dv, s)
-                     : sm90k::launch_dkv<128>(pb, b, q, k, v, dout, lse,
-                                              delta, dk, dv, s);
+      return generic_dkv<__nv_bfloat16>(pb, b, q, k, v, dout, lse, delta, dk,
+                                        dv, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,0 +1,552 @@
+"""The eager plane's background cycle: negotiation, validation, response
+cache, fusion, join and the stall warning.
+
+Port of ``horovod_tpu/ops/python_controller.py:41-746`` (the semantics)
+for ranks that are OS processes, as ``ops/tcp_controller.py`` negotiates
+across processes in the JAX package.  Every ``HVD_CYCLE_TIME`` ms each
+rank's cycle thread
+
+1. contributes the signatures of its newly submitted requests (type,
+   name, dtype, shape, op, root, scales, splits, compression; for a name
+   the response cache holds with the same signature, the entry's id in
+   their place), its join flag and its shutdown flag: pickled into a
+   fixed slot of bytes, one ``all_gather`` on a gloo group of the
+   plane's own (a second one when a message outgrows its slot);
+2. adds them to a table of names that every rank holds identically (the
+   same gathered data, absorbed in the same order), and takes, in the
+   table's order, the names that every rank that has not joined has
+   submitted;
+3. validates each with the rules and messages of the reference's
+   ``validate_requests`` (a name whose every rank repeats the signature
+   it was last validated with skips validation: the response cache); an
+   error fails that name's handles and nothing else;
+4. fuses the allreduces by ``allreduce_bucket_key`` through
+   ``plan_buckets`` up to ``HVD_FUSION_THRESHOLD`` bytes, and runs the
+   collectives in that order on the data plane
+   (:class:`~horovod_tpu_torch.ops.nccl_executor.Executor`).
+
+Since every rank computes the same responses from the same data, no rank
+coordinates the others.  A rank that has joined contributes zeros to the
+allreduces of the others; ``join`` completes, with the last rank to join,
+when every rank has joined and no name is pending.  Shutdown is a flag in
+the cycle too: every rank leaves the loop in the cycle in which all of
+them have asked for it.
+
+At one rank the cycle needs no communication: the thread sleeps on a
+condition variable while nothing is queued, and runs a cycle as soon as
+something is.  Above one rank an idle plane backs off: once
+``_IDLE_CYCLES`` cycles in a row have had no rank send anything and no
+name pending (every rank knows it from the same data), each next cycle
+waits twice as long as the last, up to ``_IDLE_WAIT_S``.  A rank with new
+work starts its cycle at once and waits in the exchange for the others,
+so the first op after a long idle spell waits up to that long; ops a few
+cycles apart, such as ``SyncBatchNorm``'s, never meet the backoff.
+
+Ordering against ``DistributedOptimizer``: the optimizer's collectives
+run on the default process group from the caller's thread, the plane's
+on a communicator of its own from the cycle thread.  NCCL can deadlock
+when ranks launch the operations of two communicators in different
+orders.  :meth:`Controller.drain`, which the optimizer calls before each
+of its collectives, waits until the plane has issued every request this
+rank submitted, and on the card makes the caller's stream wait for the
+plane's: so a rank launches the two groups' collectives in its program's
+order, the same on every rank that runs the same program.
+"""
+
+import collections
+import dataclasses
+import logging
+import math
+import pickle
+import threading
+import time
+import typing
+
+import torch
+
+from horovod_tpu_torch.common.fusion import plan_buckets
+from horovod_tpu_torch.common.handles import Handle
+from horovod_tpu_torch.common.ops_enum import ReduceOp, RequestType
+from horovod_tpu_torch.common.response_cache import SignatureCache
+from horovod_tpu_torch.ops.nccl_executor import all_gather_into
+from horovod_tpu_torch.utils import env as env_util
+
+_log = logging.getLogger("horovod_tpu_torch")
+SHUT_DOWN = "horovod_tpu_torch has been shut down"
+# bytes of a rank's cycle message that need no second exchange: an idle
+# cycle's message takes about 30, a request's signature about 200, a
+# cache id a few
+_SLOT = 8192
+# an idle plane above one rank backs off after this many idle cycles in
+# a row (about 50 ms at four ranks), to one cycle per _IDLE_WAIT_S
+_IDLE_CYCLES = 16
+_IDLE_WAIT_S = 0.05
+
+
+class Signature(typing.NamedTuple):
+    """What a rank says about one named request in the negotiation; what
+    validation checks and what the response cache compares."""
+
+    req_type: RequestType
+    dtype: str
+    shape: tuple
+    op: ReduceOp = ReduceOp.SUM
+    root_rank: int = -1
+    prescale_factor: float = 1.0
+    postscale_factor: float = 1.0
+    splits: tuple = None
+    compression: str = "none"
+
+
+@dataclasses.dataclass
+class Request:
+    """One rank's submission: the signature, the tensor (aliased until the
+    handle completes), its handle and, on the card, the stream it was
+    submitted from and the event its value is ready at."""
+
+    sig: Signature
+    name: str
+    tensor: torch.Tensor
+    handle: Handle
+    stream: object = None
+    ready: object = None
+
+
+def dtype_name(dtype):
+    """numpy's name for a torch dtype (``torch.bfloat16`` -> ``bfloat16``),
+    the names the reference's messages use."""
+    return str(dtype).replace("torch.", "")
+
+
+def validate(name, sigs, *, size, joined):
+    """Cross-rank agreement rules of the reference
+    (``python_controller.py:507-587``, ``controller.cc:378``); ``sigs``
+    maps rank -> :class:`Signature`.  -> an error message, or None."""
+    sv = list(sigs.values())
+    types = {s.req_type for s in sv}
+    if len(types) > 1:
+        return (f"mismatched collective types for tensor '{name}': "
+                f"{sorted(t.name for t in types)}")
+    req_type = next(iter(types))
+    if joined and req_type in (RequestType.ALLGATHER, RequestType.BROADCAST,
+                               RequestType.ALLTOALL,
+                               RequestType.REDUCE_SCATTER):
+        return f"{req_type.name} is not supported while ranks have joined"
+    dtypes = {s.dtype for s in sv}
+    if len(dtypes) > 1:
+        return f"mismatched dtypes for tensor '{name}': {sorted(dtypes)}"
+    if req_type in (RequestType.ALLREDUCE, RequestType.REDUCE_SCATTER):
+        if len({s.op for s in sv}) > 1:
+            return f"mismatched reduce ops for tensor '{name}'"
+        if len({s.prescale_factor for s in sv}) > 1 \
+                or len({s.postscale_factor for s in sv}) > 1:
+            return f"mismatched scale factors for tensor '{name}'"
+    shapes = {s.shape for s in sv}
+    if req_type == RequestType.ALLREDUCE:
+        if len(shapes) > 1:
+            return (f"mismatched shapes for allreduce '{name}': "
+                    f"{sorted(shapes)}")
+    elif req_type == RequestType.ALLGATHER:
+        ndims = {len(s) for s in shapes}
+        if len(ndims) > 1:
+            return f"mismatched tensor ranks for allgather '{name}'"
+        if 0 in ndims:
+            return (f"allgather '{name}': 0-d tensors are not supported; "
+                    f"reshape to (1,) first")
+        if len({s[1:] for s in shapes}) > 1:
+            return f"mismatched trailing dimensions for allgather '{name}'"
+    elif req_type == RequestType.BROADCAST:
+        if len({s.root_rank for s in sv}) > 1:
+            return f"mismatched root ranks for broadcast '{name}'"
+        if len(shapes) > 1:
+            return f"mismatched shapes for broadcast '{name}'"
+    elif req_type == RequestType.REDUCE_SCATTER:
+        if () in shapes:
+            return (f"reduce_scatter '{name}': 0-d tensors are not "
+                    f"supported; reshape to (1,) first")
+        if len(shapes) > 1:
+            return (f"mismatched shapes for reduce_scatter '{name}': "
+                    f"{sorted(shapes)}")
+    elif req_type == RequestType.ALLTOALL:
+        for s in sv:
+            if len(s.splits) != size:
+                return (f"alltoall '{name}': splits must have one entry per "
+                        f"rank ({size}), got {len(s.splits)}")
+            if sum(s.splits) != (s.shape[0] if s.shape else 0):
+                return (f"alltoall '{name}': splits sum {sum(s.splits)} != "
+                        f"first dimension {s.shape[0] if s.shape else 0}")
+    return None
+
+
+def allreduce_bucket_key(sig):
+    """Allreduces fuse only with their like (reference:
+    ``python_controller.py:608``): dtype, op, scales and compression."""
+    return (sig.dtype, int(sig.op), sig.prescale_factor,
+            sig.postscale_factor, sig.compression)
+
+
+class _Entry:
+    __slots__ = ("sigs", "first_ts", "stall_warned")
+
+    def __init__(self):
+        self.sigs = {}
+        self.first_ts = time.monotonic()
+        self.stall_warned = False
+
+
+class Controller:
+    """One rank's side of the negotiation; see the module docstring."""
+
+    def __init__(self, rank, size, meta_group, executor):
+        self.rank = rank
+        self.size = size
+        self._meta = meta_group
+        self._executor = executor
+        self._cycle_s = env_util.get_float(
+            env_util.HVD_CYCLE_TIME, env_util.DEFAULT_CYCLE_TIME_MS) / 1e3
+        self._threshold = env_util.get_int(env_util.HVD_FUSION_THRESHOLD,
+                                           env_util.DEFAULT_FUSION_THRESHOLD)
+        self._stall_s = (None if env_util.get_bool(
+            env_util.HVD_STALL_CHECK_DISABLE) else env_util.get_float(
+            env_util.HVD_STALL_CHECK_TIME_SECONDS,
+            env_util.DEFAULT_STALL_WARNING_SECONDS))
+        self._cache = SignatureCache(env_util.get_int(
+            env_util.HVD_CACHE_CAPACITY, env_util.DEFAULT_CACHE_CAPACITY))
+        lock = threading.Lock()
+        self._cond = threading.Condition(lock)      # work for the cycle
+        self._drained = threading.Condition(lock)   # _in_flight fell to 0
+        # guarded by the lock
+        self._queue = []
+        self._in_flight = 0     # this rank's requests not yet issued
+        self._issued = False    # on the plane's stream since the last drain
+        self._join_handle = None
+        self._stopping = False
+        self._running = False
+        self._error = None
+        # the cycle thread's own
+        self._local = {}        # name -> this rank's outstanding Request
+        self._table = collections.OrderedDict()   # name -> _Entry
+        self._joined = []       # ranks in the order they joined
+        self._negotiation_s = collections.deque(maxlen=1000)
+        self.cycles = 0         # cycles run, idle ones too
+        self._thread = None
+
+    @property
+    def cache_hits(self):
+        return self._cache.hits
+
+    def is_running(self):
+        return self._thread is not None and self._thread.is_alive()
+
+    def negotiation_times(self):
+        """Seconds of the last (up to 1000) cycles' negotiation: the
+        metadata exchange and the decision, without the collectives."""
+        return list(self._negotiation_s)
+
+    # ---------------------------------------------------------- user side
+    def start(self):
+        self._running = True
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="hvd-torch-cycle")
+        self._thread.start()
+
+    def enqueue(self, requests):
+        """Queue requests together: one cycle takes all of them."""
+        with self._cond:
+            failure = (SHUT_DOWN if not self._running or self._stopping
+                       else self._error)
+            if failure is None:
+                self._queue.extend(requests)
+                self._in_flight += len(requests)
+                self._cond.notify()
+        if failure is not None:
+            for req in requests:
+                req.handle.set_error(failure)
+
+    def drain(self):
+        """Block until every request this rank queued has been issued on
+        the data plane, or has failed; on the card the caller's current
+        stream then waits for the plane's stream.  See the module
+        docstring: the optimizer calls it before its own collectives."""
+        with self._cond:
+            self._drained.wait_for(lambda: self._in_flight == 0)
+            issued, self._issued = self._issued, False
+        stream = self._executor.stream
+        if issued and stream is not None:
+            torch.cuda.current_stream(self._executor.device).wait_stream(
+                stream)
+
+    def join(self, handle):
+        with self._cond:
+            failure = (SHUT_DOWN if not self._running or self._stopping
+                       else self._error)
+            if failure is None:
+                self._join_handle = handle
+                self._cond.notify()
+        if failure is not None:
+            handle.set_error(failure)
+
+    def shutdown(self, timeout=None):
+        """Ask for the negotiated shutdown and wait for the cycle thread:
+        it leaves when every rank has asked."""
+        with self._cond:
+            if not self._running:
+                return
+            self._stopping = True
+            self._cond.notify()
+        self._thread.join(timeout)
+        with self._cond:
+            self._running = False
+
+    # -------------------------------------------------------- cycle thread
+    def _take(self, wait_s):
+        with self._cond:
+            if wait_s is None:
+                self._cond.wait_for(lambda: self._queue or self._stopping
+                                    or self._join_handle is not None)
+            elif not self._queue:
+                self._cond.wait(wait_s)
+            pending, self._queue = self._queue, []
+            return (pending, self._join_handle is not None, self._stopping)
+
+    def _settle(self, n, issued=False):
+        """``n`` of this rank's requests were issued (or failed)."""
+        with self._cond:
+            self._in_flight -= n
+            self._issued = self._issued or issued
+            if self._in_flight == 0:
+                self._drained.notify_all()
+
+    def _loop(self):
+        try:
+            if self._executor.device.type == "cuda":
+                # the thread's allocations and NCCL calls on this rank's card
+                torch.cuda.set_device(self._executor.device)
+            idle = 0   # cycles in a row in which nothing happened anywhere
+            while True:
+                backoff = max(0, idle - _IDLE_CYCLES)
+                wait_s = None if self.size == 1 else max(
+                    self._cycle_s, min(self._cycle_s * 2 ** backoff,
+                                       _IDLE_WAIT_S))
+                pending, joining, stopping = self._take(wait_s)
+                t0 = time.perf_counter()
+                new = []
+                for req in pending:
+                    if req.name in self._local:
+                        req.handle.set_error(
+                            f"duplicate request for tensor '{req.name}' from "
+                            f"rank {self.rank} before previous one completed")
+                        self._settle(1)
+                        continue
+                    self._local[req.name] = req
+                    cache_id = self._cache.id_of(req.name, req.sig)
+                    new.append((req.name, req.sig) if cache_id is None
+                               else cache_id)
+                mine = (new, joining, stopping)
+                msgs = [mine] if self.size == 1 else self._exchange(mine)
+                if all(m[2] for m in msgs):
+                    break
+                self._cycle(msgs, t0)
+                self.cycles += 1
+                busy = self._table or any(any(m) for m in msgs)
+                idle = 0 if busy else min(idle + 1, _IDLE_CYCLES + 16)
+            self._fail_outstanding(SHUT_DOWN)
+        except Exception as exc:  # noqa: BLE001 — the cycle cannot go on
+            _log.exception("horovod_tpu_torch: eager cycle failed")
+            message = f"horovod_tpu_torch eager cycle failed: {exc!r}"
+            with self._cond:
+                self._error = message
+            self._fail_outstanding(message)
+
+    def _exchange(self, mine):
+        """Every rank's cycle message, in rank order.  Each rank sends a
+        fixed slot: its message's length, then the message if it fits; a
+        message that does not travels in a second all_gather, sized to
+        the longest one."""
+        data = pickle.dumps(mine, protocol=pickle.HIGHEST_PROTOCOL)
+        slot = torch.zeros(_SLOT, dtype=torch.uint8)
+        slot[:8] = torch.tensor([len(data)], dtype=torch.int64).view(
+            torch.uint8)
+        payload = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+        if len(data) <= _SLOT - 8:
+            slot[8:8 + len(data)] = payload
+        rows = torch.empty(self.size, _SLOT, dtype=torch.uint8)
+        all_gather_into(rows.view(-1), slot, group=self._meta)
+        lengths = rows[:, :8].contiguous().view(torch.int64).view(-1)
+        lengths = lengths.tolist()
+        offset, top = 8, max(lengths)
+        if top > _SLOT - 8:
+            buf = torch.zeros(top, dtype=torch.uint8)
+            buf[:len(data)] = payload
+            rows = torch.empty(self.size, top, dtype=torch.uint8)
+            all_gather_into(rows.view(-1), buf, group=self._meta)
+            offset = 0
+        return [pickle.loads(rows[r, offset:offset + n].numpy().tobytes())
+                for r, n in enumerate(lengths)]
+
+    def _fail_outstanding(self, message):
+        with self._cond:
+            queued, self._queue = self._queue, []
+            join, self._join_handle = self._join_handle, None
+        for req in queued + list(self._local.values()):
+            req.handle.set_error(message)
+        self._local.clear()
+        self._table.clear()
+        with self._cond:
+            self._in_flight = 0
+            self._drained.notify_all()
+        if join is not None:
+            join.set_error(message)
+
+    def _cycle(self, msgs, t0):
+        for r, (new, joining, _) in enumerate(msgs):
+            if joining and r not in self._joined:
+                self._joined.append(r)
+            for item in new:
+                # a cache id is read back before anything below changes
+                # the cache: every rank's copy is still the sender's
+                name, sig = (self._cache.entry(item) if isinstance(item, int)
+                             else item)
+                entry = self._table.get(name)
+                if entry is None:
+                    entry = self._table[name] = _Entry()
+                entry.sigs[r] = sig
+        if self._stall_s is not None:
+            self._check_stalls()
+        joined = set(self._joined)
+        needed = set(range(self.size)) - joined
+        ready = [name for name, e in self._table.items()
+                 if needed.issubset(e.sigs)]
+        responses = []
+        for name in ready:
+            entry = self._table.pop(name)
+            if joined or not self._cache.check(name, entry.sigs.values()):
+                error = validate(name, entry.sigs, size=self.size,
+                                 joined=bool(joined))
+                if error is not None:
+                    req = self._local.pop(name, None)
+                    if req is not None:
+                        req.handle.set_error(error)
+                        self._settle(1)
+                    continue
+                if not joined:
+                    self._cache.store(name, entry.sigs.values())
+            responses.append((name, entry.sigs))
+        self._negotiation_s.append(time.perf_counter() - t0)
+        self._dispatch(responses, joined)
+        if len(joined) == self.size and not self._table:
+            last = self._joined[-1]
+            self._joined = []
+            with self._cond:
+                handle, self._join_handle = self._join_handle, None
+            if handle is not None:
+                handle.set_result(last)
+
+    def _check_stalls(self):
+        now = time.monotonic()
+        for name, entry in self._table.items():
+            if entry.stall_warned or now - entry.first_ts <= self._stall_s:
+                continue
+            ready = sorted(entry.sigs)
+            missing = sorted(set(range(self.size)) - set(ready)
+                             - set(self._joined))
+            _log.warning(
+                "One or more tensors were submitted to be reduced, gathered "
+                "or broadcasted by subset of ranks and are waiting for "
+                "remainder of ranks for more than %ds. Stalled tensor: %s "
+                "ready ranks: %s, waiting on: %s", int(self._stall_s), name,
+                ready, missing)
+            entry.stall_warned = True
+
+    # ----------------------------------------------------------- execution
+    def _dispatch(self, responses, joined):
+        def key(item):
+            name, sigs = item
+            sig = next(iter(sigs.values()))
+            if sig.req_type != RequestType.ALLREDUCE:
+                return ("single", name)
+            return allreduce_bucket_key(_agreed(sigs))
+
+        def nbytes(item):
+            sig = next(iter(item[1].values()))
+            return _itemsize(sig.dtype) * math.prod(sig.shape)
+
+        # the handles complete together once every collective of the
+        # cycle is issued: a caller woken per bucket would contend with
+        # this thread for the interpreter lock until it blocks again
+        done, mine = [], 0
+        for bucket in plan_buckets(responses, key_fn=key, nbytes_fn=nbytes,
+                                   threshold=self._threshold):
+            reqs = [self._local.pop(name, None) for name, _ in bucket]
+            mine += sum(req is not None for req in reqs)
+            try:
+                done += self._execute(bucket, reqs)
+            except Exception as exc:  # noqa: BLE001 — surfaced on handles
+                _log.exception("horovod_tpu_torch: collective failed")
+                for req in reqs:
+                    if req is not None:
+                        req.handle.set_error(
+                            f"collective execution failed: {exc!r}")
+        for req, out, event in done:
+            req.handle.set_result(out, event)
+        if mine:
+            self._settle(mine, issued=True)
+
+    def _execute(self, bucket, reqs):
+        """Issue one bucket's collective; -> (request, result, event) of
+        each of this rank's requests in it."""
+        ex = self._executor
+        sig = _agreed(bucket[0][1])
+        with ex.run(reqs) as run:
+            if sig.req_type == RequestType.ALLREDUCE:
+                shapes = [_agreed(sigs).shape for _, sigs in bucket]
+                outs = ex.allreduce(
+                    [r.tensor if r is not None else None for r in reqs],
+                    shapes, _torch_dtype(sig.dtype), sig.op,
+                    sig.prescale_factor, sig.postscale_factor,
+                    sig.compression)
+                results = list(zip(reqs, outs))
+                run.outputs = [(r, [o]) for r, o in results if r is not None]
+            else:
+                (name, sigs), req = bucket[0], reqs[0]
+                t = req.tensor
+                if sig.req_type == RequestType.ALLGATHER:
+                    out = ex.allgather(t, [sigs[r].shape[0]
+                                           for r in range(self.size)])
+                elif sig.req_type == RequestType.BROADCAST:
+                    out = ex.broadcast(t, sig.root_rank)
+                elif sig.req_type == RequestType.ALLTOALL:
+                    out = ex.alltoall(t, [sigs[r].splits
+                                          for r in range(self.size)])
+                else:
+                    out = ex.reduce_scatter(
+                        t, sig.op, sig.prescale_factor, sig.postscale_factor,
+                        sig.compression)
+                results = [(req, out)]
+                run.outputs = [(req, [out[0] if isinstance(out, tuple)
+                                      else out])]
+        return [(req, out, run.done) for req, out in results
+                if req is not None]
+
+
+def _agreed(sigs):
+    """The signature every rank agreed on, compression aside: a
+    disagreement on compression resolves to the exact wire (reference:
+    ``resolve_group_compression``)."""
+    first = next(iter(sigs.values()))
+    if len({s.compression for s in sigs.values()}) > 1:
+        return first._replace(compression="none")
+    return first
+
+
+_DTYPES = {dtype_name(d): d for d in (
+    torch.float32, torch.float64, torch.float16, torch.bfloat16, torch.int8,
+    torch.uint8, torch.int16, torch.int32, torch.int64, torch.bool)}
+
+
+def _torch_dtype(name):
+    return _DTYPES[name]
+
+
+def _itemsize(name):
+    return _DTYPES[name].itemsize

@@ -19,8 +19,11 @@ their bound on the H100 and their design.
 
 Layouts: q ``[B, T_q, H, D]``, k and v ``[B, T_kv, H, D]``, read through
 their strides (D contiguous); out, dq, dk, dv contiguous ``[B, T, H, D]``;
-lse and delta fp32 ``[B, H, T_q]``.  fp32 and bf16; D a multiple of 16 up
-to 128.
+lse and delta fp32 ``[B, H, T_q]``.  fp32 and bf16; any D from 1 to 256
+(``MAX_D``), B*H up to 2^31 - 1, T up to 65535 tiles of 64 rows.  bf16 at
+D a multiple of 16 up to 128 runs the ``wgmma`` kernels, which read
+through TMA and so need 16-byte aligned rows; every other shape runs the
+generic kernels, which need only D contiguous.
 """
 
 import ctypes
@@ -32,7 +35,9 @@ from horovod_tpu_torch.ops.cuda import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _NEG_INF = -1e30
-MAX_D = 128  # csrc/flash_attention.cu kMaxD
+MAX_D = 256  # csrc/flash_attention.cu kMaxD
+MAX_BH = 2 ** 31 - 1  # grid.x
+MAX_T = 65535 * 64  # grid.y tiles of 64 rows
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -83,12 +88,23 @@ def flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta, causal, scale):
 
 
 # ----------------------------------------------------------- kernel wrappers
+def _wgmma_route(dtype, d):
+    """bf16 at D a multiple of 16 up to 128 runs the ``wgmma`` kernels
+    (``csrc/flash_attention.cu`` ``sm90k_route``); the rest the generic
+    ones."""
+    return dtype == torch.bfloat16 and d % 16 == 0 and d <= 128
+
+
 def _kernel_strides_ok(x):
-    """D contiguous, and every row starting on a 16-byte boundary (the
-    kernels' vector loads; the bf16 kernels' TMA tensor maps take only
-    strides that are multiples of 16 bytes)."""
+    """D contiguous; on the ``wgmma`` route also every row starting on a
+    16-byte boundary (TMA tensor maps take only strides that are multiples
+    of 16 bytes)."""
+    if x.stride(-1) != 1:
+        return False
+    if not _wgmma_route(x.dtype, x.shape[-1]):
+        return True
     align = 16 // x.element_size()
-    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+    return (x.data_ptr() % 16 == 0
             and all(s % align == 0 for s in x.stride()[:-1]))
 
 
@@ -111,7 +127,8 @@ def _check(what, q, k, v, dout=None):
         if not _kernel_strides_ok(t):
             raise ValueError(
                 f"{what}: {name} strides {t.stride()} are not taken (D must "
-                f"be contiguous, rows 16-byte aligned)")
+                f"be contiguous, and rows 16-byte aligned for bf16 at D a "
+                f"multiple of 16 up to 128)")
     b, tq, h, d = q.shape
     tkv = k.shape[1]
     if (k.shape != (b, tkv, h, d) or v.shape != k.shape
@@ -121,12 +138,13 @@ def _check(what, q, k, v, dout=None):
             f"{tuple(v.shape)}"
             + ("" if dout is None else f", dout {tuple(dout.shape)}")
             + " do not match")
-    if d % 16 or not 16 <= d <= MAX_D:
-        raise ValueError(f"{what}: head dim {d} is not a multiple of 16 in "
-                         f"[16, {MAX_D}]")
-    if min(b, h, tq, tkv) < 1 or b * h > 65535:
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"{what}: head dim {d} outside [1, {MAX_D}], the "
+                         f"widest the kernels take")
+    if min(b, h, tq, tkv) < 1 or b * h > MAX_BH or max(tq, tkv) > MAX_T:
         raise ValueError(f"{what}: B*H = {b * h}, T_q = {tq}, T_kv = {tkv}: "
-                         f"each must be at least 1 and B*H at most 65535")
+                         f"each must be at least 1, B*H at most {MAX_BH} and "
+                         f"T at most {MAX_T}")
     return b, tq, tkv, h, d
 
 
@@ -165,9 +183,13 @@ flash_attention_fwd.launches = 0
 
 
 def flash_attention_fwd_plan(b, h, tq, d):
-    """The bf16 forward kernel's launch plan on the current card for q of
-    shape ``[b, tq, h, d]``: ``{"grid": blocks, "k_stages": ...,
-    "v_stages": ...}`` (one block an SM, or one a 128-row work tile)."""
+    """The bf16 ``wgmma`` forward kernel's launch plan on the current card
+    for q of shape ``[b, tq, h, d]`` (d a multiple of 16 up to 128):
+    ``{"grid": blocks, "k_stages": ..., "v_stages": ...}`` (one block an
+    SM, or one a 128-row work tile)."""
+    if not _wgmma_route(torch.bfloat16, d):
+        raise ValueError(f"flash_attention_fwd_plan: head dim {d} does not "
+                         f"run the wgmma forward")
     fn = _build.function("hvd_flash_fwd_plan", _I, _I, _I, _I, _P, _P, _P)
     vals = [ctypes.c_int() for _ in range(3)]
     _build.check(fn(b, h, tq, d, *map(ctypes.byref, vals)),

@@ -1,0 +1,204 @@
+"""The eager plane's data plane: ``torch.distributed`` collectives on a
+process group of its own (NCCL on the card, gloo on the CPU) and, on the
+card, a CUDA stream of its own.
+
+Port of ``horovod_tpu/ops/xla_executor.py``: ``allreduce_fused`` (:242),
+``allgather`` (:432), ``reduce_scatter`` (:499), ``broadcast`` (:602) and
+``alltoall`` (:714), with NCCL in place of the jitted ``psum`` /
+``all_gather`` / ``psum_scatter`` programs.  The arithmetic around the
+collective is the reference's, in its order: prescale and the wire cast
+before the sum; the cast back, the average and the postscale after it.
+Integer tensors keep the sum exact and take all scaling once in float64,
+cast back with truncation toward zero.
+
+Stream order on the card (the reference's ``ReadyEvent``,
+``horovod/torch/ready_event.cc``): the plane's stream waits on the event
+each input was submitted at, and the inputs and outputs are marked with
+``record_stream`` for the stream that uses them, so that the caching
+allocator does not hand their memory out early.  :meth:`Executor.run`
+returns the event at which the outputs are complete.
+"""
+
+import contextlib
+import math
+
+import torch
+import torch.distributed as dist
+
+from horovod_tpu_torch.common.ops_enum import (ReduceOp,
+                                               reduce_scatter_split_sizes)
+
+all_gather_into = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+_WIRE = {"bf16": torch.bfloat16, "fp16": torch.float16}
+
+
+def effective_compression(compression, dtype, size):
+    """The wire format actually used: the exact dtype for integers, for a
+    world of one rank and for casts that would change nothing (reference:
+    ``XlaExecutor._effective_compression``)."""
+    wire = _WIRE.get(compression)
+    if wire is None or not dtype.is_floating_point or size == 1 \
+            or wire == dtype:
+        return "none"
+    return compression
+
+
+class Executor:
+    def __init__(self, group, rank, size, device):
+        self.group = group
+        self.rank = rank
+        self.size = size
+        self.device = device
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+
+    @contextlib.contextmanager
+    def run(self, requests):
+        """Run the body on the plane's stream after every request's input
+        is ready; yields a list the body fills with ``(request, output
+        tensors)``, and leaves in ``.done`` the event they are complete
+        at (None on the CPU)."""
+        box = _Run()
+        if self.stream is None:
+            yield box
+            return
+        waited = set()   # a grouped submission shares one event
+        for req in requests:
+            if req is not None:
+                if id(req.ready) not in waited:
+                    waited.add(id(req.ready))
+                    self.stream.wait_event(req.ready)
+                req.tensor.record_stream(self.stream)
+        with torch.cuda.stream(self.stream):
+            yield box
+            box.done = torch.cuda.Event()
+            box.done.record(self.stream)
+        for req, outs in box.outputs:
+            for out in outs:
+                out.record_stream(req.stream)
+
+    # ------------------------------------------------------------ allreduce
+    def allreduce(self, tensors, shapes, dtype, op, prescale, postscale,
+                  compression):
+        """Fused allreduce of one rank's tensors (``None`` where this rank
+        has joined: zeros).  -> the reduced tensors, new, in order."""
+        sizes = [math.prod(s) for s in shapes]
+        flat = torch.cat([
+            (t.reshape(-1) if t is not None else
+             torch.zeros(n, dtype=dtype, device=self.device))
+            for t, n in zip(tensors, sizes)])
+        flat = self._reduce(flat, op, prescale, postscale, compression)
+        return [piece.view(shape) for piece, shape in
+                zip(torch.split(flat, sizes), shapes)]
+
+    def _reduce(self, flat, op, prescale, postscale, compression):
+        """Sum a flat buffer of the plane's own over the ranks with the
+        reference's scaling (``xla_executor.py:304-357``), in place where
+        the dtype allows."""
+        dtype = flat.dtype
+        wire = _WIRE.get(effective_compression(compression, dtype,
+                                               self.size))
+        if prescale != 1.0 and dtype.is_floating_point:
+            flat.mul_(prescale)
+        if wire is not None:
+            flat = flat.to(wire)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+        return self._finish(flat, dtype, op, prescale, postscale)
+
+    def _finish(self, flat, dtype, op, prescale, postscale):
+        """The cast back, the average and the postscale, on a reduced
+        buffer of the plane's own."""
+        flat = flat.to(dtype)
+        if not dtype.is_floating_point:
+            factor = prescale * postscale
+            if op == ReduceOp.AVERAGE:
+                factor /= self.size
+            if factor != 1.0:
+                flat = (flat.to(torch.float64) * factor).to(dtype)
+            return flat
+        if op == ReduceOp.AVERAGE:
+            flat.div_(self.size)
+        if postscale != 1.0:
+            flat.mul_(postscale)
+        return flat
+
+    # ------------------------------------------------------------ allgather
+    def allgather(self, tensor, dims0):
+        """Concatenation of every rank's tensor along dim 0; rank ``r``'s
+        has ``dims0[r]`` rows (reference: pad to the largest, gather,
+        keep each rank's rows)."""
+        rest = tuple(tensor.shape[1:])
+        top = max(dims0)
+        src = tensor.contiguous()
+        if tensor.shape[0] != top:
+            src = torch.zeros((top,) + rest, dtype=tensor.dtype,
+                              device=self.device)
+            src[:tensor.shape[0]] = tensor
+        out = torch.empty((self.size * top,) + rest, dtype=tensor.dtype,
+                          device=self.device)
+        all_gather_into(out, src, group=self.group)
+        if all(d == top for d in dims0):
+            return out
+        return torch.cat([out[r * top:r * top + d]
+                          for r, d in enumerate(dims0)])
+
+    # ------------------------------------------------------------ broadcast
+    def broadcast(self, tensor, root):
+        out = tensor.clone(memory_format=torch.contiguous_format)
+        dist.broadcast(out, src=root, group=self.group)
+        return out
+
+    # ------------------------------------------------------------- alltoall
+    def alltoall(self, tensor, splits):
+        """``splits[src][dst]`` rows go from rank src to rank dst.  -> (the
+        rows this rank receives, in source order; their counts)."""
+        send = [int(n) for n in splits[self.rank]]
+        recv = [int(row[self.rank]) for row in splits]
+        out = torch.empty((sum(recv),) + tuple(tensor.shape[1:]),
+                          dtype=tensor.dtype, device=self.device)
+        dist.all_to_all_single(out, tensor.contiguous(), recv, send,
+                               group=self.group)
+        return out, recv
+
+    # ------------------------------------------------------- reduce_scatter
+    def reduce_scatter(self, tensor, op, prescale, postscale, compression):
+        """The reduced tensor's rows ``reduce_scatter_split_sizes(dim0,
+        size)[rank]``; each rank's block is padded to the largest, so that
+        one ``reduce_scatter`` moves them all."""
+        dtype = tensor.dtype
+        rest = tuple(tensor.shape[1:])
+        counts = reduce_scatter_split_sizes(tensor.shape[0], self.size)
+        top = max(counts)
+        wire = _WIRE.get(effective_compression(compression, dtype,
+                                               self.size))
+        x = tensor
+        if prescale != 1.0 and dtype.is_floating_point:
+            x = x * prescale
+        if wire is not None:
+            x = x.to(wire)
+        if all(c == top for c in counts):
+            src = x.contiguous()
+        else:
+            src = torch.zeros((self.size * top,) + rest, dtype=x.dtype,
+                              device=self.device)
+            offset = 0
+            for r, c in enumerate(counts):
+                src[r * top:r * top + c] = x[offset:offset + c]
+                offset += c
+        out = torch.empty((top,) + rest, dtype=x.dtype, device=self.device)
+        _reduce_scatter(out, src, op=dist.ReduceOp.SUM, group=self.group)
+        out = self._finish(out[:counts[self.rank]], dtype, op, prescale,
+                           postscale)
+        return out.contiguous()
+
+
+class _Run:
+    __slots__ = ("outputs", "done")
+
+    def __init__(self):
+        self.outputs = []
+        self.done = None

@@ -15,6 +15,11 @@ collectives in the same order.
 
 gloo has no average, so every reduction is a SUM followed by a division
 by the world size.
+
+Every collective here first waits for the eager plane to issue what this
+rank submitted to it (:meth:`ops.controller.Controller.drain`): the two
+use different communicators, and NCCL can deadlock when ranks launch the
+operations of two communicators in different orders.
 """
 
 import contextlib
@@ -32,6 +37,10 @@ from horovod_tpu_torch.utils import env as env_util
 def _fusion_threshold():
     return env_util.get_int(env_util.HVD_FUSION_THRESHOLD,
                             env_util.DEFAULT_FUSION_THRESHOLD)
+
+
+def _after_eager_plane():
+    basics._get_state().controller.drain()
 
 
 def _check_op(op):
@@ -60,6 +69,7 @@ class _Bucket:
             compressed.append(c.reshape(-1))
             self.ctxs.append(ctx)
         self.flat = torch.cat(compressed)
+        _after_eager_plane()
         self.work = dist.all_reduce(self.flat, op=dist.ReduceOp.SUM,
                                     async_op=True)
 
@@ -107,10 +117,11 @@ def allreduce_gradients(grads, op=Average, compression=Compression.none):
 
 class _DistributedOptimizerMixin:
     def _hvd_init(self, named_parameters, compression,
-                  backward_passes_per_step, op):
+                  backward_passes_per_step, op, average_aggregated_gradients):
         self._compression = compression
         self._op = op
         self._backward_passes_per_step = backward_passes_per_step
+        self._average_aggregated_gradients = average_aggregated_gradients
         self._should_synchronize = True
 
         params = [p for group in self.param_groups for p in group["params"]]
@@ -188,12 +199,14 @@ class _DistributedOptimizerMixin:
             self._launched.append(bucket)
 
     def synchronize(self):
-        """Wait for every gradient allreduce and write the averaged
-        gradients into ``p.grad``.  Buckets whose hooks did not all fire
-        on this rank are submitted now (reference: the missing_p loop of
-        horovod torch/__init__.py synchronize)."""
+        """Wait for every gradient allreduce and write the reduced
+        gradients into ``p.grad``: divided by ``backward_passes_per_step``
+        unless ``average_aggregated_gradients`` is False.  Buckets whose
+        hooks did not all fire on this rank are submitted now (reference:
+        the missing_p loop of horovod torch/__init__.py synchronize)."""
         self._launch_ready(force=True)
-        passes = self._backward_passes_per_step
+        passes = (self._backward_passes_per_step
+                  if self._average_aggregated_gradients else 1)
         with torch.no_grad():
             for params, bucket in zip(self._buckets, self._launched):
                 for p, reduced in zip(params, bucket.wait()):
@@ -224,21 +237,27 @@ class _DistributedOptimizerMixin:
 
 def DistributedOptimizer(optimizer, named_parameters=None, op=Average,
                          compression=Compression.none,
-                         backward_passes_per_step=1):
+                         backward_passes_per_step=1,
+                         average_aggregated_gradients=True):
     """Wrap a torch optimizer so that ``step()`` applies gradients
     averaged (``op=Average``) or summed (``op=Sum``) over all ranks.
 
     ``backward_passes_per_step`` accumulates gradients locally for N
-    backward passes and reduces once per N; the accumulated gradient is
-    divided by N, as ``optax.MultiSteps`` does in the JAX package's
-    default.  Call ``hvd.init()`` first."""
+    backward passes and reduces once per N.  With
+    ``average_aggregated_gradients`` (the default) the accumulated
+    gradient is divided by N, as ``optax.MultiSteps`` does in the JAX
+    package; without it the N passes are summed (the JAX package's
+    ``optax.scale(N)`` before ``MultiSteps``, ``jax_api.py:127-133``): the
+    ranks' reduction is taken over the sum of the passes.  Call
+    ``hvd.init()`` first."""
     op = _check_op(op)
     basics.size()  # raises unless initialised
     cls = type(optimizer.__class__.__name__,
                (_DistributedOptimizerMixin, optimizer.__class__), {})
     optimizer.__class__ = cls
     optimizer._hvd_init(named_parameters, compression,
-                        backward_passes_per_step, op)
+                        backward_passes_per_step, op,
+                        average_aggregated_gradients)
     return optimizer
 
 
@@ -246,6 +265,7 @@ def _broadcast_tensor_(t, root_rank):
     """In-place broadcast; a tensor off the collective device (an
     optimizer's CPU step counter under NCCL) travels through a copy."""
     dev = basics.device()
+    _after_eager_plane()
     if t.device == dev:
         dist.broadcast(t, root_rank)
         return
@@ -284,6 +304,7 @@ def broadcast_optimizer_state(optimizer, root_rank=0):
              for pid, state in state_dict["state"].items()},
             [{k: v for k, v in g.items() if k != "params"}
              for g in state_dict["param_groups"]])
+    _after_eager_plane()
     dist.broadcast_object_list(layout, src=root_rank,
                                device=basics.device())
     specs, root_groups = layout[0]

@@ -1,8 +1,8 @@
 """Environment-variable surface of the PyTorch port.
 
-The subset of ``horovod_tpu/utils/env.py`` that the data-parallel
-training step reads: the launcher -> worker rank contract and the fusion
-threshold.  Kept as a copy so that the port never imports the JAX
+The subset of ``horovod_tpu/utils/env.py`` that the port reads: the
+launcher -> worker rank contract, the fusion threshold and the eager
+plane's cycle, cache and stall knobs.  Kept as a copy so that the port never imports the JAX
 package.
 """
 
@@ -11,6 +11,10 @@ import os
 import threading
 
 HVD_FUSION_THRESHOLD = "HVD_FUSION_THRESHOLD"          # bytes, default 64 MB
+HVD_CYCLE_TIME = "HVD_CYCLE_TIME"                      # ms, default 1.0
+HVD_CACHE_CAPACITY = "HVD_CACHE_CAPACITY"              # default 1024
+HVD_STALL_CHECK_DISABLE = "HVD_STALL_CHECK_DISABLE"
+HVD_STALL_CHECK_TIME_SECONDS = "HVD_STALL_CHECK_TIME_SECONDS"  # default 60
 
 # --- launcher -> worker contract ---------------------------------------------
 HVD_RANK = "HVD_RANK"
@@ -25,6 +29,9 @@ HVD_RENDEZVOUS_ADDR = "HVD_RENDEZVOUS_ADDR"
 HVD_RENDEZVOUS_PORT = "HVD_RENDEZVOUS_PORT"
 
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
+DEFAULT_CYCLE_TIME_MS = 1.0
+DEFAULT_CACHE_CAPACITY = 1024
+DEFAULT_STALL_WARNING_SECONDS = 60
 
 _warned = set()
 _warned_lock = threading.Lock()
@@ -70,3 +77,14 @@ def get_bool(name, default=False):
 def get_str(name, default=None):
     value = os.environ.get(name)
     return default if value in (None, "") else value
+
+
+def get_float(name, default=0.0):
+    value = os.environ.get(name)
+    if value is None or value == "":
+        return default
+    try:
+        return float(value)
+    except ValueError:
+        _warn_malformed(name, value, default)
+        return default

@@ -3,7 +3,8 @@ card, at shapes the main path does not reach: odd row counts, widths that
 are no multiple of a 16-byte vector (the kernels' scalar path), fp32 and
 fp16, d = 8192 and the widest row the LayerNorm takes, logits at scale
 200; flash attention at head dims 16 to 128 (48, 80 and 112 padded in the
-bf16 kernels), ragged lengths at the kernels' tile edges, and
+bf16 kernels), 24, 40, 192, 256 and odd ones (the generic kernels),
+B*H = 65536, ragged lengths at the kernels' tile edges, and
 cross-attention lengths.  This file imports no JAX, so it also runs on a
 machine without it:
 
@@ -274,6 +275,19 @@ def _close_rows(got, want, tol, what, noise=0.0):
     (2, 65, 192, 2, 64, True),
     (2, 65, 192, 2, 64, False),
     (1, 192, 320, 2, 128, True),
+    # head dims the wgmma kernels do not take (the generic kernels, in
+    # bf16 too): not a multiple of 16, above 128 (the 256-column instance
+    # with its 32-row inner tile), odd (element-wise loads and stores)
+    (2, 96, 96, 2, 24, True),
+    (2, 96, 96, 2, 24, False),
+    (2, 130, 70, 2, 40, True),
+    (2, 64, 128, 2, 40, False),
+    (2, 129, 129, 2, 192, True),
+    (2, 64, 160, 2, 192, False),
+    (2, 129, 129, 2, 256, True),
+    (1, 100, 100, 2, 256, False),
+    (1, 33, 33, 3, 7, True),
+    (1, 17, 40, 2, 1, False),
 ])
 def test_flash_kernels_match_plain(dev, dtype, b, tq, tkv, h, d, causal):
     """Tolerances: fp32 outputs within 1e-5 of each row's largest entry of
@@ -309,6 +323,28 @@ def test_flash_kernels_match_plain(dev, dtype, b, tq, tkv, h, d, causal):
     p_dk, p_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
                                                   causal, scale)
     _close_rows(dk, p_dk, tol, "dk", noise)
+    _close_rows(dv, p_dv, tol, "dv")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 24])
+def test_flash_kernels_take_65536_heads(dev, dtype, d):
+    """B*H = 65536, above the 65535 blocks of a grid's y: both routes put
+    B*H on grid.x (bf16 at d = 16 the wgmma kernels, the rest the generic
+    ones).  Tolerances as at ``test_flash_kernels_match_plain``."""
+    q, k, v, do = _qkvdo(dev, dtype, 256, 16, 16, 256, d, seed=d)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    out, lse = fa.flash_attention_fwd(q, k, v, True, 0.25)
+    _close_rows(out, fa.flash_attention_fwd_plain(q, k, v, True, 0.25)[0],
+                tol, "out")
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True, 0.25)
+    _close_rows(dq, fa.flash_attention_bwd_dq_plain(
+        q, k, v, do, lse, delta, True, 0.25), tol, "dq")
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True, 0.25)
+    p_dk, p_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                  True, 0.25)
+    _close_rows(dk, p_dk, tol, "dk")
     _close_rows(dv, p_dv, tol, "dv")
 
 
@@ -436,10 +472,12 @@ def test_flash_wrappers_check_their_inputs(dev):
     q = torch.zeros(1, 8, 2, 32, device=dev)
     with pytest.raises(TypeError):
         fa.flash_attention_fwd(q.half(), q.half(), q.half(), True, 1.0)
-    for bad_d in (24, 144):     # not a multiple of 16; above the limit
+    for bad_d in (257, 512):    # above the widest instance
         x = torch.zeros(1, 8, 2, bad_d, device=dev)
-        with pytest.raises(ValueError, match="head dim"):
+        with pytest.raises(ValueError, match="head dim .* outside"):
             fa.flash_attention_fwd(x, x, x, True, 1.0)
+    with pytest.raises(ValueError, match="wgmma"):  # no wgmma plan at 192
+        fa.flash_attention_fwd_plan(1, 2, 8, 192)
     with pytest.raises(ValueError):      # k on another device
         fa.flash_attention_fwd(q, q.cpu(), q, True, 1.0)
     with pytest.raises(ValueError):      # v's shape differs from k's

@@ -93,6 +93,21 @@ def test_forward_and_gradients_match_pallas(b, t, t_kv, h, d, causal):
                                    err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("d", [24, 40, 192, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dims_beyond_the_wgmma_kernels_match_pallas(d, causal):
+    """The head dims that run the card's generic kernels (not a multiple
+    of 16, above 128): the plain path against the Pallas kernel, forward
+    and gradients, at the tolerances above."""
+    q, k, v = _rand(1, 32, 2, d, seed=d + causal)
+    jout, jgrads = _jax_grads(q, k, v, causal)
+    tout, tgrads = _torch_grads(q, k, v, causal)
+    np.testing.assert_allclose(tout, jout, rtol=2e-5, atol=2e-5)
+    for got, want, name in zip(tgrads, jgrads, "qkv"):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4,
+                                   err_msg=f"d{name}")
+
+
 def test_causal_mask_is_top_left_when_t_q_below_t_kv():
     """q_pos >= k_pos from index 0: query 0 sees key 0 alone, so its
     output is v[0] (bottom-right alignment would let it see 65 keys)."""

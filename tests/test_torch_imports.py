@@ -32,7 +32,14 @@ def test_import_leaves_jax_and_horovod_tpu_out():
         "import sys\n"
         "import horovod_tpu_torch, horovod_tpu_torch.models, "
         "horovod_tpu_torch.optimizer, horovod_tpu_torch.ops.cuda, "
-        "horovod_tpu_torch.ops.cuda._build, horovod_tpu_torch.parallel\n"
+        "horovod_tpu_torch.ops.cuda._build, horovod_tpu_torch.parallel, "
+        "horovod_tpu_torch.ops.eager, horovod_tpu_torch.ops.controller, "
+        "horovod_tpu_torch.ops.nccl_executor, horovod_tpu_torch.mpi_ops, "
+        "horovod_tpu_torch.sync_batch_norm, "
+        "horovod_tpu_torch.common.handles, "
+        "horovod_tpu_torch.common.response_cache, "
+        "horovod_tpu_torch.common.objects, "
+        "horovod_tpu_torch.common.ops_enum\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"

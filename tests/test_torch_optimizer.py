@@ -431,3 +431,95 @@ def test_bf16_compressor_round_trip():
     assert Compression.bf16.decompress(c, ctx).dtype == torch.float32
     i = torch.arange(3)
     assert Compression.bf16.compress(i) == (i, None)
+
+
+# ----------------------------- backward_passes_per_step, averaged or summed
+ACCUM_WORKER = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+
+    data_path, store_path, out_path = sys.argv[1:4]
+    data = np.load(data_path)
+    hvd.init(device="cpu", store_path=store_path)
+    try:
+        r = hvd.rank()
+        params = {k: torch.nn.Parameter(torch.from_numpy(data[k]))
+                  for k in ("w1", "b1", "w2")}
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(params.values(), lr=float(data["lr"])),
+            named_parameters=params.items(), backward_passes_per_step=2,
+            average_aggregated_gradients=bool(data["average"]))
+        out = {}
+        x, y = data["x"], data["y"]   # [micro step, rank, rows, ...]
+        for m in range(x.shape[0]):
+            xm, ym = torch.from_numpy(x[m, r]), torch.from_numpy(y[m, r])
+            pred = torch.tanh(xm @ params["w1"] + params["b1"]) @ params["w2"]
+            ((pred - ym) ** 2).mean().backward()
+            if m % 2 == 1:
+                opt.step()
+                opt.zero_grad()
+                for k, p in params.items():
+                    out[f"{m // 2}.{k}"] = p.detach().numpy().copy()
+        np.savez(out_path, **out)
+    finally:
+        hvd.shutdown()
+""")
+
+
+@pytest.mark.parametrize("average", [True, False])
+def test_two_rank_backward_passes_match_jax_multisteps(tmp_path, average):
+    """``backward_passes_per_step=2`` on 2 gloo ranks, 2 SGD steps of a
+    small MLP, against the JAX package's ``DistributedOptimizer`` (the
+    ``optax.MultiSteps`` chain, ``jax_api.py:98-133``) under
+    ``shard_map`` with the same ``average_aggregated_gradients``.  SGD
+    keeps the factor of 2 between averaging and summing the passes in the
+    update.  rtol 1e-5 (fp32, sums in another order)."""
+    rng = np.random.RandomState(11)
+    micro, rows = 4, 3
+    init = {"w1": rng.randn(5, 6).astype(np.float32) * 0.5,
+            "b1": rng.randn(6).astype(np.float32) * 0.1,
+            "w2": rng.randn(6, 2).astype(np.float32) * 0.5}
+    x = rng.randn(micro, RANKS, rows, 5).astype(np.float32)
+    y = rng.randn(micro, RANKS, rows, 2).astype(np.float32)
+    lr = 0.1
+    np.savez(tmp_path / "data.npz", x=x, y=y, lr=lr, average=average,
+             **init)
+
+    def loss(p, xb, yb):
+        pred = jnp.tanh(xb @ p["w1"] + p["b1"]) @ p["w2"]
+        return jnp.mean((pred - yb) ** 2)
+
+    opt = jhvd.DistributedOptimizer(
+        optax.sgd(lr), named_axes=("hvd",), backward_passes_per_step=2,
+        average_aggregated_gradients=average)
+    mesh = make_mesh({"hvd": RANKS}, devices=jax.devices()[:RANKS])
+
+    def per_shard(p, s, xb, yb):
+        grads = jax.grad(loss)(p, xb[0], yb[0])
+        updates, s = opt.update(grads, s, p)
+        return optax.apply_updates(p, updates), s
+
+    step = jax.jit(shard_map_unchecked(
+        per_shard, mesh=mesh, in_specs=(P(), P(), P("hvd"), P("hvd")),
+        out_specs=(P(), P())))
+    params = {k: jnp.asarray(v) for k, v in init.items()}
+    state = opt.init(params)
+    want = []
+    for m in range(micro):
+        params, state = step(params, state, jnp.asarray(x[m]),
+                             jnp.asarray(y[m]))
+        if m % 2 == 1:
+            want.append({k: np.asarray(v) for k, v in params.items()})
+
+    ranks = _run_ranks(tmp_path, {}, worker=ACCUM_WORKER)
+    for s, step_want in enumerate(want):
+        for k, value in step_want.items():
+            got = [r[f"{s}.{k}"] for r in ranks]
+            np.testing.assert_array_equal(got[0], got[1])
+            np.testing.assert_allclose(got[0], value, rtol=1e-5, atol=1e-6,
+                                       err_msg=f"step {s} {k}")
+    # the two settings differ by the factor 2 of the first step's update
+    moved = np.abs(want[0]["w2"] - init["w2"]).max()
+    assert moved > 1e-3
