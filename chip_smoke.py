@@ -35,15 +35,31 @@ Phases, each of which must pass:
    variants against torch ops on the card, a stream-ordering check, and
    ``grouped_allreduce`` of the full-width model's gradients against
    ``allreduce_gradients``; prints the median negotiation time and the
-   fused allreduce's time and GB/s.
+   fused allreduce's time and GB/s.  Then block-scaled int8, each rank
+   with values of its own: ``grouped_allreduce(compression="int8")`` of
+   those gradients, ``reduce_scatter`` with int8 and three steps of
+   ``DistributedOptimizer(..., compression=Compression.int8)``, each held
+   to the fp32 result within ``(n + 1) * blockmax / 254``; above one rank
+   the int8 path must have run, at one rank the plane's resolves to the
+   exact wire; prints the int8 and fp32 grouped allreduce's times and
+   wire bytes;
+7. the CNNs: ResNet-18 (narrow), VGG-16 and Inception V3 on the card
+   against the same weights on the CPU; then ResNet-50 trained at full
+   width and depth as ``bench.py::_bench_resnet`` runs it (224x224x3,
+   1000 classes, bf16, batch 64, ``DistributedOptimizer(SGD(0.1,
+   momentum=0.9))``, world size 1): the loss must be finite and fall;
+   prints images/s per GPU; then one step each of VGG-16 at 224 and
+   Inception V3 at 299, full width, batch 16.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
-that last line.  ``--profile`` adds one profiled step.
+that last line.  ``--profile`` adds one profiled step of phase 5 and one
+of ResNet-50.
 """
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -56,6 +72,12 @@ BF16_TC_OPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
 
 N_ROWS, D_MODEL, VOCAB = 8 * 2048, 1024, 32768
 LAYERS, STEPS = 8, 5   # full depth of the main path; a few steps
+# ResNet-50's warm-up steps and its timed window (bench.py's
+# BENCH_WARMUP and BENCH_ITERS defaults)
+CNN_WARMUP, CNN_STEPS = 3, 20
+# phase 7: (batch per GPU, image side) of each CNN at full width
+CNN_SIZES = {"resnet50": (64, 224), "vgg16": (16, 224),
+             "inception_v3": (16, 299)}
 # attention of the main path: batch, seq, heads, head dim
 ATTN_B, ATTN_T, ATTN_H, ATTN_D = 8, 2048, D_MODEL // 128, 128
 
@@ -837,6 +859,8 @@ def eager_checks(layers):
             raise AssertionError(f"gradient {i}: eager and direct differ "
                                  f"beyond fp32 rounding")
     checked.append("grouped_allreduce of the full-width gradients")
+    int8_checked, int8_res = int8_checks(grads)
+    checked += int8_checked
 
     def timed(fn, iters=5):
         fn()
@@ -858,12 +882,256 @@ def eager_checks(layers):
            "negotiation_ms_median": 1e3 * statistics.median(
                controller.negotiation_times()),
            "cycles": len(controller.negotiation_times()),
-           "cache_hits": controller.cache_hits}
+           "cache_hits": controller.cache_hits, **int8_res}
     del grads
     checked += sync_batch_norm_under_optimizer()
     res["checks"] = len(checked)
     res.update(step_with_and_without_plane(layers))
     return res
+
+
+def _rank_max(t):
+    """The elementwise max of ``t`` over the ranks (the default group,
+    after the eager plane has issued what this rank submitted)."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.common import basics
+
+    basics._get_state().controller.drain()
+    t = t.clone()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t
+
+
+def _fused_buffers(tensors):
+    """Index lists of the fused buffers the eager plane reduces a
+    ``grouped_allreduce`` of ``tensors`` (one dtype, submitted in one
+    cycle) in: its greedy in-order plan up to the fusion threshold."""
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.common.fusion import plan_buckets
+
+    return list(plan_buckets(
+        range(len(tensors)), key_fn=lambda i: 0,
+        nbytes_fn=lambda i: tensors[i].numel() * tensors[i].element_size(),
+        threshold=basics._get_state().controller._threshold))
+
+
+def _block_scaled(t, block):
+    """``t`` with its ``block``-element blocks scaled by 1, 10^-0.5, ...,
+    10^-3 in turn, as gradients differ in size from block to block: a
+    quantizer with one scale for many blocks then errs beyond the
+    per-block bound in the small ones."""
+    import torch
+
+    flat = t.reshape(-1)
+    steps = torch.arange(flat.numel(), device=t.device) // block % 7
+    return (flat * torch.pow(10.0, -0.5 * steps.float())).view(t.shape)
+
+
+def _block_max(t, block):
+    """Each 256-block's largest magnitude of ``t`` flattened, padded."""
+    import torch.nn.functional as F
+
+    flat = t.reshape(-1).float().abs()
+    return F.pad(flat, (0, -flat.numel() % block)).view(-1, block).amax(1)
+
+
+def _within_int8_bound(what, got, exact, blockmax, n):
+    """``|got - exact| <= (n + 1) * blockmax / 254`` elementwise
+    (``horovod_tpu/common/compression.py:88-90``), ``blockmax`` one value
+    per 256-block of the flattened tensors; -> the largest error."""
+    import torch
+
+    err = (got.float() - exact.float()).reshape(-1).abs()
+    bound = (n + 1) * blockmax.repeat_interleave(256)[:err.numel()] / 254
+    worst = float((err - bound * (1 + 1e-5) - 1e-30).max())
+    if worst > 0:
+        raise AssertionError(f"int8 {what}: an error {worst:.3e} above the "
+                             f"bound (n + 1) * blockmax / 254")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def int8_checks(grads, pairs=3):
+    """Phase 6's int8 cases on this rank, each rank with values of its
+    own: ``grouped_allreduce(compression="int8")`` and
+    ``allreduce_gradients(compression=Compression.int8)`` (the optimizer's
+    per-gradient path) of the full-width gradients, ``reduce_scatter``
+    with int8 and three steps of ``DistributedOptimizer(...,
+    compression=Compression.int8)``, each held to the fp32 result within
+    the reference's bound ``(n + 1) * blockmax / 254``, ``blockmax`` the
+    largest magnitude of the element's own 256-block.  Above one rank the
+    eager plane's int8 path must have run; at one rank it resolves to the
+    exact wire (``xla_executor.py:232``) and returns the input's values.
+    The optimizer's path quantizes at one rank too, as ``jax_api`` does.
+    -> (the names of the checks, the numbers: both full-width paths'
+    int8 and fp32 times in turns, wire bytes, the per-gradient path's
+    memory beyond its inputs)."""
+    import torch
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.common.compression import INT8_BLOCK, \
+        int8_wire_bytes
+    from horovod_tpu_torch.common.ops_enum import reduce_scatter_split_sizes
+
+    dev, r, n = hvd.device(), hvd.rank(), hvd.size()
+    wires = basics._get_state().controller._executor.wires
+    checked = []
+    grads = [_block_scaled(g, INT8_BLOCK) for g in grads]
+
+    def expect_int8_ran(what, before):
+        ran = wires["int8"] - before
+        if (n > 1) != (ran > 0):
+            raise AssertionError(f"int8 {what}: {ran} int8 reductions at "
+                                 f"{n} rank(s)")
+
+    # the gradients: the plane quantizes each fused buffer from its
+    # start, so each element is held to the largest magnitude of its own
+    # 256-block of that buffer (over the ranks' inputs and the exact sum)
+    exact = hvd.grouped_allreduce(grads, op=hvd.Sum, name="p6.q.exact")
+    before = wires["int8"]
+    got = hvd.grouped_allreduce(grads, op=hvd.Sum, name="p6.q.grads",
+                                compression="int8")
+    torch.cuda.synchronize()
+    expect_int8_ran("grouped_allreduce", before)
+    if n == 1 and not all(torch.equal(a, g) for a, g in zip(got, grads)):
+        raise AssertionError("int8 at one rank: a gradient changed")
+    worst = 0.0
+    for idx in _fused_buffers(grads):
+        mine, want, out = (torch.cat([ts[i].reshape(-1) for i in idx])
+                           for ts in (grads, exact, got))
+        blockmax = torch.maximum(_rank_max(_block_max(mine, INT8_BLOCK)),
+                                 _block_max(want, INT8_BLOCK))
+        worst = max(worst, _within_int8_bound(
+            f"fused buffer of gradients {idx[0]}-{idx[-1]}", out, want,
+            blockmax, n))
+        del mine, want, out
+    checked.append("int8 grouped_allreduce of the full-width gradients")
+    del got
+
+    # allreduce_gradients, as DistributedOptimizer reduces them: each
+    # gradient quantized from its own start (quantized at one rank too)
+    exact = hvd.allreduce_gradients(grads, op=hvd.Sum)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = hvd.allreduce_gradients(grads, op=hvd.Sum,
+                                  compression=hvd.Compression.int8)
+    torch.cuda.synchronize()
+    leaf_extra = torch.cuda.max_memory_allocated() - base
+    maxima = torch.cat([_block_max(g, INT8_BLOCK) for g in grads])
+    blockmax = torch.maximum(_rank_max(maxima), torch.cat(
+        [_block_max(e, INT8_BLOCK) for e in exact]))
+    leaf_worst, start = 0.0, 0
+    for a, b in zip(got, exact):
+        blocks = -(-a.numel() // INT8_BLOCK)
+        leaf_worst = max(leaf_worst, _within_int8_bound(
+            "allreduce_gradients", a, b, blockmax[start:start + blocks], n))
+        start += blocks
+    if not leaf_worst > 0:
+        raise AssertionError("int8 allreduce_gradients: nothing quantized")
+    checked.append("int8 allreduce_gradients of the full-width gradients")
+    del got, exact
+
+    # reduce_scatter: one tensor, so the blocks are its own
+    gen = torch.Generator(device=dev).manual_seed(400 + r)
+    x = _block_scaled(torch.randn(8 * n + 3, 1000, generator=gen,
+                                  device=dev), INT8_BLOCK)
+    counts = reduce_scatter_split_sizes(x.shape[0], n)
+    start = sum(counts[:r])
+    full = hvd.allreduce(x, op=hvd.Sum, name="p6.q.rs.exact")
+    before = wires["int8"]
+    rs = hvd.reduce_scatter(x, op=hvd.Sum, name="p6.q.rs",
+                            compression="int8")
+    expect_int8_ran("reduce_scatter", before)
+    if n == 1 and not torch.equal(rs, x):
+        raise AssertionError("int8 reduce_scatter at one rank changed x")
+    blockmax = torch.maximum(_rank_max(_block_max(x, INT8_BLOCK)),
+                             _block_max(full, INT8_BLOCK))
+    mine = torch.zeros_like(full)
+    mine[start:start + counts[r]] = rs
+    keep = torch.zeros_like(full, dtype=torch.bool)
+    keep[start:start + counts[r]] = True
+    _within_int8_bound("reduce_scatter", torch.where(keep, mine, full),
+                       full, blockmax, n)
+    checked.append("int8 reduce_scatter")
+
+    # DistributedOptimizer: leaves of 19200, 300 and 3000 elements go
+    # through int8 on their own; the bias of 10 passes exactly
+    torch.manual_seed(6)
+    model = torch.nn.Sequential(torch.nn.Linear(64, 300), torch.nn.ReLU(),
+                                torch.nn.Linear(300, 10)).to(dev)
+    params = list(model.parameters())
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(params, lr=0.1),
+        named_parameters=model.named_parameters(),
+        compression=hvd.Compression.int8)
+    quantized_err = 0.0
+    for step in range(3):
+        gen = torch.Generator(device=dev).manual_seed(500 + 10 * step + r)
+        xb = torch.randn(32, 64, generator=gen, device=dev)
+        yb = torch.randn(32, 10, generator=gen, device=dev)
+        opt.zero_grad()
+        loss = F.mse_loss(model(xb), yb)
+        local = torch.autograd.grad(loss, params, retain_graph=True)
+        loss.backward()
+        opt.synchronize()
+        sums = hvd.allreduce_gradients(list(local), op=hvd.Sum)
+        for p, g, total in zip(params, local, sums):
+            if p.numel() < INT8_BLOCK:
+                scale = float(total.abs().max()) / n
+                if not torch.allclose(p.grad, total / n, rtol=1e-5,
+                                      atol=1e-6 * scale):
+                    raise AssertionError("int8 optimizer: a leaf below "
+                                         "one block was not exact")
+                continue
+            blockmax = torch.maximum(_rank_max(_block_max(g, INT8_BLOCK)),
+                                     _block_max(total, INT8_BLOCK))
+            quantized_err = max(quantized_err, _within_int8_bound(
+                "DistributedOptimizer", p.grad * n, total, blockmax, n))
+        with opt.skip_synchronize():
+            opt.step()
+    if not quantized_err > 0:
+        raise AssertionError("int8 optimizer: no gradient was quantized")
+    checked.append("int8 DistributedOptimizer")
+
+    def grouped(comp):
+        hvd.grouped_allreduce(grads, op=hvd.Sum, name="p6.q.time",
+                              compression=comp)
+
+    def leaves(comp):
+        hvd.allreduce_gradients(grads, op=hvd.Sum, compression={
+            "int8": hvd.Compression.int8, "none": hvd.Compression.none}[comp])
+
+    def timed(fn, comp):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(comp)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    ms = {}
+    for path, fn in (("grouped", grouped), ("leaves", leaves)):
+        timed(fn, "int8")
+        timed(fn, "none")
+        ms[path] = {"int8": [], "none": []}
+        for _ in range(pairs):   # in turns: a drift of the host falls on both
+            for comp in ("int8", "none", "none", "int8"):
+                ms[path][comp].append(timed(fn, comp))
+    numel = sum(g.numel() for g in grads)
+    return checked, {
+        "int8_ms": statistics.median(ms["grouped"]["int8"]),
+        "int8_fp32_ms": statistics.median(ms["grouped"]["none"]),
+        "int8_wire_bytes": int8_wire_bytes(numel, n),
+        "fp32_wire_bytes": 2 * (n - 1) * 4 * numel // n,
+        "int8_max_err_grads": worst,
+        "int8_leaf_ms": statistics.median(ms["leaves"]["int8"]),
+        "int8_leaf_fp32_ms": statistics.median(ms["leaves"]["none"]),
+        "int8_leaf_wire_bytes": sum(int8_wire_bytes(g.numel(), n)
+                                    for g in grads),
+        "int8_leaf_extra_bytes": leaf_extra,
+        "int8_max_err_leaves": leaf_worst}
 
 
 def sync_batch_norm_under_optimizer(steps=3):
@@ -1046,6 +1314,19 @@ def eager_phase(smi, layers):
               f"allreduce_gradients {res['direct_ms']:.3f} ms "
               f"({res['direct_gb_s']:.1f} GB/s); {res['cache_hits']} cache "
               f"hits on {smi}", flush=True)
+        print(f"eager rank {res['rank']} of {res['world']}: int8 "
+              f"grouped_allreduce of {res['params']} fp32 gradients "
+              f"{res['int8_ms']:.3f} ms, {res['int8_wire_bytes']} bytes "
+              f"sent a rank (max abs err {res['int8_max_err_grads']:.3e}), "
+              f"against fp32 {res['int8_fp32_ms']:.3f} ms, "
+              f"{res['fp32_wire_bytes']} bytes (ring); {smi}", flush=True)
+        print(f"eager rank {res['rank']} of {res['world']}: int8 "
+              f"allreduce_gradients (per gradient) "
+              f"{res['int8_leaf_ms']:.3f} ms, {res['int8_leaf_wire_bytes']} "
+              f"bytes sent a rank, {res['int8_leaf_extra_bytes']} bytes of "
+              f"memory beyond its inputs (max abs err "
+              f"{res['int8_max_err_leaves']:.3e}), against fp32 "
+              f"{res['int8_leaf_fp32_ms']:.3f} ms; {smi}", flush=True)
         print(f"eager rank {res['rank']} of {res['world']}: step at "
               f"{res['world']} GPU(s) {res['step_ms_plane_on']:.2f} ms with "
               f"the plane running ({res['plane_cycles_during_steps']} "
@@ -1071,16 +1352,26 @@ def _eager_rank(layers):
 
 
 def _profile_step(model, opt, tokens):
-    import torch
-    from torch.profiler import ProfilerActivity
-
     from horovod_tpu_torch.models import lm_loss
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    def step():
         opt.zero_grad(set_to_none=True)
         lm_loss(model(tokens), tokens).backward()
         opt.step()
+
+    return _profile(step, "profile_step.txt")
+
+
+def _profile(step, filename):
+    """Run ``step`` once under ``torch.profiler``; write its device time
+    by operator to ``chiprun_out/<filename>``, print the top rows; -> the
+    device time in ms."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
         torch.cuda.synchronize()
     events = prof.key_averages()
     table = events.table(sort_by="self_device_time_total", row_limit=60)
@@ -1091,14 +1382,180 @@ def _profile_step(model, opt, tokens):
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
     total = sum(e.self_device_time_total for e in device) / 1e3
-    with open(os.path.join(_out_dir(), "profile_step.txt"), "w") as f:
+    with open(os.path.join(_out_dir(), filename), "w") as f:
         f.write(f"device time {total:.3f} ms\n{table}\n")
-    print(f"profile: device time {total:.3f} ms in one step; top kernels:",
-          flush=True)
+    print(f"profile: device time {total:.3f} ms in one step ({filename}); "
+          f"top kernels:", flush=True)
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}", flush=True)
     return total
+
+
+def check_cnn_cpu_vs_cuda():
+    """Phase 7, first: the CNNs on the card against the same weights on
+    the CPU, at narrow sizes.  In fp32 with TF32 off, eval logits of
+    ResNet-18 (16 filters, 32x32, batch 8), VGG-16 (32x32, classifier
+    64) and Inception V3 (96x96): rtol 1e-4 with an absolute floor of
+    1e-5 of the largest entry (convolutions sum in another order).  In
+    float64 (its fp32 head too), ResNet-18's training step: logits,
+    loss, every gradient and the updated batch statistics, rtol 1e-6
+    with a floor of 1e-9 of each tensor's largest entry.  Its gradients
+    are not held in fp32: a BatchNorm bias's gradient sums terms that
+    cancel, and the two devices' fp32 sums differ by 8.7e-8 there, far
+    above such a leaf's share of its entries."""
+    import torch
+
+    from horovod_tpu_torch import train_cnn
+    from horovod_tpu_torch.models import InceptionV3, ResNet18, VGG16
+
+    def close(what, got, want, rtol, share):
+        want = want.double()
+        atol = share * max(float(want.abs().max()), 1e-30)
+        if not torch.allclose(got.double(), want, rtol=rtol, atol=atol):
+            raise AssertionError(f"cnn cuda vs cpu {what}: max abs err "
+                                 f"{max_err(got, want):.3e}")
+
+    cases = [
+        ("resnet18", lambda dev, dt: ResNet18(
+            num_classes=10, num_filters=16, dtype=dt, device=dev, seed=1),
+         8, 32),
+        ("vgg16", lambda dev, dt: VGG16(
+            num_classes=10, dtype=dt, classifier_width=64, image=32,
+            device=dev, seed=1), 4, 32),
+        ("inception_v3", lambda dev, dt: InceptionV3(
+            num_classes=10, dtype=dt, device=dev, seed=1), 2, 96)]
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for name, make, batch, image in cases:
+            train = name == "resnet18"
+            x, y = train_cnn.synthetic_batch(batch, image, 10, "cpu")
+            out = {}
+            for dev in ("cpu", "cuda"):
+                model = make(dev, torch.float32).eval()
+                with torch.no_grad():
+                    res = {"eval logits": model(x.to(dev)).cpu()}
+                if train:
+                    model = make(dev, torch.float64).double().train()
+                    model.Dense_0.dtype = torch.float64   # fp32 by design
+                    logits = model(x.to(dev, torch.float64))
+                    loss = train_cnn.cross_entropy(logits, y.to(dev))
+                    loss.backward()
+                    res["f64 logits"] = logits.detach().cpu()
+                    res["f64 loss"] = loss.detach().cpu()
+                    res.update({f"f64 grad {k}": p.grad.cpu()
+                                for k, p in model.named_parameters()})
+                    res.update({f"f64 buffer {k}": b.cpu()
+                                for k, b in model.named_buffers()})
+                out[dev] = res
+            want, got = out["cpu"], out["cuda"]
+            for k in want:
+                f64 = k.startswith("f64")
+                close(f"{name} {k}", got[k], want[k], 1e-6 if f64 else 1e-4,
+                      1e-9 if f64 else 1e-5)
+            peak = float(want["eval logits"].abs().max())
+            print(f"cnn {name}: card and CPU agree on {len(want)} tensors "
+                  f"(eval logits max {peak:.4f})", flush=True)
+    finally:   # the later steps run as the caller set them
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+
+
+def cnn_phase(smi, profile=False):
+    """Phase 7: :func:`check_cnn_cpu_vs_cuda`, then ResNet-50 training at
+    full width and depth as ``bench.py::_bench_resnet`` runs it (1000
+    classes, 224x224x3, bf16 compute, fp32 parameters, batch 64, SGD 0.1
+    with momentum 0.9 under ``DistributedOptimizer``, batch statistics
+    averaged over the ranks) at world size 1: ``CNN_WARMUP`` steps, then
+    a window of ``CNN_STEPS`` steps timed as bench.py times it (images/s
+    = batch * steps / the window's seconds, no synchronisation inside
+    it); the loss must be finite and fall.  Then one training step each
+    of VGG-16 at 224 and Inception V3 at 299, full width, batch 16
+    (``CNN_SIZES``).  ``torch.backends.cudnn.benchmark``
+    is on (cuDNN picks each convolution's algorithm by timing it, as XLA
+    autotunes).  -> the numbers."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import train_cnn
+    from horovod_tpu_torch.models import InceptionV3, ResNet50, VGG16
+
+    check_cnn_cpu_vs_cuda()
+    torch.backends.cudnn.benchmark = True
+    hvd.init()
+    try:
+        dev = hvd.device()
+        torch.cuda.reset_peak_memory_stats()
+        batch, image = CNN_SIZES["resnet50"]
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0)
+        opt = train_cnn.make_optimizer(model)
+        x, y = train_cnn.synthetic_batch(batch, image, 1000, dev)
+        warm, _, _ = train_cnn.timed_steps(model, opt, x, y, CNN_WARMUP)
+        timed, window_s, gaps = train_cnn.timed_steps(model, opt, x, y,
+                                                      CNN_STEPS)
+        losses = warm + timed
+        profiled_ms = _profile(
+            lambda: train_cnn.train_step(model, opt, x, y),
+            "profile_resnet50.txt") if profile else None
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_params = sum(p.numel() for p in model.parameters())
+        del model, opt, x, y
+        others = {}
+        for name, make in [
+                ("vgg16", lambda image: VGG16(dtype=torch.bfloat16,
+                                              image=image, seed=0)),
+                ("inception_v3",
+                 lambda image: InceptionV3(dtype=torch.bfloat16, seed=0))]:
+            other_batch, other_image = CNN_SIZES[name]
+            model = make(other_image)
+            opt = train_cnn.make_optimizer(model)
+            xb, yb = train_cnn.synthetic_batch(other_batch, other_image,
+                                               1000, dev)
+            loss, secs, _ = train_cnn.timed_steps(model, opt, xb, yb, 1)
+            if not all(map(math.isfinite, loss)):
+                raise AssertionError(f"{name}: non-finite loss {loss}")
+            others[name] = {"loss": loss[0], "step_s": secs,
+                            "batch": other_batch, "image": other_image,
+                            "params": sum(p.numel()
+                                          for p in model.parameters())}
+            print(f"cnn {name}: one step at {other_image}x{other_image}, "
+                  f"batch {other_batch}, "
+                  f"{others[name]['params']} parameters: loss {loss[0]:.4f}"
+                  f", {secs * 1e3:.1f} ms (first step, cuDNN choosing "
+                  f"its algorithms) on {smi}", flush=True)
+            del model, opt, xb, yb
+    finally:
+        hvd.shutdown()
+        torch.backends.cudnn.benchmark = False
+
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"resnet50: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"resnet50: the loss did not fall: {losses}")
+    step = window_s / CNN_STEPS
+    ips = batch * CNN_STEPS / window_s
+    print(f"cnn resnet50: {n_params} parameters, batch {batch} x "
+          f"{image}x{image}x3 bf16; losses {[round(v, 4) for v in losses]}",
+          flush=True)
+    print(f"cnn resnet50: ms between step ends on the card "
+          f"{[round(g, 3) for g in gaps]}", flush=True)
+    print(f"cnn resnet50: {CNN_STEPS} steps after {CNN_WARMUP} in "
+          f"{window_s * 1e3:.2f} ms, {step * 1e3:.2f} ms a step, {ips:.1f} "
+          f"images/s per GPU (spread between step ends {min(gaps):.3f}-"
+          f"{max(gaps):.3f} ms), peak memory {peak:.2f} GiB on {smi}",
+          flush=True)
+    if profiled_ms is not None:
+        print(f"cnn resnet50: device busy {profiled_ms:.3f} ms of a "
+              f"{step * 1e3:.3f} ms step", flush=True)
+    return {"resnet50": {"losses": losses, "window_s": window_s,
+                         "step_gaps_ms": gaps, "images_per_s": ips,
+                         "step_ms": step * 1e3,
+                         "params": n_params, "peak_gib": peak,
+                         "profiled_device_ms": profiled_ms},
+            **others}
 
 
 def _out_dir():
@@ -1145,10 +1602,11 @@ def main(argv=None):
     for k in kernels:
         k["launches"] = counts[k["name"]]
     eager = eager_phase(smi, LAYERS)
+    cnn = cnn_phase(smi, args.profile)
 
     with open(os.path.join(_out_dir(), "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": kernels, "train": run,
-                   "eager": eager}, f, indent=1)
+                   "eager": eager, "cnn": cnn}, f, indent=1)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -14,7 +14,9 @@ Rendezvous, in order of precedence:
 
 The backend is NCCL on the card (the default) and gloo only when the
 caller asks for the CPU.  Asking for the card on a machine without one
-raises.
+raises.  ``HVD_TPU_COMPRESSION`` (none, bf16, fp16 or int8) is read once
+here: the compression of every reduction whose ``compression`` is
+``None``; a name it does not know raises.
 
 ``init`` also starts the eager collective plane (``ops/controller.py``):
 two process groups of its own, made in the same order on every rank (a
@@ -36,6 +38,7 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.common.compression import resolve_compression
 from horovod_tpu_torch.ops.controller import Controller
 from horovod_tpu_torch.ops.nccl_executor import Executor
 from horovod_tpu_torch.utils import env as env_util
@@ -54,6 +57,7 @@ class _State:
     cross_size: int
     device: torch.device
     controller: object   # ops.controller.Controller, the eager plane
+    compression: str     # the job's default (HVD_TPU_COMPRESSION)
 
 
 def resolve_device(device=None):
@@ -83,6 +87,7 @@ def init(device=None, store_path=None, timeout=timedelta(seconds=300)):
         cross_size = env_util.get_int(env_util.HVD_CROSS_SIZE, 1)
         if not 0 <= rank < size:
             raise ValueError(f"HVD_RANK={rank} outside HVD_SIZE={size}")
+        compression = default_compression()
         if device.type == "cuda":
             if device.index is None:
                 device = torch.device("cuda", local_rank
@@ -109,7 +114,16 @@ def init(device=None, store_path=None, timeout=timedelta(seconds=300)):
                                     world_size=size, timeout=timeout)
         _state = _State(rank, size, local_rank, local_size, cross_rank,
                         cross_size, device,
-                        _start_eager_plane(rank, size, device, backend))
+                        _start_eager_plane(rank, size, device, backend),
+                        compression)
+
+
+def default_compression():
+    """``HVD_TPU_COMPRESSION``'s canonical name (``"none"`` when unset);
+    a typo raises ``ValueError`` rather than leaving every reduction
+    uncompressed (reference: ``common/config.py:_validated_compression``)."""
+    return resolve_compression(
+        env_util.get_str(env_util.HVD_TPU_COMPRESSION, "none"))
 
 
 def _start_eager_plane(rank, size, device, backend):

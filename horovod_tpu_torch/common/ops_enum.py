@@ -1,8 +1,11 @@
 """Reduction-op and request enums (copy of
-``horovod_tpu/common/ops_enum.py``: ``ReduceOp``, ``RequestType`` and the
-reduce-scatter partition)."""
+``horovod_tpu/common/ops_enum.py``: ``ReduceOp``, ``RequestType``, the
+reduce-scatter partition and ``INT8_BLOCK``)."""
 
 import enum
+
+# Block-scaled int8 compression: one fp32 scale per this many elements.
+INT8_BLOCK = 256
 
 
 class ReduceOp(enum.IntEnum):

@@ -1,11 +1,22 @@
 import numpy as np
 import torch
 
+from horovod_tpu_torch.models.inception import InceptionV3  # noqa: F401
+from horovod_tpu_torch.models.mlp import MLP  # noqa: F401
+from horovod_tpu_torch.models.resnet import (  # noqa: F401
+    ResNet,
+    ResNet18,
+    ResNet34,
+    ResNet50,
+    ResNet101,
+    ResNet152,
+)
 from horovod_tpu_torch.models.transformer import (  # noqa: F401
     Transformer,
     TransformerConfig,
     lm_loss,
 )
+from horovod_tpu_torch.models.vgg import VGG, VGG16, VGG19  # noqa: F401
 
 
 def flatten_tree(tree, prefix=""):
@@ -20,13 +31,35 @@ def flatten_tree(tree, prefix=""):
     return flat
 
 
-def params_from_flax(tree):
-    """The JAX package's parameter pytree (nested dicts of numpy arrays)
-    -> a ``state_dict`` for the port's model of the same config.
+def _is_conv_kernel(name, value):
+    """A 4-D ``kernel`` of a module named as flax names convolutions
+    (``Conv_<i>``, and ``conv_init``/``conv_proj`` in the reference's
+    ResNet).  The transformer's 4-D ``qkv`` kernel is not one."""
+    parts = name.split(".")
+    return (np.ndim(value) == 4 and parts[-1] == "kernel"
+            and len(parts) > 1 and parts[-2].lower().startswith("conv"))
 
-    The port keeps flax's names and ``(in, out)`` kernel layouts, so the
-    conversion is a rename of ``a/b/c`` to ``a.b.c``: ``embed.embedding``,
-    ``block_0.attn.qkv.kernel`` ``(d_model, 3, h, d)``, ``ln_f.scale``,
-    ``lm_head.kernel``, ...  Every tensor comes out fp32."""
-    return {name: torch.from_numpy(np.array(value, dtype=np.float32))
-            for name, value in flatten_tree(tree).items()}
+
+def params_from_flax(tree, batch_stats=None):
+    """The JAX package's ``params`` pytree (nested dicts of numpy arrays),
+    and a CNN's ``batch_stats``, -> a ``state_dict`` for the port's model
+    of the same config.
+
+    The port keeps flax's names, so the conversion is a rename of
+    ``a/b/c`` to ``a.b.c``: ``block_0.attn.qkv.kernel``, ``conv_init.kernel``,
+    ``BottleneckBlock_0.BatchNorm_0.scale``, ``Dense_0.kernel``, ...
+    ``Dense`` kernels keep flax's ``(in, *out)`` layout (the transformer's
+    ``qkv`` kernel ``(d_model, 3, h, d)`` too); convolution kernels go
+    from flax's HWIO to torch's OIHW; the ``batch_stats``' ``mean`` and
+    ``var`` become the BatchNorm buffers of those names.  Every tensor
+    comes out fp32."""
+    flat = flatten_tree(tree)
+    out = {}
+    for name, value in flat.items():
+        value = np.array(value, dtype=np.float32)
+        if _is_conv_kernel(name, value):
+            value = np.ascontiguousarray(value.transpose(3, 2, 0, 1))
+        out[name] = torch.from_numpy(value)
+    for name, value in flatten_tree(batch_stats or {}).items():
+        out[name] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return out

@@ -16,11 +16,13 @@ rule, ``torch/adapter_v2.h:42``).  On the card ``synchronize`` makes the
 caller's current stream wait for the result; the in-place variants copy
 it into the input on that stream.
 
-``compression`` (``None``, ``"none"``, ``"bf16"``, ``"fp16"`` or a
-:class:`Compression` member) is the dtype on the wire of a reduction.
-Not in this slice, and refused rather than ignored: ``group=`` (process
-groups, ROADMAP A.10), ``op=Adasum`` (A.11) and ``compression="int8"``
-(A.6).
+``compression`` (``None``: the job's default, ``HVD_TPU_COMPRESSION``;
+the in-place forms take it too, which the reference's do not;
+``"none"``, ``"bf16"``, ``"fp16"``, ``"int8"`` or a :class:`Compression`
+member) is the format on the wire of a reduction: a cast, or
+block-scaled int8 (``common/compression.py``).  Not in this slice, and
+refused rather than ignored: ``group=`` (process groups, ROADMAP A.10)
+and ``op=Adasum`` (A.11).
 """
 
 import time
@@ -144,20 +146,21 @@ def allreduce(tensor, average=None, name=None, compression=None, op=None,
 
 def allreduce_async_(tensor, average=None, name=None, op=None,
                      prescale_factor=1.0, postscale_factor=1.0,
-                     group=None) -> int:
+                     group=None, compression=None) -> int:
     """In-place variant: the result is copied back into ``tensor``."""
     return _register(eager.allreduce_async(
         tensor, average=average, name=name, op=op,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor,
-        group=group), _copy_into(tensor))
+        compression=compression, group=group), _copy_into(tensor))
 
 
 def allreduce_(tensor, average=None, name=None, op=None,
-               prescale_factor=1.0, postscale_factor=1.0, group=None):
+               prescale_factor=1.0, postscale_factor=1.0, group=None,
+               compression=None):
     return synchronize(allreduce_async_(
         tensor, average=average, name=name, op=op,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor,
-        group=group))
+        group=group, compression=compression))
 
 
 def grouped_allreduce_async(tensors, average=None, name=None, op=None,
@@ -182,21 +185,22 @@ def grouped_allreduce(tensors, average=None, name=None, op=None,
 
 def grouped_allreduce_async_(tensors, average=None, name=None, op=None,
                              prescale_factor=1.0, postscale_factor=1.0,
-                             group=None) -> int:
+                             group=None, compression=None) -> int:
     """In-place grouped variant: results copy back into ``tensors``."""
     return _register_group(eager.grouped_allreduce_async(
         tensors, average=average, name=name, op=op,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor,
-        group=group), [_copy_into(t) for t in tensors])
+        compression=compression, group=group),
+        [_copy_into(t) for t in tensors])
 
 
 def grouped_allreduce_(tensors, average=None, name=None, op=None,
                        prescale_factor=1.0, postscale_factor=1.0,
-                       group=None):
+                       group=None, compression=None):
     return synchronize(grouped_allreduce_async_(
         tensors, average=average, name=name, op=op,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor,
-        group=group))
+        group=group, compression=compression))
 
 
 # --------------------------------------------------------- reduce_scatter

@@ -18,8 +18,7 @@ read once they are done; :func:`wait` makes the caller's current stream
 wait for the result.
 
 Not in this slice, and refused rather than ignored: ``group=`` (process
-groups, ROADMAP A.10), ``op=Adasum`` (A.11) and ``compression="int8"``
-(A.6).
+groups, ROADMAP A.10) and ``op=Adasum`` (A.11).
 """
 
 import threading
@@ -96,7 +95,8 @@ def _request(req_type, tensor, name, *, op=Sum, root_rank=-1,
         prescale_factor=float(prescale_factor),
         postscale_factor=float(postscale_factor),
         splits=None if splits is None else tuple(int(s) for s in splits),
-        compression=resolve_compression(compression))
+        compression=resolve_compression(compression,
+                                        default=state.compression))
     req = Request(sig=sig, name=name, tensor=tensor, handle=Handle(name))
     if tensor.device.type == "cuda":
         req.stream = torch.cuda.current_stream(tensor.device)
@@ -113,9 +113,10 @@ def _submit(requests):
 def allreduce_async(tensor, average=None, name=None, op=None,
                     prescale_factor=1.0, postscale_factor=1.0,
                     compression=None, group=None) -> Handle:
-    """``compression``: ``None`` or ``"none"``, ``"bf16"``, ``"fp16"`` or
-    a :class:`horovod_tpu_torch.Compression` member: the dtype on the
-    wire of this allreduce."""
+    """``compression``: ``None`` (the job's default,
+    ``HVD_TPU_COMPRESSION``), ``"none"``, ``"bf16"``, ``"fp16"``,
+    ``"int8"`` or a :class:`horovod_tpu_torch.Compression` member: the
+    format on the wire of this allreduce."""
     _check_group(group)
     op = _resolve_op(op, average)
     return _submit([_request(

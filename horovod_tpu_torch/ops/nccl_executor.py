@@ -9,7 +9,11 @@ Port of ``horovod_tpu/ops/xla_executor.py``: ``allreduce_fused`` (:242),
 collective is the reference's, in its order: prescale and the wire cast
 before the sum; the cast back, the average and the postscale after it.
 Integer tensors keep the sum exact and take all scaling once in float64,
-cast back with truncation toward zero.
+cast back with truncation toward zero.  Block-scaled int8
+(``_build_int8_allreduce``, :380) casts to fp32 and prescales, runs
+:func:`~horovod_tpu_torch.common.compression.quantized_allreduce` on the
+fused buffer, then averages and postscales in fp32 and casts back; its
+reduce-scatter (:499) is that allreduce cut into the rank's rows.
 
 Stream order on the card (the reference's ``ReadyEvent``,
 ``horovod/torch/ready_event.cc``): the plane's stream waits on the event
@@ -19,30 +23,36 @@ allocator does not hand their memory out early.  :meth:`Executor.run`
 returns the event at which the outputs are complete.
 """
 
+import collections
 import contextlib
 import math
 
 import torch
 import torch.distributed as dist
 
-from horovod_tpu_torch.common.ops_enum import (ReduceOp,
+from horovod_tpu_torch.common.compression import (all_gather_into,
+                                                  quantized_allreduce)
+from horovod_tpu_torch.common.ops_enum import (INT8_BLOCK, ReduceOp,
                                                reduce_scatter_split_sizes)
 
-all_gather_into = getattr(dist, "all_gather_single", None) \
-    or dist.all_gather_into_tensor
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
     or dist.reduce_scatter_tensor
 
 _WIRE = {"bf16": torch.bfloat16, "fp16": torch.float16}
 
 
-def effective_compression(compression, dtype, size):
-    """The wire format actually used: the exact dtype for integers, for a
-    world of one rank and for casts that would change nothing (reference:
-    ``XlaExecutor._effective_compression``)."""
-    wire = _WIRE.get(compression)
-    if wire is None or not dtype.is_floating_point or size == 1 \
-            or wire == dtype:
+def effective_compression(compression, dtype, size, total):
+    """The wire format actually used for ``total`` elements of ``dtype``
+    at ``size`` ranks: the exact dtype for integers, for a world of one
+    rank, for casts that would change nothing and for int8 of fewer than
+    one block (reference: ``XlaExecutor._effective_compression``).  It
+    depends on nothing but its arguments, so every rank decides the
+    same."""
+    if compression not in _WIRE and compression != "int8":
+        return "none"
+    if not dtype.is_floating_point or size == 1 \
+            or _WIRE.get(compression) == dtype \
+            or (compression == "int8" and total < INT8_BLOCK):
         return "none"
     return compression
 
@@ -55,6 +65,8 @@ class Executor:
         self.device = device
         self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
                        else None)
+        # reductions run, by the wire format they used
+        self.wires = collections.Counter()
 
     @contextlib.contextmanager
     def run(self, requests):
@@ -100,14 +112,35 @@ class Executor:
         reference's scaling (``xla_executor.py:304-357``), in place where
         the dtype allows."""
         dtype = flat.dtype
-        wire = _WIRE.get(effective_compression(compression, dtype,
-                                               self.size))
+        comp = self._wire(compression, dtype, flat.numel())
+        if comp == "int8":
+            return self._int8(flat, op, prescale, postscale)
+        wire = _WIRE.get(comp)
         if prescale != 1.0 and dtype.is_floating_point:
             flat.mul_(prescale)
         if wire is not None:
             flat = flat.to(wire)
         dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
         return self._finish(flat, dtype, op, prescale, postscale)
+
+    def _wire(self, compression, dtype, total):
+        comp = effective_compression(compression, dtype, self.size, total)
+        self.wires[comp] += 1
+        return comp
+
+    def _int8(self, flat, op, prescale, postscale):
+        """The reference's int8 allreduce (``xla_executor.py:380-420``):
+        fp32, prescale, the quantized sum, then the average and the
+        postscale in fp32 and the cast back.  ``flat`` is not written."""
+        x = flat.float()
+        if prescale != 1.0:
+            x = x * prescale
+        x = quantized_allreduce(x, self.group)
+        if op == ReduceOp.AVERAGE:
+            x = x / self.size
+        if postscale != 1.0:
+            x = x * postscale
+        return x.to(flat.dtype)
 
     def _finish(self, flat, dtype, op, prescale, postscale):
         """The cast back, the average and the postscale, on a reduced
@@ -173,8 +206,15 @@ class Executor:
         rest = tuple(tensor.shape[1:])
         counts = reduce_scatter_split_sizes(tensor.shape[0], self.size)
         top = max(counts)
-        wire = _WIRE.get(effective_compression(compression, dtype,
-                                               self.size))
+        comp = self._wire(compression, dtype, tensor.numel())
+        if comp == "int8":
+            # the reference's int8 reduce-scatter reduces the whole tensor
+            # through both quantized legs, then keeps the rank's rows
+            full = self._int8(tensor.reshape(-1), op, prescale,
+                              postscale).view(tensor.shape)
+            start = sum(counts[:self.rank])
+            return full[start:start + counts[self.rank]].contiguous()
+        wire = _WIRE.get(comp)
         x = tensor
         if prescale != 1.0 and dtype.is_floating_point:
             x = x * prescale

@@ -16,6 +16,17 @@ collectives in the same order.
 gloo has no average, so every reduction is a SUM followed by a division
 by the world size.
 
+``Compression.int8`` quantizes each float gradient of at least 256
+elements on its own, as ``jax_api.allreduce_gradients`` does (its
+``quantized_allreduce`` per leaf), and reduces smaller and non-float
+gradients exactly.  A bucket of quantized gradients lays each one out as
+the reference would, padded to ``[n, chunk_i]`` with ``chunk_i`` a whole
+number of 256-blocks, and concatenates them along dim 1: the blocks and
+the rank each chunk goes to are the per-gradient ones, so one
+``all_to_all`` and one ``all_gather`` per bucket give every gradient's
+per-gradient result bit for bit.  The average is taken after the fp32
+sum.  ``compression=None`` is the job's default (``HVD_TPU_COMPRESSION``).
+
 Every collective here first waits for the eager plane to issue what this
 rank submitted to it (:meth:`ops.controller.Controller.drain`): the two
 use different communicators, and NCCL can deadlock when ranks launch the
@@ -26,9 +37,12 @@ import contextlib
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from horovod_tpu_torch.common import basics
-from horovod_tpu_torch.common.compression import Compression
+from horovod_tpu_torch.common.compression import (
+    Compression, accumulate_int8, compressor_for, int8_chunk, is_quantized,
+    quantize_int8_blocks, quantized_all_gather)
 from horovod_tpu_torch.common.fusion import plan_buckets
 from horovod_tpu_torch.common.ops_enum import Adasum, Average, ReduceOp
 from horovod_tpu_torch.utils import env as env_util
@@ -41,6 +55,18 @@ def _fusion_threshold():
 
 def _after_eager_plane():
     basics._get_state().controller.drain()
+
+
+def _compressor(compression):
+    """``None`` -> the job's default compressor."""
+    if compression is None:
+        return compressor_for(basics._get_state().compression)
+    return compression
+
+
+def _quantizes(tensor, compression):
+    return getattr(compression, "block_quantized", False) \
+        and is_quantized(tensor)
 
 
 def _check_op(op):
@@ -87,11 +113,60 @@ class _Bucket:
         return out
 
 
+class _QuantizedBucket:
+    """Float tensors of at least one block each, reduced through int8 as
+    ``quantized_allreduce`` reduces each of them (see the module
+    docstring): the ``all_to_all`` of the quantized contributions starts
+    in :meth:`start`; :meth:`wait` accumulates, requantizes and gathers."""
+
+    def __init__(self, tensors, op):
+        self.tensors = tensors
+        self.op = op
+        self.n = dist.get_world_size()
+        self.chunks = [int8_chunk(t.numel(), self.n) for t in tensors]
+        self.works = self.recv = None
+
+    def start(self):
+        rows = [F.pad(t.reshape(-1).float(), (0, self.n * c - t.numel()))
+                .view(self.n, c) for t, c in zip(self.tensors, self.chunks)]
+        q, s = quantize_int8_blocks(torch.cat(rows, dim=1))
+        self.recv = (torch.empty_like(q), torch.empty_like(s))
+        _after_eager_plane()
+        self.works = [dist.all_to_all_single(out, src, async_op=True)
+                      for out, src in zip(self.recv, (q, s))]
+
+    def wait(self):
+        for work in self.works:
+            work.wait()
+        red = accumulate_int8(*self.recv)
+        _after_eager_plane()
+        full = quantized_all_gather(red).view(self.n, -1)
+        out, offset = [], 0
+        for t, c in zip(self.tensors, self.chunks):
+            red = full[:, offset:offset + c].reshape(-1)[:t.numel()]
+            offset += c
+            if self.op == Average:
+                red = red / self.n
+            out.append(red.to(t.dtype).view(t.shape))
+        self.works = self.recv = None
+        return out
+
+
+def _new_bucket(tensors, op, compression):
+    if _quantizes(tensors[0], compression):
+        return _QuantizedBucket(tensors, op)
+    if getattr(compression, "block_quantized", False):
+        compression = Compression.none   # below one block, or not float
+    return _Bucket(tensors, op, compression)
+
+
 def _plan(tensors, compression, threshold):
     """Bucket indices into ``tensors``: consecutive runs that share a
-    device and wire dtype."""
+    device and wire format."""
     def wire_dtype(i):
         t = tensors[i]
+        if _quantizes(t, compression):
+            return (t.device, "int8")
         return (t.device, compression.compress(t[:0])[0].dtype)
 
     return list(plan_buckets(
@@ -105,9 +180,10 @@ def allreduce_gradients(grads, op=Average, compression=Compression.none):
     or a list of tensors; the result has the same structure, with new
     tensors."""
     op = _check_op(op)
+    compression = _compressor(compression)
     keys = list(grads) if isinstance(grads, dict) else None
     tensors = [grads[k] for k in keys] if keys is not None else list(grads)
-    buckets = [_Bucket([tensors[i] for i in idx], op, compression)
+    buckets = [_new_bucket([tensors[i] for i in idx], op, compression)
                for idx in _plan(tensors, compression, _fusion_threshold())]
     for b in buckets:
         b.start()
@@ -194,7 +270,7 @@ class _DistributedOptimizerMixin:
                     # rank applies the same update
                     p.grad = torch.zeros_like(p)
                 grads.append(p.grad)
-            bucket = _Bucket(grads, self._op, self._compression)
+            bucket = _new_bucket(grads, self._op, self._compression)
             bucket.start()
             self._launched.append(bucket)
 
@@ -251,7 +327,7 @@ def DistributedOptimizer(optimizer, named_parameters=None, op=Average,
     ranks' reduction is taken over the sum of the passes.  Call
     ``hvd.init()`` first."""
     op = _check_op(op)
-    basics.size()  # raises unless initialised
+    compression = _compressor(compression)   # raises unless initialised
     cls = type(optimizer.__class__.__name__,
                (_DistributedOptimizerMixin, optimizer.__class__), {})
     optimizer.__class__ = cls

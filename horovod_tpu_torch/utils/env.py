@@ -1,9 +1,9 @@
 """Environment-variable surface of the PyTorch port.
 
 The subset of ``horovod_tpu/utils/env.py`` that the port reads: the
-launcher -> worker rank contract, the fusion threshold and the eager
-plane's cycle, cache and stall knobs.  Kept as a copy so that the port never imports the JAX
-package.
+launcher -> worker rank contract, the fusion threshold, the job-wide
+default compression and the eager plane's cycle, cache and stall knobs.
+Kept as a copy so that the port never imports the JAX package.
 """
 
 import logging
@@ -15,6 +15,8 @@ HVD_CYCLE_TIME = "HVD_CYCLE_TIME"                      # ms, default 1.0
 HVD_CACHE_CAPACITY = "HVD_CACHE_CAPACITY"              # default 1024
 HVD_STALL_CHECK_DISABLE = "HVD_STALL_CHECK_DISABLE"
 HVD_STALL_CHECK_TIME_SECONDS = "HVD_STALL_CHECK_TIME_SECONDS"  # default 60
+# default on-the-wire allreduce compression: none | bf16 | fp16 | int8
+HVD_TPU_COMPRESSION = "HVD_TPU_COMPRESSION"
 
 # --- launcher -> worker contract ---------------------------------------------
 HVD_RANK = "HVD_RANK"

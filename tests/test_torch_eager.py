@@ -13,7 +13,10 @@ to the JAX rank's, as ``tests/test_collectives.py`` and
 ``tests/test_eager_semantics.py`` do: dtypes equal, fp32 within rtol
 1e-5, bf16 within rtol 1e-2 (each with an absolute floor of the same
 share of the tensor's largest entry, for sums that cancel), integers
-exactly; error messages word for word."""
+exactly; error messages word for word.  The int8 cases are held to the
+same tolerances: both planes quantize the same fused buffers and add the
+ranks' contributions in the same order, so they agree to the last bit
+or nearly."""
 
 import os
 import pickle
@@ -40,7 +43,8 @@ CASES = textwrap.dedent('''
         "average", "sum", "odd_shapes", "scales", "async_poll", "fusion",
         "burst", "grouped_mixed", "allgather", "broadcast", "alltoall",
         "reduce_scatter", "join", "join_orphan", "barrier", "out_of_order",
-        "reuse", "broadcast_object", "errors"]
+        "reuse", "broadcast_object", "errors", "int8", "int8_grouped",
+        "int8_reduce_scatter", "int8_passthrough"]
 
 
     def data(shape, seed, kind="f"):
@@ -170,6 +174,64 @@ CASES = textwrap.dedent('''
                                     name="te.rs.avg")),
             T.np(hvd.reduce_scatter(T.arr(data((9, 2), r, "i"), "int32"),
                                     op=hvd.Sum, name="te.rs.int")),
+        ]
+
+
+    def case_int8(hvd, r, T):
+        # every rank its own values; the sums cancel in part
+        x = lambda seed: T.arr(data((4, 300), 500 + seed + 10 * r),
+                               "float32")
+        return [
+            T.np(hvd.allreduce(x(0), op=hvd.Sum, name="te.q.sum",
+                               compression="int8")),
+            T.np(hvd.allreduce(x(1), name="te.q.avg",
+                               compression=hvd.Compression.int8)),
+            T.np(hvd.allreduce(x(2), op=hvd.Sum, name="te.q.scaled",
+                               prescale_factor=0.5, postscale_factor=2.0,
+                               compression="int8")),
+            T.np(hvd.allreduce(x(3), op=hvd.Average, name="te.q.scaled.avg",
+                               prescale_factor=3.0, postscale_factor=0.25,
+                               compression="int8")),
+            T.np(hvd.allreduce(T.arr(data((2, 700), 600 + r), "bfloat16"),
+                               op=hvd.Sum, name="te.q.bf16",
+                               compression="int8")),
+        ]
+
+
+    def case_int8_grouped(hvd, r, T):
+        # whole blocks only: the JAX plane fuses a group as its cycles
+        # happen to meet its members, and tensors of whole blocks give
+        # the same numbers fused or not (tests/test_torch_mpi_ops.py
+        # holds a fused bucket whose blocks cross tensors)
+        return [T.np(o) for o in hvd.grouped_allreduce(
+            [T.arr(data(s, 700 + 10 * r + i), "float32")
+             for i, s in enumerate([(256,), (3, 512), (4, 64)])],
+            op=hvd.Sum, name="te.q.group", compression="int8")]
+
+
+    def case_int8_reduce_scatter(hvd, r, T):
+        return [
+            T.np(hvd.reduce_scatter(T.arr(data((33, 40), 800 + r), "float32"),
+                                    op=hvd.Sum, name="te.q.rs.sum",
+                                    compression="int8")),
+            T.np(hvd.reduce_scatter(T.arr(data((16, 64), 810 + r), "float32"),
+                                    name="te.q.rs.avg", compression="int8")),
+        ]
+
+
+    def case_int8_passthrough(hvd, r, T):
+        # the exact wire: integers, and fewer than 256 elements
+        return [
+            T.np(hvd.allreduce(T.arr(data((512,), 900 + r, "i"), "int32"),
+                               op=hvd.Sum, name="te.q.int",
+                               compression="int8")),
+            T.np(hvd.allreduce(T.arr(np.full((8,), r + 0.25, np.float32),
+                                     "float32"),
+                               op=hvd.Sum, name="te.q.tiny",
+                               compression="int8")),
+            T.np(hvd.reduce_scatter(T.arr(data((9, 5), 910 + r), "float32"),
+                                    op=hvd.Sum, name="te.q.rs.tiny",
+                                    compression="int8")),
         ]
 
 
@@ -435,6 +497,10 @@ def _check(case, port_results, jax_results):
     "reuse",            # one name every step: the response cache hits
     "broadcast_object",
     "errors",           # shape, dtype, type, root, trailing; then a name
+    "int8",             # Sum, Average, pre/postscale, bf16; each rank's own
+    "int8_grouped",     # grouped, whole blocks
+    "int8_reduce_scatter",  # both quantized legs, then the rank's rows
+    "int8_passthrough",  # int32 and fewer than 256 elements: exact
 ])
 def test_eager_case_matches_jax(case, port_results, jax_results):
     _check(case, port_results, jax_results)

@@ -39,7 +39,11 @@ def test_import_leaves_jax_and_horovod_tpu_out():
         "horovod_tpu_torch.common.handles, "
         "horovod_tpu_torch.common.response_cache, "
         "horovod_tpu_torch.common.objects, "
-        "horovod_tpu_torch.common.ops_enum\n"
+        "horovod_tpu_torch.common.ops_enum, "
+        "horovod_tpu_torch.common.compression, "
+        "horovod_tpu_torch.models.layers, horovod_tpu_torch.models.resnet, "
+        "horovod_tpu_torch.models.vgg, horovod_tpu_torch.models.inception, "
+        "horovod_tpu_torch.models.mlp, horovod_tpu_torch.train_cnn\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"
@@ -85,6 +89,21 @@ def test_asking_for_the_card_without_one_raises(monkeypatch):
         Transformer(TransformerConfig(vocab_size=16, n_layers=1, d_model=8,
                                       n_heads=2, d_ff=16, max_len=4))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", ["ResNet18", "ResNet50", "VGG16",
+                                  "InceptionV3", "MLP"])
+def test_cnn_models_ask_for_the_card(monkeypatch, name):
+    """The CNN models are built on the card unless asked for the CPU."""
+    from horovod_tpu_torch import models
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = (4,) if name == "MLP" else ()
+    kw = dict(image=32, classifier_width=8) if name == "VGG16" else {}
+    with pytest.raises(RuntimeError, match="CUDA device was requested"):
+        getattr(models, name)(*args, **kw)
+    m = getattr(models, name)(*args, device="cpu", **kw)
+    assert all(p.device.type == "cpu" for p in m.parameters())
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

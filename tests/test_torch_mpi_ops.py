@@ -68,6 +68,7 @@ WORKER = textwrap.dedent(f"""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import mpi_ops
     from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.common import compression as tc
 
     torch.set_num_threads(1)
     store, data_path, out_path = sys.argv[1:4]
@@ -106,6 +107,28 @@ WORKER = textwrap.dedent(f"""
         res["fp16"] = mpi_ops.allreduce(
             full(r + 0.5), op=hvd.Sum, name="m.fp16",
             compression=hvd.Compression.fp16).numpy()
+
+        # int8: a grouped submission fuses into one buffer whose blocks
+        # cross its tensors; each rank its own values
+        gen = torch.Generator().manual_seed(50 + r)
+        xs = [torch.randn(shape, generator=gen)
+              for shape in [(100,), (3, 257), (7,)]]
+        fused = tc.quantized_allreduce(torch.cat([x.reshape(-1)
+                                                  for x in xs]))
+        outs = mpi_ops.grouped_allreduce(xs, op=hvd.Sum, name="m.q.g",
+                                         compression="int8")
+        ts = [x.clone() for x in xs]
+        mpi_ops.synchronize(mpi_ops.grouped_allreduce_async_(
+            ts, op=hvd.Sum, name="m.q.g_", compression="int8"))
+        t = xs[1].clone()
+        mpi_ops.synchronize(mpi_ops.allreduce_async_(
+            t, name="m.q.ar_", compression=hvd.Compression.int8))
+        res["int8"] = dict(
+            fused=fused.numpy(), grouped=[o.numpy() for o in outs],
+            grouped_=[t.numpy() for t in ts], avg_=t.numpy(),
+            avg_want=(tc.quantized_allreduce(xs[1].reshape(-1)) / n)
+            .view(3, 257).numpy(),
+            wires=dict(basics._get_state().controller._executor.wires))
 
         h = mpi_ops.allgather_async(full(r, (r + 1, 2)), name="m.ag")
         res["allgather"] = mpi_ops.synchronize(h).numpy()
@@ -228,6 +251,25 @@ def test_grouped_and_compressed_allreduce(ranks):
         _eq(res["fp16"], np.full(3, 8.0))
 
 
+def test_int8_fused_bucket_quantizes_the_fused_buffer(ranks):
+    """A grouped int8 allreduce of 100, 771 and 7 elements runs as one
+    fused buffer of 878, whose 256-blocks cross the tensors, as the JAX
+    plane's fused program (``xla_executor.py:380-420``) quantizes it: each
+    result is its slice of ``quantized_allreduce`` of the concatenation
+    (held to the JAX function in ``tests/test_torch_compression.py``),
+    exactly, in the plain and the in-place forms; the in-place async
+    average is that of the tensor alone, divided after the fp32 sum."""
+    for res in ranks:
+        q = res["int8"]
+        offsets = np.cumsum([0, 100, 771, 7])
+        for i, shape in enumerate([(100,), (3, 257), (7,)]):
+            want = q["fused"][offsets[i]:offsets[i + 1]].reshape(shape)
+            _eq(q["grouped"][i], want)
+            _eq(q["grouped_"][i], want)
+        _eq(q["avg_"], q["avg_want"])
+        assert q["wires"].get("int8", 0) == 3, q["wires"]
+
+
 def test_allgather_alltoall_join(ranks):
     want_ag = np.concatenate([np.full((r + 1, 2), float(r))
                               for r in range(RANKS)])
@@ -340,7 +382,6 @@ def one_rank():
 
 
 @pytest.mark.parametrize("call,roadmap", [
-    (lambda t: hvd.allreduce(t, compression="int8"), "A.6"),
     (lambda t: hvd.allreduce(t, group=object()), "A.10"),
     (lambda t: hvd.allgather(t, group=object()), "A.10"),
     (lambda t: hvd.allreduce(t, op=hvd.Adasum), "A.11"),
@@ -350,6 +391,24 @@ def one_rank():
 def test_unported_arguments_raise(one_rank, call, roadmap):
     with pytest.raises(NotImplementedError, match=roadmap):
         call(torch.ones(3))
+
+
+def test_int8_at_one_rank_is_the_exact_wire(one_rank):
+    """At one rank int8 resolves to the exact wire, as the reference's
+    executor does (``xla_executor.py:232``): every form returns the input's
+    own values."""
+    from horovod_tpu_torch.common import basics
+
+    x = torch.randn(3, 300, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(hvd.allreduce(x, compression="int8"), x)
+    t = x.clone()
+    mpi_ops.allreduce_(t, op=hvd.Sum, compression=hvd.Compression.int8)
+    assert torch.equal(t, x)
+    outs = hvd.grouped_allreduce([x, x[0]], op=hvd.Sum, compression="int8")
+    assert torch.equal(outs[0], x) and torch.equal(outs[1], x[0])
+    assert torch.equal(hvd.reduce_scatter(x, compression="int8"), x)
+    wires = basics._get_state().controller._executor.wires
+    assert wires["int8"] == 0 and wires["none"] == 4, wires
 
 
 def test_one_rank_plane_and_handles(one_rank):

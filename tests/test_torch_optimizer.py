@@ -384,6 +384,43 @@ def test_allreduce_gradients_keeps_structure(one_rank, compression):
     torch.testing.assert_close(listed[1], grads["b"], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("how", ["argument", "HVD_TPU_COMPRESSION"])
+def test_allreduce_gradients_int8_at_one_rank(monkeypatch, how):
+    """``jax_api.allreduce_gradients`` quantizes each float leaf of at
+    least 256 elements even at one rank: the contribution's and the
+    result's round trips, ``Int8Compressor.compress`` twice.  The port
+    gives the JAX function's result under ``shard_map`` on one device,
+    bitwise; smaller and integer leaves come back unchanged.  With
+    ``HVD_TPU_COMPRESSION=int8``, ``compression=None`` does the same."""
+    gen = torch.Generator().manual_seed(3)
+    grads = {"w": torch.randn(20, 30, generator=gen) * 5,
+             "b": torch.randn(10, generator=gen),
+             "n": torch.arange(300, dtype=torch.int32)}
+    kwargs = {"compression": Compression.int8}
+    if how != "argument":
+        monkeypatch.setenv("HVD_TPU_COMPRESSION", "int8")
+        kwargs = {"compression": None}
+    hvd.init(device="cpu")
+    try:
+        out = hvd.allreduce_gradients(grads, op=hvd.Sum, **kwargs)
+    finally:
+        hvd.shutdown()
+    mesh = make_mesh({"hvd": 1}, devices=jax.devices()[:1])
+    want = jax.jit(shard_map_unchecked(
+        lambda g: jhvd.allreduce_gradients(
+            g, op=jhvd.Sum, compression=jhvd.Compression.int8),
+        mesh=mesh, in_specs=P(), out_specs=P()))(
+        {k: jnp.asarray(v.numpy()) for k, v in grads.items()})
+    twice = Compression.int8.compress(
+        Compression.int8.compress(grads["w"])[0])[0]
+    assert not torch.equal(twice, grads["w"])
+    assert torch.equal(out["w"], twice)
+    for k, v in grads.items():
+        np.testing.assert_array_equal(out[k].numpy(), np.asarray(want[k]))
+    assert torch.equal(out["b"], grads["b"])
+    assert torch.equal(out["n"], grads["n"])
+
+
 def test_broadcast_optimizer_state_from_empty_root_keeps_step_zero(one_rank):
     """An empty root state broadcasts only hyperparameters: no rank takes
     a dummy step, so the first real step is step 1 everywhere, as after
@@ -523,3 +560,118 @@ def test_two_rank_backward_passes_match_jax_multisteps(tmp_path, average):
     # the two settings differ by the factor 2 of the first step's update
     moved = np.abs(want[0]["w2"] - init["w2"]).max()
     assert moved > 1e-3
+
+
+# ------------------------------------------- int8, quantized per gradient
+INT8_SHAPES = {"w1": (20, 30), "b1": (30,), "w2": (30, 10), "b2": (10,),
+               "w3": (256,), "k": (3, 5, 7, 11)}
+
+INT8_WORKER = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+
+    data_path, store_path, out_path = sys.argv[1:4]
+    data = np.load(data_path)
+    hvd.init(device="cpu", store_path=store_path)
+    try:
+        r = hvd.rank()
+        names = [k for k in data.files if k.startswith("p.")]
+        params = {k[2:]: torch.nn.Parameter(torch.from_numpy(data[k]))
+                  for k in names}
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(params.values(), lr=float(data["lr"]),
+                            momentum=0.9),
+            named_parameters=params.items(),
+            compression=hvd.Compression.int8)
+        out = {}
+        for step in range(int(data["steps"])):
+            opt.zero_grad()
+            sum((p * torch.from_numpy(data[f"x.{k}"][step, r])).sum()
+                for k, p in params.items()).backward()
+            opt.synchronize()
+            with opt.skip_synchronize():
+                opt.step()
+            for k, p in params.items():
+                out[f"{step}.grad.{k}"] = p.grad.numpy().copy()
+                out[f"{step}.{k}"] = p.detach().numpy().copy()
+        np.savez(out_path, **out)
+    finally:
+        hvd.shutdown()
+""")
+
+
+@pytest.mark.parametrize("threshold", [None, 2048])
+def test_two_rank_int8_matches_jax_per_leaf(tmp_path, threshold):
+    """``DistributedOptimizer(SGD(momentum=0.9), compression=int8)`` on 2
+    gloo ranks, 3 steps, against ``jax_api.DistributedOptimizer(
+    optax.sgd(lr, momentum=0.9), compression=Compression.int8)`` under
+    ``shard_map``.  The leaves mix 600, 300, 256 and 1155 elements, which
+    the reference quantizes each on its own, and 30 and 10, which it
+    reduces exactly; the port fuses them into buckets (one bucket, or
+    several of at most 2048 bytes).  The loss is linear in the
+    parameters, so each rank's gradient is its data exactly on both
+    sides: the averaged gradients are held to the reference's within
+    1e-6 of each leaf's largest entry (in fact bitwise), the parameters
+    within 1e-6 of each leaf's largest entry (torch's ``p - lr * buf``
+    rounds once where optax rounds twice)."""
+    rng = np.random.RandomState(17)
+    lr, steps = 0.1, 3
+    init = {k: rng.randn(*s).astype(np.float32)
+            for k, s in INT8_SHAPES.items()}
+    x = {k: (rng.randn(steps, RANKS, *s)
+             * rng.choice([1e-2, 1.0, 30.0], (steps, RANKS) + (1,) * len(s)))
+         .astype(np.float32) for k, s in INT8_SHAPES.items()}
+    x["w1"][1, :, 4:] = 0.0      # zero blocks in the second step
+    np.savez(tmp_path / "data.npz", lr=lr, steps=steps,
+             **{f"p.{k}": v for k, v in init.items()},
+             **{f"x.{k}": v for k, v in x.items()})
+
+    opt = jhvd.DistributedOptimizer(optax.sgd(lr, momentum=0.9),
+                                    named_axes=("hvd",),
+                                    compression=jhvd.Compression.int8)
+    mesh = make_mesh({"hvd": RANKS}, devices=jax.devices()[:RANKS])
+
+    def per_shard(p, s, xs):
+        grads = jax.grad(lambda q: sum(
+            jnp.sum(q[k] * xs[k][0]) for k in q))(p)
+        reduced = jhvd.allreduce_gradients(
+            grads, compression=jhvd.Compression.int8)
+        updates, s = opt.update(grads, s, p)
+        return optax.apply_updates(p, updates), s, reduced
+
+    step = jax.jit(shard_map_unchecked(
+        per_shard, mesh=mesh, in_specs=(P(), P(), P("hvd")),
+        out_specs=(P(), P(), P())))
+    params = {k: jnp.asarray(v) for k, v in init.items()}
+    state = opt.init(params)
+    want = []
+    for s in range(steps):
+        params, state, reduced = step(
+            params, state, {k: jnp.asarray(v[s]) for k, v in x.items()})
+        want.append(({k: np.asarray(v) for k, v in params.items()},
+                     {k: np.asarray(v) for k, v in reduced.items()}))
+
+    env = {} if threshold is None else {
+        "HVD_FUSION_THRESHOLD": str(threshold)}
+    ranks = _run_ranks(tmp_path, env, worker=INT8_WORKER)
+    exact_err = 0.0
+    for s, (want_p, want_g) in enumerate(want):
+        for k in INT8_SHAPES:
+            got = [r[f"{s}.grad.{k}"] for r in ranks]
+            np.testing.assert_array_equal(got[0], got[1])
+            scale = float(np.abs(want_g[k]).max())
+            np.testing.assert_allclose(got[0], want_g[k], rtol=0,
+                                       atol=1e-6 * scale,
+                                       err_msg=f"step {s} grad {k}")
+            exact = x[k][s].astype(np.float64).mean(axis=0)
+            err = float(np.abs(got[0] - exact).max())
+            if x[k][0, 0].size < 256:
+                assert err <= 1e-6 * scale, (s, k, err)
+            exact_err = max(exact_err, err)
+            np.testing.assert_allclose(
+                ranks[0][f"{s}.{k}"], want_p[k], rtol=1e-6,
+                atol=1e-6 * float(np.abs(want_p[k]).max()),
+                err_msg=f"step {s} {k}")
+    assert exact_err > 1e-4   # the quantized leaves did go through int8
