@@ -12,10 +12,9 @@ Phases, each of which must pass:
    shapes (LayerNorm ``[16384, 1024]`` bf16, softmax cross-entropy
    ``[16384, 32768]`` bf16, flash attention forward, dq and dk/dv at q/k/v
    ``[8, 2048, 8, 128]`` bf16 causal), and time the kernel, the plain
-   version and one PyTorch call computing the same function (the LayerNorm
-   and flash kernels in turns with that call, median of 5 batches of 20,
-   the LayerNorm's each a CUDA graph; the cross-entropy kernels mean of 20
-   calls); then the flash kernels at ragged shapes (T = 96, 129 causal;
+   version and one PyTorch call computing the same function (each kernel
+   in turns with that call, median of 5 batches of 20, the LayerNorm's
+   each a CUDA graph); then the flash kernels at ragged shapes (T = 96, 129 causal;
    T_q = 64 against T_kv = 128 and 128 against 320, not causal; 130
    against 70, causal) in fp32 and bf16, at head dims 24, 40, 192 and 256
    and at B*H = 65536 (the generic kernels), with the times of the D =
@@ -49,12 +48,35 @@ Phases, each of which must pass:
    1000 classes, bf16, batch 64, ``DistributedOptimizer(SGD(0.1,
    momentum=0.9))``, world size 1): the loss must be finite and fall;
    prints images/s per GPU; then one step each of VGG-16 at 224 and
-   Inception V3 at 299, full width, batch 16.
+   Inception V3 at 299, full width, batch 16;
+8. ZeRO-1 at ``min(cards, 4)`` ranks (one process a card above one):
+   phase 5's model trained by ``DistributedOptimizer``,
+   ``ShardedDistributedOptimizer`` and ``ZeroDistributedOptimizer`` in
+   turns; the ZeRO variants' parameters equal ``DistributedOptimizer``'s
+   after three steps on the same gradients, every rank's are bitwise the
+   same, each rank holds its layout's block of each moment, gathered and
+   resharded state is the rank's; one int8 sharded step within the
+   per-block bound; prints step times, optimizer state bytes and peak
+   memory, and how far three steps on each model's own gradients take
+   each run from ``DistributedOptimizer``'s, beside the same for
+   ``DistributedOptimizer`` again and with other buckets;
+9. sequence parallelism at the same ranks: ring (causal and not),
+   zigzag and Ulysses attention (each by default on the flash kernels)
+   at q, k, v ``[2, 8192 * P, 8, 128]`` bf16 against ``flash_attention``
+   over the whole sequence on one card (out, dq, dk, dv); the full-width
+   transformer trained with zigzag attention on ``[2, 8192]`` tokens a
+   GPU (the loss falls, (2P + 1) launches of each flash kernel a block
+   and step), then with causal ring attention under
+   ``DistributedOptimizer`` (the two communicators' order; the ranks'
+   parameters bitwise the same); the zigzag model's first step at two
+   layers in fp32 against the whole sequence on one card; and phase 5's
+   step with ``remat=True`` against without, in turns.  At one card ZeRO takes the replicated update and
+   the ring has no hop, and the phases say so.
 
 Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
-that last line.  ``--profile`` adds one profiled step of phase 5 and one
-of ResNet-50.
+that last line.  ``--profile`` adds one profiled step of phase 5, one of
+ResNet-50 and one of phase 9's zigzag transformer on each rank.
 """
 
 import argparse
@@ -80,6 +102,7 @@ CNN_SIZES = {"resnet50": (64, 224), "vgg16": (16, 224),
              "inception_v3": (16, 299)}
 # attention of the main path: batch, seq, heads, head dim
 ATTN_B, ATTN_T, ATTN_H, ATTN_D = 8, 2048, D_MODEL // 128, 128
+MAIN_BATCH, MAIN_SEQ = ATTN_B, ATTN_T   # the main path's batch per GPU
 
 
 def nvidia_smi():
@@ -289,18 +312,19 @@ def check_kernels():
     assert_close("softmax_xent_fwd lse", lse, p_lse, 1e-5, 1e-4)
     ops = 4 * n * v
     t_b, by = bound(n * v * 2 + n * 4 * 3, ops)
+    # kernel and library call in turns, as the others
+    ms, library_ms = time_in_turns(
+        lambda: sx.softmax_xent_fwd(logits, labels, True),
+        lambda: F.cross_entropy(logits, labels64, reduction="none"))
     kernels.append(rates(dict(
         name="softmax_xent_fwd", route="cuda",
         source="horovod_tpu_torch/csrc/softmax_xent.cu",
         replaces="horovod_tpu/ops/pallas/softmax_xent.py:37",
         max_abs_err=max(max_err(loss, p_loss), max_err(lse, p_lse)),
-        ms=time_ms(lambda: sx.softmax_xent_fwd(logits, labels, True)),
+        ms=ms,
         plain_ms=time_ms(lambda: sx.softmax_xent_fwd_plain(logits, labels),
                          iters=5),
-        bound_ms=t_b, bound_by=by,
-        library_ms=time_ms(lambda: F.cross_entropy(
-            logits, labels64, reduction="none"))),
-        ops))
+        bound_ms=t_b, bound_by=by, library_ms=library_ms), ops))
 
     dloss = torch.full((n,), 1.0 / n, device=dev)
     dlogits = sx.softmax_xent_bwd(logits, labels, lse, dloss)
@@ -310,20 +334,20 @@ def check_kernels():
     lg = logits.detach().requires_grad_(True)
     lib_loss = F.cross_entropy(lg, labels64)
     t_b, by = bound(2 * n * v * 2 + n * 4 * 3, ops)
+    # in turns with the backward of F.cross_entropy's own graph
+    ms, library_ms = time_in_turns(
+        lambda: sx.softmax_xent_bwd(logits, labels, lse, dloss),
+        lambda: torch.autograd.grad(lib_loss, lg, retain_graph=True))
     kernels.append(rates(dict(
         name="softmax_xent_bwd", route="cuda",
         source="horovod_tpu_torch/csrc/softmax_xent.cu",
         replaces="horovod_tpu/ops/pallas/softmax_xent.py:64",
         max_abs_err=max_err(dlogits, p_dlogits),
-        ms=time_ms(lambda: sx.softmax_xent_bwd(logits, labels, lse, dloss)),
+        ms=ms,
         plain_ms=time_ms(
             lambda: sx.softmax_xent_bwd_plain(logits, labels, lse, dloss),
             iters=5),
-        bound_ms=t_b, bound_by=by,
-        # the backward of F.cross_entropy's own graph
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            lib_loss, lg, retain_graph=True))),
-        ops))
+        bound_ms=t_b, bound_by=by, library_ms=library_ms), ops))
     del logits, dlogits, p_dlogits, lg, lib_loss
     kernels += check_flash()
     check_flash_ragged()
@@ -629,17 +653,7 @@ def train(layers, steps, smi, profile=False):
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    per_step = {"layer_norm_fwd": 2 * layers + 1,
-                "layer_norm_bwd": 2 * layers + 1,
-                "softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
-                "flash_attention_fwd": layers,
-                "flash_attention_bwd_dq": layers,
-                "flash_attention_bwd_dkv": layers}
-    for name, want in per_step.items():
-        if counts[name] != want * steps:
-            raise AssertionError(
-                f"{name} launched {counts[name]} times in {steps} steps, "
-                f"expected {want} per step")
+    expect_launches("train", counts, per_step_launches(layers), steps)
     steady = statistics.median(times[1:]) if steps > 1 else times[0]
     print(f"train: losses {losses}", flush=True)
     print(f"train: step times s {times}", flush=True)
@@ -1259,52 +1273,82 @@ def step_with_and_without_plane(layers, steps=6, pairs=3):
             "plane_cycles_per_s": cycles / on_s}
 
 
-def eager_phase(smi, layers):
-    """Phase 6: :func:`eager_checks` at ``world = min(cards, 4)`` ranks,
-    in this process at one card, else one process a card over NCCL (two
-    ranks on one card are refused by NCCL)."""
-    import socket
-
+def _world():
+    """Ranks of the multi-card phases: one a card, at most four."""
     import torch
+
+    return min(torch.cuda.device_count(), 4)
+
+
+def in_ranks(phase, layers, profile=False):
+    """Run ``RANK_PHASES[phase](layers)`` (with ``profile=True`` when
+    asked) on ``_world()`` ranks: in this process at one card
+    (``hvd.init`` around it), else one process a card over NCCL (two
+    ranks on one card are refused by NCCL), each printing its result as
+    one ``RANK_RESULT`` line.  -> the ranks' results."""
+    import socket
 
     import horovod_tpu_torch as hvd
 
-    world = min(torch.cuda.device_count(), 4)
+    world = _world()
     if world == 1:
         hvd.init()
         try:
-            results = [eager_checks(layers)]
+            return [_run_phase(phase, layers, profile)]
         finally:
             hvd.shutdown()
-    else:
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
-        procs = []
-        try:
-            for r in range(world):
-                env = dict(os.environ, HVD_RANK=str(r), HVD_SIZE=str(world),
-                           HVD_LOCAL_RANK=str(r), HVD_LOCAL_SIZE=str(world),
-                           HVD_RENDEZVOUS_ADDR="127.0.0.1",
-                           HVD_RENDEZVOUS_PORT=str(port))
-                procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__),
-                     "--eager-rank", str(layers)], env=env,
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True))
-            outs = [p.communicate(timeout=600)[0] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        for r, (p, out) in enumerate(zip(procs, outs)):
-            if p.returncode != 0:
-                raise AssertionError(f"eager rank {r} exited "
-                                     f"{p.returncode}:\n{out}")
-        results = [json.loads(line.split(" ", 1)[1]) for out in outs
-                   for line in out.splitlines()
-                   if line.startswith("EAGER_RESULT ")]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    try:
+        for r in range(world):
+            env = dict(os.environ, HVD_RANK=str(r), HVD_SIZE=str(world),
+                       HVD_LOCAL_RANK=str(r), HVD_LOCAL_SIZE=str(world),
+                       HVD_RENDEZVOUS_ADDR="127.0.0.1",
+                       HVD_RENDEZVOUS_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank-of",
+                 phase, str(layers)] + (["--profile"] if profile else []),
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        outs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{phase} rank {r} exited "
+                                 f"{p.returncode}:\n{out}")
+    return [json.loads(line.split(" ", 1)[1]) for out in outs
+            for line in out.splitlines() if line.startswith("RANK_RESULT ")]
+
+
+def _run_phase(phase, layers, profile):
+    if profile:
+        return RANK_PHASES[phase](layers, profile=True)
+    return RANK_PHASES[phase](layers)
+
+
+def _rank_of(phase, layers, profile):
+    """One rank of a multi-card phase (``--rank-of PHASE LAYERS``)."""
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    try:
+        res = _run_phase(phase, layers, profile)
+    finally:
+        hvd.shutdown()
+    print("RANK_RESULT " + json.dumps(res), flush=True)
+    return 0
+
+
+def eager_phase(smi, layers):
+    """Phase 6: :func:`eager_checks` at ``world = min(cards, 4)`` ranks
+    (``in_ranks``)."""
+    results = in_ranks("eager", layers)
     for res in results:
         print(f"eager rank {res['rank']} of {res['world']}: {res['checks']} "
               f"checks passed; negotiation median "
@@ -1338,17 +1382,792 @@ def eager_phase(smi, layers):
     return results
 
 
-def _eager_rank(layers):
-    """One rank of phase 6 above one card (``--eager-rank``)."""
+# phase 8: steps of each optimizer before the checks, then blocks of
+# steps in turns
+ZERO_CHECK_STEPS, ZERO_BLOCK_STEPS, ZERO_PAIRS = 3, 4, 3
+# phase 8's witness of the summation order: DistributedOptimizer with
+# buckets of this many bytes (the default is 64 MB)
+WITNESS_THRESHOLD = 16 * 1024 * 1024
+# phase 9: each rank's shard of the sequence (the main path's 16,384
+# tokens a GPU at batch 2), and the remat turns
+SEQ_SHARD, SEQ_BATCH, SEQ_STEPS = 8192, 2, 5
+REMAT_BLOCK_STEPS, REMAT_PAIRS = 4, 3
+
+
+def main_config(layers, seq=2048, dtype=None, **kw):
+    """The main path's transformer (phase 5) at ``layers``."""
+    import torch
+
+    from horovod_tpu_torch.models import TransformerConfig
+
+    return TransformerConfig(vocab_size=VOCAB, n_layers=layers,
+                             d_model=D_MODEL, n_heads=D_MODEL // 128,
+                             d_ff=4 * D_MODEL, max_len=seq,
+                             dtype=dtype or torch.bfloat16, **kw)
+
+
+def per_step_launches(layers, remat=False, flash=1):
+    """Each kernel's launches in one training step of the transformer:
+    LayerNorm twice a block and once at the end, the loss once, each
+    flash kernel ``flash`` times a block; under remat every forward
+    kernel of a block runs twice."""
+    again = 2 if remat else 1
+    return {"layer_norm_fwd": 2 * layers * again + 1,
+            "layer_norm_bwd": 2 * layers + 1,
+            "softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
+            "flash_attention_fwd": flash * layers * again,
+            "flash_attention_bwd_dq": flash * layers,
+            "flash_attention_bwd_dkv": flash * layers}
+
+
+def expect_launches(what, counts, per_step, steps):
+    for name, want in per_step.items():
+        if counts[name] != want * steps:
+            raise AssertionError(
+                f"{what}: {name} launched {counts[name]} times in {steps} "
+                f"steps, expected {want} per step")
+
+
+def _drain():
+    """Let the eager plane issue what this rank submitted before a
+    collective of the default group (ROADMAP C.7)."""
+    from horovod_tpu_torch.common import basics
+
+    basics._get_state().controller.drain()
+
+
+def _flat_params(model):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def _same_on_every_rank(what, flat):
+    import torch
+    import torch.distributed as dist
+
+    root = flat.clone()
+    _drain()
+    dist.broadcast(root, 0)
+    if not torch.equal(root, flat):
+        raise AssertionError(f"{what}: rank {dist.get_rank()}'s parameters "
+                             f"are not bitwise rank 0's")
+
+
+def _state_bytes(state):
+    import torch
+
+    return sum(v.numel() * v.element_size() for entry in state.values()
+               for v in entry.values() if torch.is_tensor(v))
+
+
+def _lm_step(model, opt, tokens, labels=None, positions=None):
+    """One training step; -> the loss (a tensor on the card)."""
+    from horovod_tpu_torch.models import lm_loss
+    from horovod_tpu_torch.ops.cuda.softmax_xent import softmax_xent
+
+    opt.zero_grad(set_to_none=True)
+    logits = model(tokens, positions=positions)
+    loss = lm_loss(logits, tokens) if labels is None else \
+        softmax_xent(logits, labels).mean()
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def _blocks_in_turns(runs, steps, pairs):
+    """``runs``: name -> a step function.  ``pairs`` rounds in which each
+    run takes a block of ``steps`` synchronised steps, in turns.  -> name
+    -> (each block's median step ms, first step left out; each block's
+    peak memory above what was allocated at its start)."""
+    import torch
+
+    out = {k: ([], []) for k in runs}
+    for _ in range(pairs):
+        for name, step in runs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            times = []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            out[name][0].append(1e3 * statistics.median(times[1:]))
+            out[name][1].append(torch.cuda.max_memory_allocated() - base)
+    return out
+
+
+def _param_errors(models, names):
+    """Each later model's parameters against the first's: the largest
+    error, and whether they are within rtol 1e-5, atol 2e-6."""
+    import torch
+
+    ref = _flat_params(models[names[0]])
+    out = {}
+    for k in names[1:]:
+        got = _flat_params(models[k])
+        out[k] = {"max": max_err(got, ref),
+                  "close": torch.allclose(got, ref, rtol=1e-5, atol=2e-6)}
+        del got
+    return out
+
+
+def zero_checks(layers):
+    """Phase 8 on this rank, ``hvd.init()`` done: the main path's model
+    (phase 5's configuration, each rank a batch of its own) trained by
+    ``DistributedOptimizer``, ``ShardedDistributedOptimizer`` and
+    ``ZeroDistributedOptimizer`` (AdamW lr 1e-4, weight decay 1e-4), three
+    models from one seed.  After ``ZERO_CHECK_STEPS`` steps on the same
+    gradients each ZeRO variant's parameters equal
+    ``DistributedOptimizer``'s within rtol 1e-5, atol 2e-6 (Adam's
+    normalised step on gradients summed in another order), every model's
+    are bitwise the same on every rank,
+    each ZeRO rank holds its layout's elements a moment (``ceil(params /
+    P)`` in the in-graph layout, the ``np.array_split`` block in the
+    eager one), and
+    ``gather_zero_state`` then ``reshard_zero_state`` give the eager
+    state back bitwise.  Then ``ZERO_PAIRS`` blocks of steps in turns
+    (each model its own gradients; step time, peak memory above the
+    resident, and how far the models then lie apart), and one int8
+    ``ShardedDistributedOptimizer`` step (SGD at lr 1 from zero
+    parameters, so that the parameters are minus the reduced gradient)
+    on gradients scaled 1 to 10^-3 from block to block, held to the fp32
+    sum within ``(n + 1) * blockmax / 254``.  Last, the witness of the
+    summation order (:func:`_own_gradient_gaps`).  -> the rank's
+    numbers."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common.compression import Compression, INT8_BLOCK
+    from horovod_tpu_torch.models import Transformer, lm_loss
+    from horovod_tpu_torch.ops import cuda as kernels
+    from horovod_tpu_torch.sharding import zero_shard_layout
+
+    dev, r, n = hvd.device(), hvd.rank(), hvd.size()
+    tokens = torch.from_numpy(np.random.RandomState(100 + r).randint(
+        0, VOCAB, (MAIN_BATCH, MAIN_SEQ))).to(dev)
+    wrappers = {
+        "DistributedOptimizer": lambda m, o: hvd.DistributedOptimizer(
+            o, named_parameters=m.named_parameters()),
+        "ShardedDistributedOptimizer":
+            lambda m, o: hvd.ShardedDistributedOptimizer(o),
+        "ZeroDistributedOptimizer":
+            lambda m, o: hvd.ZeroDistributedOptimizer(o)}
+    models, opts = {}, {}
+    for name, wrap in wrappers.items():
+        models[name] = Transformer(main_config(layers), seed=0)
+        opts[name] = wrap(models[name], torch.optim.AdamW(
+            models[name].parameters(), lr=1e-4, weight_decay=1e-4))
+    names = list(models)
+    n_params = sum(p.numel() for p in models[names[0]].parameters())
+
+    # the checked steps: every optimizer takes the same gradients, this
+    # rank's backward of one of the models.  Above one rank the
+    # optimizers sum them in other orders, and a model's own bf16 forward
+    # turns the last-bit differences of the parameters after one step
+    # into different roundings of its activations, so three models that
+    # each computed their own gradients part further than Adam's
+    # tolerance within three steps
+    src = models["ZeroDistributedOptimizer"]
+    losses = []
+    for _ in range(ZERO_CHECK_STEPS):
+        src.zero_grad(set_to_none=True)
+        loss = lm_loss(src(tokens), tokens)
+        loss.backward()
+        losses.append(loss.item())
+        grads = [p.grad for p in src.parameters()]
+        for k in names:
+            for p, g in zip(models[k].parameters(), grads):
+                p.grad = g.clone()
+            opts[k].step()
+        del grads
+    for k in names:
+        opts[k].zero_grad(set_to_none=True)
+    err = _param_errors(models, names)
+    for k, e in err.items():
+        if not e["close"]:
+            raise AssertionError(f"zero: {k}'s parameters after "
+                                 f"{ZERO_CHECK_STEPS} steps differ from "
+                                 f"DistributedOptimizer's by {e['max']:.3e}")
+    for k in names:
+        _same_on_every_rank(f"zero {k}", _flat_params(models[k]))
+    chunk = {"ShardedDistributedOptimizer": -(-n_params // n),
+             "ZeroDistributedOptimizer": zero_shard_layout(n_params, n,
+                                                           r)[2]}
+    for k in names[1:]:
+        for key in ("exp_avg", "exp_avg_sq"):
+            held = opts[k].state_dict()["state"][0][key].numel()
+            if held != chunk[k]:
+                raise AssertionError(f"zero: {k} holds {held} elements of "
+                                     f"{key}, expected {chunk[k]}")
+    state = opts["ZeroDistributedOptimizer"].state_dict()
+    back = hvd.reshard_zero_state(hvd.gather_zero_state(state, n_params),
+                                  n_params)
+    for key, v in state["state"][0].items():
+        if not torch.equal(v, back["state"][0][key]):
+            raise AssertionError(f"zero: {key} after gather and reshard "
+                                 f"is not the rank's state")
+    del state, back
+    state_bytes = {k: _state_bytes(opts[k].state) for k in names}
+    param_bytes = n_params * 4
+
+    # the main path: each model its own steps, in turns
+    kernels.reset_launch_counts()
+    turns = _blocks_in_turns(
+        {k: (lambda k=k: _lm_step(models[k], opts[k], tokens))
+         for k in names}, ZERO_BLOCK_STEPS, ZERO_PAIRS)
+    counts = kernels.launch_counts()
+    expect_launches("zero", counts, per_step_launches(layers),
+                    len(names) * ZERO_PAIRS * ZERO_BLOCK_STEPS)
+    for k in names:
+        opts[k].zero_grad(set_to_none=True)
+    process_peak = torch.cuda.max_memory_allocated()
+    apart = {k: e["max"] for k, e in _param_errors(models, names).items()}
+
+    # one int8 ShardedDistributedOptimizer step
+    m = models["ShardedDistributedOptimizer"]
+    del models, opts
+    _release()
+    m.zero_grad(set_to_none=True)
+    lm_loss(m(tokens), tokens).backward()
+    flat = _block_scaled(torch.cat([p.grad.reshape(-1)
+                                    for p in m.parameters()]), INT8_BLOCK)
+    exact = flat.clone()
+    _drain()
+    dist.all_reduce(exact)
+    blockmax = torch.maximum(_rank_max(_block_max(flat, INT8_BLOCK)),
+                             _block_max(exact, INT8_BLOCK))
+    with torch.no_grad():
+        offset = 0
+        for p in m.parameters():
+            p.zero_()
+            p.grad = flat[offset:offset + p.numel()].view(p.shape).clone()
+            offset += p.numel()
+    del flat
+    hvd.ShardedDistributedOptimizer(torch.optim.SGD(m.parameters(), lr=1.0),
+                                    compression=Compression.int8).step()
+    int8_err = _within_int8_bound("ShardedDistributedOptimizer step",
+                                  -_flat_params(m) * n, exact, blockmax, n)
+    del m, exact, blockmax
+    _release()
+    own = _own_gradient_gaps(layers, tokens, wrappers)
+    return {"rank": r, "world": n, "params": n_params, "losses": losses,
+            "max_err_vs_distributed": {k: e["max"] for k, e in err.items()},
+            "apart_after_own_steps": apart, "state_bytes": state_bytes,
+            "param_bytes": param_bytes, "counts": counts,
+            "step_ms_blocks": {k: v[0] for k, v in turns.items()},
+            "peak_over_resident": {k: v[1] for k, v in turns.items()},
+            "process_peak": process_peak, "int8_max_err": int8_err,
+            "own_gradient_gaps": own, "sharded": n > 1}
+
+
+def _own_gradient_gaps(layers, tokens, wrappers):
+    """Phase 8's witness of the summation order: models from seed 0, one
+    at a time, each trained ``ZERO_CHECK_STEPS`` steps on its own
+    gradients (AdamW lr 1e-4, weight decay 1e-4) by
+    ``DistributedOptimizer``, by it again (the same buckets), by it with
+    ``WITNESS_THRESHOLD``-byte buckets (the same sum, cut into other
+    NCCL calls, so some elements are summed in another order) and by
+    each ZeRO variant.  -> each later run's largest parameter error
+    against the first's (a reading, not a check: the checks are the
+    shared-gradient ones)."""
+    import torch
+
+    from horovod_tpu_torch.models import Transformer
+    from horovod_tpu_torch.utils import env as env_util
+
+    do = wrappers["DistributedOptimizer"]
+    runs = {"DistributedOptimizer": (do, None),
+            "DistributedOptimizer again": (do, None),
+            f"DistributedOptimizer {WITNESS_THRESHOLD >> 20} MB buckets":
+                (do, WITNESS_THRESHOLD)}
+    runs.update((k, (w, None)) for k, w in wrappers.items()
+                if k != "DistributedOptimizer")
+    ref, gaps = None, {}
+    for name, (wrap, threshold) in runs.items():
+        model = Transformer(main_config(layers), seed=0)
+        before = os.environ.get(env_util.HVD_FUSION_THRESHOLD)
+        if threshold is not None:
+            os.environ[env_util.HVD_FUSION_THRESHOLD] = str(threshold)
+        try:
+            opt = wrap(model, torch.optim.AdamW(
+                model.parameters(), lr=1e-4, weight_decay=1e-4))
+        finally:
+            if before is None:
+                os.environ.pop(env_util.HVD_FUSION_THRESHOLD, None)
+            else:
+                os.environ[env_util.HVD_FUSION_THRESHOLD] = before
+        for _ in range(ZERO_CHECK_STEPS):
+            _lm_step(model, opt, tokens)
+        flat = _flat_params(model)
+        if ref is None:
+            ref = flat
+        else:
+            gaps[name] = max_err(flat, ref)
+        del model, opt, flat
+        _release()
+    return gaps
+
+
+def zero_phase(smi):
+    """Phase 8: :func:`zero_checks` at ``min(cards, 4)`` ranks."""
+    results = in_ranks("zero", LAYERS)
+    for res in results:
+        n = res["world"]
+        head = f"zero rank {res['rank']} of {n}"
+        if not res["sharded"]:
+            print(f"{head}: P = 1: ZeroDistributedOptimizer takes the "
+                  f"replicated update, ShardedDistributedOptimizer one "
+                  f"shard of the whole", flush=True)
+        for k, ms in res["step_ms_blocks"].items():
+            over = res["peak_over_resident"][k]
+            alone = res["param_bytes"] + res["state_bytes"][k] + max(over)
+            print(f"{head}: {k}: step {statistics.median(ms):.2f} ms (block "
+                  f"medians in turns {[round(t, 2) for t in ms]}), "
+                  f"optimizer state {res['state_bytes'][k]} bytes a rank, "
+                  f"peak above the resident {max(over) / 2**30:.2f} GiB, "
+                  f"parameters + state + that peak {alone / 2**30:.2f} GiB; "
+                  f"max abs err against DistributedOptimizer "
+                  f"{res['max_err_vs_distributed'].get(k, 0.0):.3e} after "
+                  f"{ZERO_CHECK_STEPS} steps on the same gradients, "
+                  f"{res['apart_after_own_steps'].get(k, 0.0):.3e} after "
+                  f"{ZERO_PAIRS * ZERO_BLOCK_STEPS} more on its own on "
+                  f"{smi}", flush=True)
+        print(f"{head}: losses of the checked steps "
+              f"{[round(x, 4) for x in res['losses']]}", flush=True)
+        print(f"{head}: {ZERO_CHECK_STEPS} steps each on its own "
+              f"gradients, max abs err against DistributedOptimizer's: "
+              + ", ".join(f"{k} {v:.3e}"
+                          for k, v in res["own_gradient_gaps"].items())
+              + f" on {smi}", flush=True)
+        print(f"{head}: process peak {res['process_peak'] / 2**30:.2f} GiB "
+              f"(three models resident); int8 ShardedDistributedOptimizer "
+              f"step max abs err {res['int8_max_err']:.3e} (within "
+              f"(n + 1) * blockmax / 254)", flush=True)
+    return results
+
+
+def _attention_variants(r, n):
+    """name -> (the sequence-parallel call on shards, zigzag layout,
+    causal, flash launches of each kernel in one call on rank ``r``)."""
+    from horovod_tpu_torch.parallel import (ring_attention,
+                                            ulysses_attention,
+                                            zigzag_ring_attention)
+
+    return {
+        "ring_causal": (lambda q, k, v: ring_attention(q, k, v, causal=True),
+                        False, True, r + 1),
+        "ring": (lambda q, k, v: ring_attention(q, k, v, causal=False),
+                 False, False, n),
+        "zigzag": (lambda q, k, v: zigzag_ring_attention(q, k, v), True,
+                   True, 2 * n + 1),
+        "ulysses": (lambda q, k, v: ulysses_attention(q, k, v, causal=True),
+                    False, True, 1)}
+
+
+def sequence_attention(iters=5):
+    """Phase 9, attention alone: q, k, v, dO ``[2, 8192 * P, 8, 128]``
+    bf16 from a seed on every rank, each rank running its shard through
+    ring (causal and not), zigzag and Ulysses attention (each with its
+    default attention: the flash kernels on the card), forward and
+    backward; out, dq, dk and dv held row by row
+    (``check_flash_close``, 2e-2 of each row's largest entry) to
+    ``flash_attention`` over the whole sequence on this card.  Then each
+    variant's forward and backward timed in turns, and the whole
+    sequence's on one card.  -> the numbers."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import cuda as kernels
+    from horovod_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from horovod_tpu_torch.parallel import zigzag_shard
+
+    dev, r, n = hvd.device(), hvd.rank(), hvd.size()
+    b, t, h, d = SEQ_BATCH, SEQ_SHARD * n, ATTN_H, ATTN_D
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v, do = (torch.randn(b, t, h, d, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+
+    def shard(x, zz):
+        if zz:
+            x = zigzag_shard(x, n)
+        return x[:, r * SEQ_SHARD:(r + 1) * SEQ_SHARD].contiguous()
+
+    def fwd_bwd(fn, inputs, dout):
+        leaves = [x.detach().requires_grad_(True) for x in inputs]
+        out = fn(*leaves)
+        out.backward(dout)
+        return [out.detach()] + [x.grad for x in leaves]
+
+    full = {}
+    for causal in (True, False):
+        full[causal] = fwd_bwd(lambda a, b_, c: flash_attention(
+            a, b_, c, causal=causal), (q, k, v), do)
+    variants = _attention_variants(r, n)
+    errs, launches = {}, {}
+    for name, (fn, zz, causal, per_call) in variants.items():
+        kernels.reset_launch_counts()
+        got = fwd_bwd(fn, [shard(x, zz) for x in (q, k, v)], shard(do, zz))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        launches[name] = counts["flash_attention_fwd"]
+        for kname in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv"):
+            if counts[kname] != per_call:
+                raise AssertionError(f"sequence {name}: {kname} launched "
+                                     f"{counts[kname]} times, expected "
+                                     f"{per_call}")
+        errs[name] = max(
+            check_flash_close(f"sequence {name} {what} rank {r} of {n}", g,
+                              shard(w, zz), 2e-2)
+            for g, w, what in zip(got, full[causal],
+                                  ("out", "dq", "dk", "dv")))
+        del got
+    del full
+    shards = {zz: [shard(x, zz) for x in (q, k, v, do)]
+              for zz in (False, True)}
+    calls = {name: (lambda fn=fn, zz=zz: fwd_bwd(
+        fn, shards[zz][:3], shards[zz][3]))
+        for name, (fn, zz, _, _) in variants.items()}
+    calls["one_card_causal"] = lambda: fwd_bwd(
+        lambda a, b_, c: flash_attention(a, b_, c, causal=True), (q, k, v),
+        do)
+    ms = {k: [] for k in calls}
+    for fn in calls.values():
+        fn()
+    for _ in range(iters):
+        for name, fn in calls.items():
+            _drain()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms[name].append(1e3 * (time.perf_counter() - t0))
+    return {"attention_shape": [b, t, h, d], "attention_max_err": errs,
+            "attention_ms": {k: statistics.median(v) for k, v in ms.items()},
+            "attention_launches": launches}
+
+
+def _zigzag_batch(n, r, seed=0, zigzag=True):
+    """The global batch ``[2, 8192 * P + 1]`` from ``seed``: tokens and
+    their next-token targets zigzag-reordered together (unless
+    ``zigzag`` is false: contiguous shards, as the ring takes them), then
+    this rank's shard of each and of the global positions (as
+    ``examples/long_context_training.py`` prepares them)."""
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.parallel import zigzag_shard
+
+    t = SEQ_SHARD * n
+    tokens = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, VOCAB, (SEQ_BATCH, t + 1)))
+    order = (lambda x: zigzag_shard(x, n)) if zigzag else (lambda x: x)
+    mine = slice(r * SEQ_SHARD, (r + 1) * SEQ_SHARD)
+    inp, tgt = (order(x)[:, mine] for x in (tokens[:, :-1], tokens[:, 1:]))
+    pos = order(torch.arange(t)[None])[0, mine]
+    return tokens, inp, tgt, pos
+
+
+def _zigzag_attn(q, k, v, causal=True, scale=None):
+    from horovod_tpu_torch.parallel import zigzag_ring_attention
+
+    return zigzag_ring_attention(q, k, v, scale=scale)
+
+
+def sequence_training(layers, profile=False):
+    """Phase 9, training: the main path's transformer at full width with
+    ``attn_fn`` = zigzag ring attention, global sequence 8192 * P (so
+    ``max_len`` too), batch 2 (each GPU holds ``[2, 8192]`` tokens),
+    global positions passed to ``forward``, ``DistributedOptimizer(AdamW)``
+    over the world, ``SEQ_STEPS`` steps: the loss finite and falling,
+    (2P + 1) * layers launches of each flash kernel a step.  With
+    ``profile``, one more step under ``torch.profiler``
+    (``chiprun_out/profile_zigzag_rank<r>.txt``).  -> the numbers."""
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer
+    from horovod_tpu_torch.ops import cuda as kernels
+
+    dev, r, n = hvd.device(), hvd.rank(), hvd.size()
+    cfg = main_config(layers, seq=SEQ_SHARD * n, attn_fn=_zigzag_attn)
+    model = Transformer(cfg, seed=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters())
+    _, inp, tgt, pos = (x.to(dev) for x in _zigzag_batch(n, r))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(SEQ_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = _lm_step(model, opt, inp, tgt, pos)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        _drain()
+        dist.all_reduce(loss)
+        losses.append(loss.item() / n)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches("sequence training", counts,
+                    per_step_launches(layers, flash=2 * n + 1), SEQ_STEPS)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"sequence training: losses {losses}")
+    step = statistics.median(times[1:])
+    profiled = _profile(lambda: _lm_step(model, opt, inp, tgt, pos),
+                        f"profile_zigzag_rank{r}.txt") if profile else None
+    return {"train_losses": losses, "train_step_s": times,
+            "train_tokens_per_s_per_gpu": SEQ_BATCH * SEQ_SHARD / step,
+            "train_peak": peak, "train_counts": counts,
+            "train_profiled_device_ms": profiled}
+
+
+def _ring_attn(q, k, v, causal=True, scale=None):
+    from horovod_tpu_torch.parallel import ring_attention
+
+    return ring_attention(q, k, v, causal=causal, scale=scale)
+
+
+def sequence_ring_training(layers):
+    """Phase 9, the order of the two communicators: the training of
+    :func:`sequence_training` with ``attn_fn`` = causal ring attention on
+    contiguous shards.  Its backward is a different graph on every rank
+    (rank r attends r + 1 blocks), so the ring's permutations on the
+    sequence group and ``DistributedOptimizer``'s bucket allreduces on
+    the default group may interleave differently from rank to rank; NCCL
+    does not promise progress then.  ``SEQ_STEPS`` steps must finish,
+    the loss finite and falling, the parameters bitwise the same on
+    every rank and each flash kernel launched r + 1 times a block on
+    rank r.  -> the numbers."""
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer
+    from horovod_tpu_torch.ops import cuda as kernels
+
+    dev, r, n = hvd.device(), hvd.rank(), hvd.size()
+    cfg = main_config(layers, seq=SEQ_SHARD * n, attn_fn=_ring_attn)
+    model = Transformer(cfg, seed=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters())
+    _, inp, tgt, pos = (x.to(dev)
+                        for x in _zigzag_batch(n, r, zigzag=False))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(SEQ_STEPS):
+        t0 = time.perf_counter()
+        loss = _lm_step(model, opt, inp, tgt, pos)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        _drain()
+        dist.all_reduce(loss)
+        losses.append(loss.item() / n)
+    counts = kernels.launch_counts()
+    expect_launches("causal ring training", counts,
+                    per_step_launches(layers, flash=r + 1), SEQ_STEPS)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"causal ring training: losses {losses}")
+    _same_on_every_rank("causal ring training", _flat_params(model))
+    return {"ring_train_losses": losses, "ring_train_step_s": times,
+            "ring_train_tokens_per_s_per_gpu":
+                SEQ_BATCH * SEQ_SHARD / statistics.median(times[1:])}
+
+
+def sequence_two_layer_parity():
+    """Phase 9: at two layers in fp32 (TF32 off, phase 4's setting), the
+    first step's global loss and averaged gradients of the zigzag model
+    on P ranks against the same model over the whole sequence on this
+    card: loss rtol 1e-5, gradients rtol 1e-3 with atol 1e-5 (phase 4's
+    tolerances).  -> the loss, each side's gradient norm, the largest
+    error."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer
+    from horovod_tpu_torch.ops.cuda.softmax_xent import softmax_xent
+
+    dev, r, n = hvd.device(), hvd.rank(), hvd.size()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = main_config(2, seq=SEQ_SHARD * n, dtype=torch.float32,
+                          attn_fn=_zigzag_attn)
+        tokens, inp, tgt, pos = (x.to(dev) for x in _zigzag_batch(n, r))
+        model = Transformer(cfg, seed=0)
+        loss = softmax_xent(model(inp, positions=pos), tgt).mean()
+        loss.backward()
+        grads = hvd.allreduce_gradients(
+            {k: p.grad for k, p in model.named_parameters()})
+        loss = loss.detach()
+        _drain()
+        dist.all_reduce(loss)
+        loss = loss / n
+        del model
+        whole = Transformer(dataclasses.replace(cfg, attn_fn=None), seed=0)
+        want = softmax_xent(whole(tokens[:, :-1]), tokens[:, 1:]).mean()
+        want.backward()
+        assert_close("sequence two-layer loss", loss, want.detach(), 1e-5,
+                     1e-5)
+        worst = 0.0
+        for k, p in whole.named_parameters():
+            assert_close(f"sequence two-layer grad {k}", grads[k], p.grad,
+                         1e-3, 1e-5)
+            worst = max(worst, max_err(grads[k], p.grad))
+        norms = (float(torch.stack([g.norm() for g in grads.values()])
+                       .norm()),
+                 float(torch.stack([p.grad.norm()
+                                    for p in whole.parameters()]).norm()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return {"parity_loss": [float(loss), float(want.detach())],
+            "parity_grad_norm": norms, "parity_max_err": worst}
+
+
+def remat_turns(layers):
+    """Phase 9, remat: phase 5's step (full width, batch 8 x 2048, bf16,
+    ``DistributedOptimizer(AdamW)``, each rank a batch of its own) with
+    ``remat=True`` and without, from one seed: the first step's loss
+    bitwise the same (the same forward), the averaged gradients within
+    phase 4's tolerance (rtol 1e-3, atol 1e-5), the forward kernels
+    launched twice a block under remat; then ``REMAT_PAIRS`` blocks of
+    steps in turns (step time, peak memory above the resident).  -> the
+    numbers."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer
+    from horovod_tpu_torch.ops import cuda as kernels
+
+    dev, r = hvd.device(), hvd.rank()
+    tokens = torch.from_numpy(np.random.RandomState(100 + r).randint(
+        0, VOCAB, (MAIN_BATCH, MAIN_SEQ))).to(dev)
+    models, opts, first, counts = {}, {}, {}, {}
+    for remat in (False, True):
+        models[remat] = Transformer(main_config(layers, remat=remat), seed=0)
+        opts[remat] = hvd.DistributedOptimizer(
+            torch.optim.AdamW(models[remat].parameters(), lr=1e-4,
+                              weight_decay=1e-4),
+            named_parameters=models[remat].named_parameters())
+        kernels.reset_launch_counts()
+        first[remat] = _lm_step(models[remat], opts[remat], tokens)
+        counts[remat] = kernels.launch_counts()
+        expect_launches(f"remat={remat}", counts[remat],
+                        per_step_launches(layers, remat=remat), 1)
+    if not torch.equal(first[True], first[False]):
+        raise AssertionError(f"remat: first losses {float(first[True])} and "
+                             f"{float(first[False])} differ")
+    bitwise, worst = True, 0.0
+    for (k, a), b in zip(models[True].named_parameters(),
+                         models[False].parameters()):
+        assert_close(f"remat grad {k}", a.grad, b.grad, 1e-3, 1e-5)
+        bitwise = bitwise and torch.equal(a.grad, b.grad)
+        worst = max(worst, max_err(a.grad, b.grad))
+    turns = _blocks_in_turns(
+        {f"remat={k}": (lambda k=k: _lm_step(models[k], opts[k], tokens))
+         for k in (False, True)}, REMAT_BLOCK_STEPS, REMAT_PAIRS)
+    return {"remat_first_loss": float(first[True]),
+            "remat_grads_bitwise": bitwise, "remat_grad_max_err": worst,
+            "remat_counts": {str(k): v for k, v in counts.items()},
+            "remat_step_ms_blocks": {k: v[0] for k, v in turns.items()},
+            "remat_peak_over_resident": {k: v[1] for k, v in turns.items()}}
+
+
+def sequence_checks(layers, profile=False):
+    """Phase 9 on this rank, ``hvd.init()`` done."""
     import horovod_tpu_torch as hvd
 
-    hvd.init()
-    try:
-        res = eager_checks(layers)
-    finally:
-        hvd.shutdown()
-    print("EAGER_RESULT " + json.dumps(res), flush=True)
-    return 0
+    res = {"rank": hvd.rank(), "world": hvd.size()}
+    for part in (sequence_attention,
+                 lambda: sequence_training(layers, profile),
+                 lambda: sequence_ring_training(layers),
+                 sequence_two_layer_parity, lambda: remat_turns(layers)):
+        res.update(part())
+        _release()
+    return res
+
+
+def _release():
+    """Free what a finished part left: an optimizer's hooks and its
+    parameters hold each other, so only the collector frees them."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sequence_phase(smi, profile=False):
+    """Phase 9: :func:`sequence_checks` at ``min(cards, 4)`` ranks."""
+    results = in_ranks("sequence", LAYERS, profile)
+    for res in results:
+        n = res["world"]
+        head = f"sequence rank {res['rank']} of {n}"
+        if n == 1:
+            print(f"{head}: P = 1: the ring has no hop, zigzag two chunks "
+                  f"on one card, Ulysses no exchange", flush=True)
+        ms = {k: round(v, 3) for k, v in res["attention_ms"].items()}
+        print(f"{head}: attention {res['attention_shape']} bf16 forward + "
+              f"backward ms {ms}, max abs err "
+              f"{ {k: float(f'{v:.3e}') for k, v in res['attention_max_err'].items()} }, "
+              f"flash launches a call {res['attention_launches']} on {smi}",
+              flush=True)
+        print(f"{head}: zigzag transformer ({LAYERS} layers, "
+              f"[{SEQ_BATCH}, {SEQ_SHARD}] tokens a GPU of a "
+              f"{SEQ_SHARD * n} sequence): losses "
+              f"{[round(x, 4) for x in res['train_losses']]}, step times s "
+              f"{[round(x, 4) for x in res['train_step_s']]}, "
+              f"{res['train_tokens_per_s_per_gpu']:.1f} tokens/s per GPU, "
+              f"peak memory {res['train_peak'] / 2**30:.2f} GiB on {smi}",
+              flush=True)
+        print(f"{head}: causal ring transformer under DistributedOptimizer "
+              f"(the two communicators' order): losses "
+              f"{[round(x, 4) for x in res['ring_train_losses']]}, step "
+              f"times s {[round(x, 4) for x in res['ring_train_step_s']]}, "
+              f"{res['ring_train_tokens_per_s_per_gpu']:.1f} tokens/s per "
+              f"GPU, parameters bitwise the same on every rank on {smi}",
+              flush=True)
+        if res["train_profiled_device_ms"] is not None:
+            print(f"{head}: zigzag step device busy "
+                  f"{res['train_profiled_device_ms']:.3f} ms "
+                  f"(profile_zigzag_rank{res['rank']}.txt)", flush=True)
+        print(f"{head}: two layers fp32, zigzag on {n} against one card: "
+              f"loss {res['parity_loss']}, gradient norm "
+              f"{res['parity_grad_norm']}, max abs err "
+              f"{res['parity_max_err']:.3e}", flush=True)
+        blocks = res["remat_step_ms_blocks"]
+        peaks = res["remat_peak_over_resident"]
+        print(f"{head}: remat: first loss {res['remat_first_loss']:.6f} "
+              f"bitwise without; gradients bitwise "
+              f"{res['remat_grads_bitwise']} (max abs err "
+              f"{res['remat_grad_max_err']:.3e}); "
+              + "; ".join(
+                  f"{k} step {statistics.median(v):.2f} ms (blocks "
+                  f"{[round(t, 2) for t in v]}), peak above the resident "
+                  f"{max(peaks[k]) / 2**30:.2f} GiB"
+                  for k, v in blocks.items()) + f" on {smi}", flush=True)
+    return results
+
+
+RANK_PHASES = {"eager": eager_checks, "zero": zero_checks,
+               "sequence": sequence_checks}
 
 
 def _profile_step(model, opt, tokens):
@@ -1568,12 +2387,13 @@ def _out_dir():
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile one extra training step")
-    ap.add_argument("--eager-rank", type=int, metavar="LAYERS",
-                    help=argparse.SUPPRESS)  # one rank of phase 6
+                    help="profile one extra training step of phases 5, 7 "
+                    "and 9")
+    ap.add_argument("--rank-of", nargs=2, metavar=("PHASE", "LAYERS"),
+                    help=argparse.SUPPRESS)  # one rank of phase 6, 8 or 9
     args = ap.parse_args(argv)
-    if args.eager_rank is not None:
-        return _eager_rank(args.eager_rank)
+    if args.rank_of is not None:
+        return _rank_of(args.rank_of[0], int(args.rank_of[1]), args.profile)
 
     import torch
 
@@ -1603,10 +2423,13 @@ def main(argv=None):
         k["launches"] = counts[k["name"]]
     eager = eager_phase(smi, LAYERS)
     cnn = cnn_phase(smi, args.profile)
+    zero = zero_phase(smi)
+    sequence = sequence_phase(smi, args.profile)
 
     with open(os.path.join(_out_dir(), "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": kernels, "train": run,
-                   "eager": eager, "cnn": cnn}, f, indent=1)
+                   "eager": eager, "cnn": cnn, "zero": zero,
+                   "sequence": sequence}, f, indent=1)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,7 +5,9 @@ gloo on the CPU), with the JAX package's Pallas kernels rewritten as CUDA
 kernels for the H100 (``horovod_tpu_torch/csrc``), and Horovod's eager
 collective plane: named async collectives negotiated across ranks, fused
 and run on NCCL (``mpi_ops``, Horovod's torch surface with integer
-handles, over ``ops/eager.py`` and ``ops/controller.py``).
+handles, over ``ops/eager.py`` and ``ops/controller.py``); ZeRO-1
+(``sharding``) and sequence parallelism (``parallel``: ring, zigzag and
+Ulysses attention).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 
     import horovod_tpu_torch as hvd
@@ -69,5 +71,12 @@ from horovod_tpu_torch.optimizer import (  # noqa: F401
     allreduce_gradients,
     broadcast_optimizer_state,
     broadcast_parameters,
+)
+from horovod_tpu_torch.sharding import (  # noqa: F401
+    ShardedDistributedOptimizer,
+    ZeroDistributedOptimizer,
+    gather_zero_state,
+    reshard_zero_state,
+    shard_chunk_size,
 )
 from horovod_tpu_torch.sync_batch_norm import SyncBatchNorm  # noqa: F401

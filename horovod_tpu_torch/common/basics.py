@@ -16,7 +16,10 @@ The backend is NCCL on the card (the default) and gloo only when the
 caller asks for the CPU.  Asking for the card on a machine without one
 raises.  ``HVD_TPU_COMPRESSION`` (none, bf16, fp16 or int8) is read once
 here: the compression of every reduction whose ``compression`` is
-``None``; a name it does not know raises.
+``None``; a name it does not know raises.  So is
+``HVD_TPU_ZERO_MIN_SIZE`` (default 1024): the flat parameter count below
+which ``ZeroDistributedOptimizer`` keeps the update replicated; a
+negative value raises.
 
 ``init`` also starts the eager collective plane (``ops/controller.py``):
 two process groups of its own, made in the same order on every rank (a
@@ -29,6 +32,20 @@ launches on every rank too: the optimizer waits for the plane to issue
 what this rank submitted before each of its collectives
 (``Controller.drain``).  ``shutdown`` stops the plane (a negotiated step:
 every rank calls it) before it destroys the groups.
+
+One more group, made last, carries the sequence axis of
+``horovod_tpu_torch.parallel`` (ring, zigzag and Ulysses attention), the
+world until process groups are ported: its point-to-point transfers run
+inside the backward pass, where ``DistributedOptimizer``'s hooks start
+their allreduces on the default group, and a causal ring builds a
+different graph on every rank.  On one communicator the two could be
+launched in different orders on different ranks, and NCCL would
+deadlock.  On two, every rank launches each communicator's operations
+in the same order, but the two may still interleave differently from
+rank to rank, and NCCL does not promise progress then; they run on
+streams of their own, and ``chip_smoke.py`` phase 9's causal-ring
+training on four cards is what shows them finishing (see
+``parallel/_comm.py``).
 """
 
 import dataclasses
@@ -58,6 +75,8 @@ class _State:
     device: torch.device
     controller: object   # ops.controller.Controller, the eager plane
     compression: str     # the job's default (HVD_TPU_COMPRESSION)
+    zero_min_size: int   # HVD_TPU_ZERO_MIN_SIZE
+    sequence_group: object  # the sequence axis (parallel/_comm.py)
 
 
 def resolve_device(device=None):
@@ -88,6 +107,8 @@ def init(device=None, store_path=None, timeout=timedelta(seconds=300)):
         if not 0 <= rank < size:
             raise ValueError(f"HVD_RANK={rank} outside HVD_SIZE={size}")
         compression = default_compression()
+        zero_min_size = _validated_nonneg(env_util.HVD_TPU_ZERO_MIN_SIZE,
+                                          env_util.DEFAULT_ZERO_MIN_SIZE)
         if device.type == "cuda":
             if device.index is None:
                 device = torch.device("cuda", local_rank
@@ -112,10 +133,10 @@ def init(device=None, store_path=None, timeout=timedelta(seconds=300)):
                     f"{env_util.HVD_RENDEZVOUS_PORT}")
             dist.init_process_group(backend, store=store, rank=rank,
                                     world_size=size, timeout=timeout)
+        controller = _start_eager_plane(rank, size, device, backend)
         _state = _State(rank, size, local_rank, local_size, cross_rank,
-                        cross_size, device,
-                        _start_eager_plane(rank, size, device, backend),
-                        compression)
+                        cross_size, device, controller, compression,
+                        zero_min_size, dist.new_group(backend=backend))
 
 
 def default_compression():
@@ -124,6 +145,15 @@ def default_compression():
     uncompressed (reference: ``common/config.py:_validated_compression``)."""
     return resolve_compression(
         env_util.get_str(env_util.HVD_TPU_COMPRESSION, "none"))
+
+
+def _validated_nonneg(name, default):
+    """A negative count raises at ``init`` (reference:
+    ``common/config.py:_validated_nonneg``)."""
+    value = env_util.get_int(name, default)
+    if value < 0:
+        raise ValueError(f"{name} must be >= 0, got {value}")
+    return value
 
 
 def _start_eager_plane(rank, size, device, backend):

@@ -27,10 +27,12 @@ import torch.nn.functional as F
 
 from horovod_tpu_torch.common.ops_enum import INT8_BLOCK
 
-# ``all_gather_single`` where torch has it (``all_gather_into_tensor``
-# is deprecated there)
+# the ``*_single`` collectives where torch has them (the ``*_tensor``
+# names are deprecated there)
 all_gather_into = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
+reduce_scatter_into = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
 
 
 # --------------------------------------------------------- block quantization

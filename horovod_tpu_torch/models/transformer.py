@@ -21,6 +21,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from horovod_tpu_torch.ops.cuda.flash_attention import flash_attention
 from horovod_tpu_torch.ops.cuda.layer_norm import layer_norm
@@ -38,10 +39,11 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     # attn_fn(q, k, v, causal=..., scale=...) over [B, T, H, D]
     attn_fn: Optional[Callable] = None
-    # switch-MoE FFN every k-th block and rematerialisation come in a
-    # later slice
+    # switch-MoE FFN every k-th block comes in a later slice
     moe_every: int = 0
     n_experts: int = 8
+    # recompute each block's forward in the backward pass (flax's
+    # nn.remat(Block)): activation memory of one block instead of all
     remat: bool = False
 
 
@@ -151,8 +153,6 @@ class Transformer(nn.Module):
         if cfg.moe_every:
             raise NotImplementedError(
                 "moe_every: switch-MoE blocks are not ported yet")
-        if cfg.remat:
-            raise NotImplementedError("remat is not ported yet")
         from horovod_tpu_torch.common.basics import resolve_device
 
         device = resolve_device(device)
@@ -166,12 +166,21 @@ class Transformer(nn.Module):
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg.dtype, gen)
         self.to(device)
 
-    def forward(self, tokens):
-        t = tokens.shape[-1]
-        x = self.embed(tokens) + self.pos_embed(
-            torch.arange(t, device=tokens.device))
+    def forward(self, tokens, positions=None):
+        """``positions``: the global position of each token, ``[T]`` or
+        ``[B, T]`` (default ``arange(T)``).  A rank of a sequence-parallel
+        run holds a shard of the sequence (zigzag-reordered under zigzag
+        attention) and passes its tokens' places in the whole one, as the
+        JAX package's model sees them in its global view."""
+        if positions is None:
+            positions = torch.arange(tokens.shape[-1], device=tokens.device)
+        x = self.embed(tokens) + self.pos_embed(positions)
         for i in range(self.cfg.n_layers):
-            x = getattr(self, f"block_{i}")(x)
+            block = getattr(self, f"block_{i}")
+            if self.cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x)
         x = self.ln_f(x)
         return self.lm_head(x.to(self.cfg.dtype))
 

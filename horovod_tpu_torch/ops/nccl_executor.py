@@ -31,12 +31,10 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.common.compression import (all_gather_into,
-                                                  quantized_allreduce)
+                                                  quantized_allreduce,
+                                                  reduce_scatter_into)
 from horovod_tpu_torch.common.ops_enum import (INT8_BLOCK, ReduceOp,
                                                reduce_scatter_split_sizes)
-
-_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
-    or dist.reduce_scatter_tensor
 
 _WIRE = {"bf16": torch.bfloat16, "fp16": torch.float16}
 
@@ -230,7 +228,7 @@ class Executor:
                 src[r * top:r * top + c] = x[offset:offset + c]
                 offset += c
         out = torch.empty((top,) + rest, dtype=x.dtype, device=self.device)
-        _reduce_scatter(out, src, op=dist.ReduceOp.SUM, group=self.group)
+        reduce_scatter_into(out, src, op=dist.ReduceOp.SUM, group=self.group)
         out = self._finish(out[:counts[self.rank]], dtype, op, prescale,
                            postscale)
         return out.contiguous()

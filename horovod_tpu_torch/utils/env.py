@@ -2,7 +2,8 @@
 
 The subset of ``horovod_tpu/utils/env.py`` that the port reads: the
 launcher -> worker rank contract, the fusion threshold, the job-wide
-default compression and the eager plane's cycle, cache and stall knobs.
+default compression, ZeRO's replicated-update threshold and the eager
+plane's cycle, cache and stall knobs.
 Kept as a copy so that the port never imports the JAX package.
 """
 
@@ -17,6 +18,10 @@ HVD_STALL_CHECK_DISABLE = "HVD_STALL_CHECK_DISABLE"
 HVD_STALL_CHECK_TIME_SECONDS = "HVD_STALL_CHECK_TIME_SECONDS"  # default 60
 # default on-the-wire allreduce compression: none | bf16 | fp16 | int8
 HVD_TPU_COMPRESSION = "HVD_TPU_COMPRESSION"
+# flat parameter count below which ZeroDistributedOptimizer keeps the
+# update replicated (tiny models pay more in collective latency than they
+# save in state memory)
+HVD_TPU_ZERO_MIN_SIZE = "HVD_TPU_ZERO_MIN_SIZE"
 
 # --- launcher -> worker contract ---------------------------------------------
 HVD_RANK = "HVD_RANK"
@@ -34,6 +39,7 @@ DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
 DEFAULT_CYCLE_TIME_MS = 1.0
 DEFAULT_CACHE_CAPACITY = 1024
 DEFAULT_STALL_WARNING_SECONDS = 60
+DEFAULT_ZERO_MIN_SIZE = 1024  # flat params below this stay replicated
 
 _warned = set()
 _warned_lock = threading.Lock()

@@ -496,3 +496,75 @@ def test_flash_wrappers_check_their_inputs(dev):
         fa.flash_attention(x, x, x, causal=True),
         fa.flash_attention(x.contiguous(), x.contiguous(), x.contiguous(),
                            causal=True))
+
+
+@pytest.mark.parametrize("b,t,h,d,causal", [
+    (2, 4096, 8, 128, True),     # a ring's diagonal block on the card
+    (2, 4096, 8, 128, False),    # a block behind it, and zigzag's C x C
+    (1, 128, 2, 16, False),      # zigzag's C x C on the CPU tests' flash
+])
+def test_flash_lse_cotangent_matches_plain(dev, b, t, h, d, causal):
+    """``flash_attention(..., return_lse=True)`` with a nonzero lse
+    cotangent, as each hop of ring and zigzag attention differentiates it:
+    the backward folds ``g_lse`` into delta (``delta = rowsum(dO * O) -
+    g_lse``).  dq, dk and dv against the plain versions given that delta,
+    tolerances as at ``test_flash_kernels_match_plain`` (bf16: 2e-2 of
+    each row's largest entry); out 2e-2, lse 1e-4."""
+    q, k, v, do = _qkvdo(dev, torch.bfloat16, b, t, t, h, d, seed=t + d)
+    g_lse = torch.from_numpy(np.random.RandomState(d).randn(b, h, t).astype(
+        np.float32)).to(dev)
+    scale = d ** -0.5
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    out, lse = fa.flash_attention(*leaves, causal=causal, return_lse=True)
+    ((out.float() * do.float()).sum() + (lse * g_lse).sum()).backward()
+    p_out, p_lse = fa.flash_attention_fwd_plain(q, k, v, causal, scale)
+    _close_rows(out, p_out, 2e-2, "out")
+    _close(lse, p_lse, 1e-4)
+    delta = ((do.float() * out.detach().float()).sum(-1).transpose(1, 2)
+             - g_lse).contiguous()
+    lse = lse.detach()
+    p_dq = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal,
+                                           scale)
+    p_dk, p_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                  causal, scale)
+    for got, want, what in zip([x.grad for x in leaves], (p_dq, p_dk, p_dv),
+                               ("dq", "dk", "dv")):
+        _close_rows(got, want, 2e-2, what)
+
+
+def test_ulysses_default_attention_launches_the_flash_kernels(dev,
+                                                              tmp_path):
+    """``ulysses_attention`` with ``attn_fn=None`` on card tensors runs
+    the flash kernels (one launch of each for forward and backward at
+    one rank, where the all-to-alls move nothing), and its out, dq, dk
+    and dv match the plain flash versions within 2e-2 of each row's
+    largest entry (bf16, as above)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import cuda as kernels
+    from horovod_tpu_torch.parallel import ulysses_attention
+
+    q, k, v, do = _qkvdo(dev, torch.bfloat16, 2, 256, 256, 4, 64, seed=9)
+    scale = 64 ** -0.5
+    hvd.init(store_path=str(tmp_path / "store"))
+    try:
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        kernels.reset_launch_counts()
+        out = ulysses_attention(*leaves, causal=True)
+        (out.float() * do.float()).sum().backward()
+        counts = kernels.launch_counts()
+    finally:
+        hvd.shutdown()
+    assert [counts[n] for n in ("flash_attention_fwd",
+                                "flash_attention_bwd_dq",
+                                "flash_attention_bwd_dkv")] == [1, 1, 1]
+    p_out, lse = fa.flash_attention_fwd_plain(q, k, v, True, scale)
+    delta = (do.float() * out.detach().float()).sum(-1).transpose(1, 2) \
+        .contiguous()
+    p_dq = fa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, True,
+                                           scale)
+    p_dk, p_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                  True, scale)
+    for got, want, what in zip([out] + [x.grad for x in leaves],
+                               (p_out, p_dq, p_dk, p_dv),
+                               ("out", "dq", "dk", "dv")):
+        _close_rows(got, want, 2e-2, what)

@@ -162,7 +162,10 @@ def test_reference_attention_matches_jax(causal, tq, tk):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("option", [{"moe_every": 2}, {"remat": True}])
+@pytest.mark.parametrize("option", [{"moe_every": 2}])
 def test_later_slice_options_raise(option):
+    """``remat`` is ported (held to flax's ``nn.remat`` in
+    ``tests/test_torch_sequence_parallel.py``); ``moe_every`` still
+    raises."""
     with pytest.raises(NotImplementedError):
         Transformer(TransformerConfig(**SMALL, **option), device="cpu")
