@@ -71,12 +71,39 @@ Phases, each of which must pass:
    parameters bitwise the same); the zigzag model's first step at two
    layers in fp32 against the whole sequence on one card; and phase 5's
    step with ``remat=True`` against without, in turns.  At one card ZeRO takes the replicated update and
-   the ring has no hop, and the phases say so.
+   the ring has no hop, and the phases say so;
+10. model parallelism at the same ranks (``hvd.grid``, ``make_mesh``):
+   (a) the world's two halves as two process groups allreducing
+   integer-valued fp32 at once, bitwise, with ``max_concurrent_groups``
+   >= 2, and ZeRO over the dp group of ``grid(dp=2, tp=2)`` (both tp
+   columns bitwise equal, within rtol 1e-5 of AdamW on one card over
+   the mean gradient); (b) phase 5's transformer split over ``tp`` on
+   ``grid(dp=2, tp=2)`` and ``grid(dp=1, tp=4)``, ``[8, 2048]`` tokens a
+   dp replica, ``DistributedOptimizer(group=dp)``, 5 steps: the first
+   loss within bf16 tolerance of the one-card model's, launches as
+   phase 5's, step ms, tokens/s per GPU, peak memory; and two layers in
+   fp32 against one card (loss rtol 1e-5, gradients rtol 1e-3 atol
+   1e-5); (c) the same with every second block a switch-MoE block of 8
+   experts over ``make_mesh({"dp": 2, "ep": 2})`` (capacity factor 1.25,
+   groups of 4096), loss ``lm_loss + 0.01 * aux``: finite and falling,
+   each expert's tokens and the share dropped, and the two-layer fp32
+   check with the router's and the experts' gradients; (d) the 8 blocks
+   as 4 pipeline stages of 2 with 8 microbatches of ``[1, 2048]``:
+   outputs and every stage's gradients against the sequential blocks on
+   one card in fp32, then the bf16 LM with its blocks pipelined for 5
+   steps beside the one-card step and the (M + S - 1) / M bubble bound.
+   At one card tp, ep and pp have size 1 (the single-rank path).
 
-Prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+Each phase's wall seconds are printed on a line of its own.
+
+Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` in
+phase 5's run, and ``launches_by_path``: phase 5's and phase 10's tp,
+MoE and pipeline runs', each of which must be above 0), the
+``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that last line.  ``--profile`` adds one profiled step of phase 5, one of
-ResNet-50 and one of phase 9's zigzag transformer on each rank.
+ResNet-50, one of phase 9's zigzag transformer and one of each of phase
+10's training runs on each rank.
 """
 
 import argparse
@@ -569,7 +596,11 @@ def check_flash_wide():
 
 
 def check_small_model():
-    """Phase 4: the kernels inside the model agree with the plain path."""
+    """Phase 4: the kernels inside the model agree with the plain path.
+    The CPU side takes one forward and backward before the compared one:
+    on the card's host a process's first fp32 forward on the CPU now and
+    then comes out other than its later ones, while the card's is the
+    same in every process (ROADMAP C.10); the gap is printed."""
     import numpy as np
     import torch
 
@@ -583,10 +614,23 @@ def check_small_model():
                             dtype=torch.float32)
     tokens = torch.from_numpy(
         np.random.RandomState(1).randint(0, 512, (2, 32)))
-    results = {}
+    results, layers = {}, {}
     for device in ("cpu", "cuda"):
         model = Transformer(cfg, device=device, seed=3)
+        # each module's input and output, for the report of a failure
+        # (ROADMAP C.10)
+        outs = layers[device] = {}
+        for name, mod in model.named_modules():
+            if name:
+                mod.register_forward_hook(
+                    lambda m, i, o, name=name, outs=outs: outs.__setitem__(
+                        name, [x.detach().cpu() if torch.is_tensor(x)
+                               else None for x in (i[0], o)]))
         tok = tokens.to(device)
+        if device == "cpu":
+            first = model(tok)
+            lm_loss(first, tok).backward()
+            model.zero_grad(set_to_none=True)
         logits = model(tok)
         loss = lm_loss(logits, tok)
         loss.backward()
@@ -594,12 +638,23 @@ def check_small_model():
                            {k: p.grad.cpu()
                             for k, p in model.named_parameters()})
     (lc, sc, gc), (lg, sg, gg) = results["cpu"], results["cuda"]
+    first_gap = max_err(first.detach(), lc)
     # fp32 on both sides; tolerance of the CPU parity tests
-    assert_close("small model logits", lg, lc, 1e-4, 1e-5)
+    try:
+        assert_close("small model logits", lg, lc, 1e-4, 1e-5)
+    except AssertionError:
+        for name, want in layers["cpu"].items():
+            errs = [f"{what} {max_err(g, w):.3e}" for what, g, w in zip(
+                ("input", "output"), layers["cuda"][name], want)
+                if g is not None and w is not None]
+            print(f"small model layer {name}: max abs err card against CPU "
+                  f"{', '.join(errs)}", flush=True)
+        raise
     assert_close("small model loss", sg, sc, 1e-5, 1e-5)
     for k in gc:
         assert_close(f"small model grad {k}", gg[k], gc[k], 1e-3, 1e-5)
-    print(f"small model: loss cuda {float(sg):.6f} cpu {float(sc):.6f}",
+    print(f"small model: loss cuda {float(sg):.6f} cpu {float(sc):.6f}; "
+          f"the CPU's first forward {first_gap:.3e} from its second",
           flush=True)
 
 
@@ -1332,10 +1387,19 @@ def _run_phase(phase, layers, profile):
     return RANK_PHASES[phase](layers)
 
 
+# a rank that has not finished its phase by then prints every thread's
+# stack and exits, so that a hang shows where it stands (in_ranks waits
+# 900 s)
+RANK_WATCHDOG_S = 840
+
+
 def _rank_of(phase, layers, profile):
     """One rank of a multi-card phase (``--rank-of PHASE LAYERS``)."""
+    import faulthandler
+
     import horovod_tpu_torch as hvd
 
+    faulthandler.dump_traceback_later(RANK_WATCHDOG_S, exit=True)
     hvd.init()
     try:
         res = _run_phase(phase, layers, profile)
@@ -2166,8 +2230,571 @@ def sequence_phase(smi, profile=False):
     return results
 
 
+# phase 10: model parallelism at min(cards, 4) ranks
+MP_STEPS, MP_BATCH, MP_PARITY_BATCH = 5, 8, 2
+MOE_EVERY, N_EXPERTS, AUX_WEIGHT = 2, 8, 0.01   # examples/transformer_lm.py
+PIPE_MICRO = 8                                  # microbatches of [1, 2048]
+BF16_TOL = (1e-2, 1e-2)   # phase 3's bf16 tolerance (rtol, atol)
+
+
+def _fit(n, **axes):
+    """``axes`` shrunk to ``n`` ranks: the last axis above 1 halves until
+    the sizes multiply to ``n`` (at one card every axis is 1)."""
+    axes = dict(axes)
+    while math.prod(axes.values()) > n:
+        last = [a for a, s in axes.items() if s > 1][-1]
+        axes[last] //= 2
+    if math.prod(axes.values()) != n:
+        raise ValueError(f"{axes} do not fit {n} ranks")
+    return axes
+
+
+def _rows(seed, rows, dp_index=0, dp=1):
+    """``rows`` token rows of ``MAIN_SEQ`` for dp replica ``dp_index`` of
+    ``dp``, from one ``RandomState(seed)`` batch (and that batch)."""
+    import numpy as np
+    import torch
+
+    whole = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, VOCAB, (rows * dp, MAIN_SEQ)))
+    return whole[dp_index * rows:(dp_index + 1) * rows], whole
+
+
+def _tf32_off():
+    import torch
+
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return old
+
+
+def _tf32_restore(old):
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def groups_on_card():
+    """Phase 10 (a), groups: the world's two halves as two groups
+    (``new_group``), each rank allreducing integer-valued fp32 tensors
+    in its half, four at once: every sum bitwise the expected one, and
+    ``max_concurrent_groups`` >= 2 (the two groups in flight at once;
+    >= 1 at one card).  -> the numbers."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import groups
+
+    r, n = hvd.rank(), hvd.size()
+    halves = [list(range(n // 2)), list(range(n // 2, n))] if n > 1 \
+        else [[0]]
+    made = [hvd.new_group(h) for h in halves]
+    mine = next(g for g in made if r in g.ranks)
+    base = torch.arange(1 << 22, device=hvd.device(),
+                        dtype=torch.float32) % 1000
+    handles = [hvd.allreduce_async(base + 7 * r + i, op=hvd.Sum,
+                                   name=f"mp.groups.{i}", group=mine)
+               for i in range(4)]
+    for i, h in enumerate(handles):
+        got = hvd.synchronize(h)
+        want = sum(base + 7 * q + i for q in mine.ranks)
+        if not torch.equal(got, want):
+            raise AssertionError(f"group allreduce {i} on {mine.ranks}: "
+                                 f"max abs err {max_err(got, want):.3e}")
+    conc = groups.stats()["max_concurrent_groups"]
+    if conc < len(made):
+        raise AssertionError(f"groups: max_concurrent_groups {conc}, "
+                             f"expected >= {len(made)}")
+    return {"group_ranks": mine.ranks, "max_concurrent_groups": conc}
+
+
+def zero_on_grid(layers=2, steps=3):
+    """Phase 10 (a), ZeRO over the dp group of ``hvd.grid(dp=2, tp=2)``:
+    the main path's model at ``layers``, both tp columns of a dp row fed
+    the same rows; ``steps`` steps of ``ZeroDistributedOptimizer(AdamW,
+    group=dp)``.  The parameters must end bitwise the same in both
+    columns, and within rtol 1e-5 (atol 1e-6) of AdamW on this card over
+    the dp rows' mean gradient.  -> the numbers."""
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import groups
+    from horovod_tpu_torch.models import Transformer, lm_loss
+
+    r, n = hvd.rank(), hvd.size()
+    axes = _fit(n, dp=2, tp=2)
+    grd = hvd.grid(**axes)
+    dp_g, tp_g = grd.group("dp"), grd.group("tp")
+    dpc = grd.coords(r)[0]
+    tok = _rows(800, MP_PARITY_BATCH, dpc, axes["dp"])[0].to(hvd.device())
+    model = Transformer(main_config(layers), seed=0)
+    ref = [p.detach().clone().requires_grad_() for p in model.parameters()]
+    ref_opt = torch.optim.AdamW(ref, lr=1e-4, weight_decay=1e-4)
+    opt = hvd.ZeroDistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        group=dp_g)
+    for _ in range(steps):
+        opt.zero_grad()
+        lm_loss(model(tok), tok).backward()
+        mean = hvd.allreduce_gradients([p.grad for p in model.parameters()],
+                                       group=dp_g)
+        for p, g in zip(ref, mean):
+            p.grad = g
+        ref_opt.step()
+        opt.step()
+    flat = _flat_params(model)
+    assert_close("ZeRO over the dp group against AdamW on one card", flat,
+                 torch.cat([p.detach().reshape(-1) for p in ref]), 1e-5,
+                 1e-6)
+    cols = flat.new_empty((tp_g.size * flat.numel(),))
+    _drain()
+    dist.all_gather_into_tensor(cols, flat, group=groups.torch_group(tp_g))
+    if not all(torch.equal(c, flat) for c in cols.chunk(tp_g.size)):
+        raise AssertionError("ZeRO over the dp group: the tp columns' "
+                             "parameters differ")
+    return {"zero_axes": axes, "zero_shard": opt.shard.numel(),
+            "zero_params": flat.numel(),
+            "zero_max_err": max_err(flat, torch.cat(
+                [p.detach().reshape(-1) for p in ref]))}
+
+
+def _lm_steps(model, opt, tokens, steps, aux_weight=None):
+    """``steps`` training steps, each timed on the host clock with the
+    card synchronised around it; -> (losses, seconds)."""
+    import torch
+
+    from horovod_tpu_torch.models import apply_with_aux, lm_loss
+
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        if aux_weight is None:
+            loss = lm_loss(model(tokens), tokens)
+        else:
+            logits, aux = apply_with_aux(model, tokens)
+            loss = lm_loss(logits, tokens) + aux_weight * aux
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return losses, times
+
+
+def _grad_parity(what, model, mesh, whole, dp_g, loss, want):
+    """``model``'s gradients (this rank's blocks) averaged over ``dp_g``
+    and its loss averaged over dp, against ``whole``'s on one card: loss
+    rtol 1e-5, gradients rtol 1e-3 atol 1e-5 (phase 9's).  -> the largest
+    gradient error."""
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import groups
+    from horovod_tpu_torch.parallel.tensor_parallel import (params_shardings,
+                                                            shard_tensor)
+
+    grads = hvd.allreduce_gradients(
+        {k: p.grad for k, p in model.named_parameters()}, group=dp_g)
+    loss = loss.detach().clone()
+    _drain()
+    dist.all_reduce(loss, group=groups.torch_group(dp_g))
+    loss = loss / dp_g.size
+    assert_close(f"{what} loss", loss, want.detach(), 1e-5, 1e-5)
+    shardings = params_shardings(whole, mesh)
+    worst = 0.0
+    for k, p in whole.named_parameters():
+        block = shard_tensor(p.grad, shardings[k])
+        assert_close(f"{what} grad {k}", grads[k], block, 1e-3, 1e-5)
+        worst = max(worst, max_err(grads[k], block))
+    return worst
+
+
+def tp_run(axes, layers, profile=False):
+    """Phase 10 (b), one grid: the main path's transformer split over
+    ``tp`` (``Transformer(..., mesh=hvd.grid(**axes))``), ``[8, 2048]``
+    tokens a dp replica, ``DistributedOptimizer(AdamW, group=dp)``,
+    ``MP_STEPS`` steps: the first loss within phase 3's bf16 tolerance of
+    the one-card model's on the same rows, the loss finite and falling,
+    each kernel launched as phase 5's step launches it.  Then the
+    two-layer fp32 check against one card.  With ``profile``, one more
+    step under ``torch.profiler`` (``chiprun_out/profile_tp<tp>_rank<r>.txt``).
+    -> the numbers."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer, lm_loss
+    from horovod_tpu_torch.ops import cuda as kernels
+    from horovod_tpu_torch.parallel.mesh import as_mesh
+
+    r, dev = hvd.rank(), hvd.device()
+    grd = hvd.grid(**axes)
+    mesh, dp_g = as_mesh(grd), grd.group("dp")
+    dpc = mesh.coords(r)["dp"]
+    tok = _rows(900, MP_BATCH, dpc, axes["dp"])[0].to(dev)
+    with torch.no_grad():
+        whole = Transformer(main_config(layers), seed=0)
+        want = lm_loss(whole(tok), tok)
+        del whole
+    model = Transformer(main_config(layers), seed=0, mesh=grd)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(), group=dp_g)
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, times = _lm_steps(model, opt, tok, MP_STEPS)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches(f"tp {axes}", counts, per_step_launches(layers),
+                    MP_STEPS)
+    assert_close(f"tp {axes} first loss against one card",
+                 torch.tensor(losses[0]), want.float().cpu(), *BF16_TOL)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"tp {axes}: losses {losses}")
+    step = statistics.median(times[1:])
+    profiled = _profile(lambda: _lm_steps(model, opt, tok, 1),
+                        f"profile_tp{axes['tp']}_rank{r}.txt") \
+        if profile else None
+    del model, opt
+    _release()
+
+    old = _tf32_off()
+    try:
+        mine, every = _rows(901, MP_PARITY_BATCH, dpc, axes["dp"])
+        mine, every = mine.to(dev), every.to(dev)
+        cfg = main_config(2, dtype=torch.float32)
+        model = Transformer(cfg, seed=0, mesh=grd)
+        loss = lm_loss(model(mine), mine)
+        loss.backward()
+        whole = Transformer(cfg, seed=0)
+        want32 = lm_loss(whole(every), every)
+        want32.backward()
+        worst = _grad_parity(f"tp {axes} two layers fp32", model, mesh,
+                             whole, dp_g, loss, want32)
+    finally:
+        _tf32_restore(old)
+    del model, whole
+    _release()
+    n = hvd.size()
+    return {"axes": axes, "losses": losses, "step_s": times,
+            "step_ms": step * 1e3, "first_loss_one_card": float(want),
+            "tokens_per_s_per_gpu": axes["dp"] * MP_BATCH * MAIN_SEQ
+            / step / n, "peak": peak, "counts": counts,
+            "profiled_device_ms": profiled,
+            "parity_loss": float(want32), "parity_max_err": worst}
+
+
+def moe_run(layers, profile=False):
+    """Phase 10 (c): the main path's transformer with every second block
+    a switch-MoE block of ``N_EXPERTS`` experts (capacity factor 1.25,
+    groups of 4096 tokens, C = 640) on ``make_mesh({"dp": 2, "ep": 2})``
+    (each card holds ``N_EXPERTS / ep`` experts), ``[8, 2048]`` tokens a
+    dp replica, ``DistributedOptimizer(AdamW, group=dp)``, loss
+    ``lm_loss + 0.01 * aux``, ``MP_STEPS`` steps: finite and falling.
+    Each MoE block's tokens an expert and the share dropped at the last
+    step; then the two-layer fp32 check, the router's and the experts'
+    gradients included.  -> the numbers."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import (MoeMlp, Transformer,
+                                          apply_with_aux, lm_loss)
+    from horovod_tpu_torch.ops import cuda as kernels
+    from horovod_tpu_torch.parallel import make_mesh
+
+    r, n, dev = hvd.rank(), hvd.size(), hvd.device()
+    axes = _fit(n, dp=2, ep=2)
+    mesh = make_mesh(axes)
+    dp_g = mesh.group("dp")
+    dpc = mesh.coords(r)["dp"]
+    tok = _rows(1000, MP_BATCH, dpc, axes["dp"])[0].to(dev)
+    cfg = main_config(layers, moe_every=MOE_EVERY, n_experts=N_EXPERTS)
+    model = Transformer(cfg, seed=0, mesh=mesh)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(), group=dp_g)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, times = _lm_steps(model, opt, tok, MP_STEPS, AUX_WEIGHT)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches(f"MoE {axes}", counts, per_step_launches(layers),
+                    MP_STEPS)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"MoE {axes}: losses {losses}")
+    experts = {name: {"kept": m.stats["kept"].tolist(),
+                      "routed": m.stats["routed"].tolist(),
+                      "dropped_share": float(m.stats["dropped"])
+                      / m.stats["valid"]}
+               for name, m in model.named_modules() if isinstance(m, MoeMlp)}
+    step = statistics.median(times[1:])
+    profiled = _profile(lambda: _lm_steps(model, opt, tok, 1, AUX_WEIGHT),
+                        f"profile_moe_rank{r}.txt") if profile else None
+    del model, opt
+    _release()
+
+    old = _tf32_off()
+    try:
+        mine, every = _rows(1001, MP_PARITY_BATCH, dpc, axes["dp"])
+        mine, every = mine.to(dev), every.to(dev)
+        cfg = main_config(2, dtype=torch.float32, moe_every=MOE_EVERY,
+                          n_experts=N_EXPERTS)
+        model = Transformer(cfg, seed=0, mesh=mesh)
+        logits, aux = apply_with_aux(model, mine)
+        loss = lm_loss(logits, mine) + AUX_WEIGHT * aux
+        loss.backward()
+        whole = Transformer(cfg, seed=0)
+        logits, aux = apply_with_aux(whole, every)
+        want32 = lm_loss(logits, every) + AUX_WEIGHT * aux
+        want32.backward()
+        worst = _grad_parity(f"MoE {axes} two layers fp32", model, mesh,
+                             whole, dp_g, loss, want32)
+    finally:
+        _tf32_restore(old)
+    del model, whole
+    _release()
+    return {"axes": axes, "params_per_gpu": n_params, "losses": losses,
+            "step_s": times, "step_ms": step * 1e3,
+            "tokens_per_s_per_gpu": axes["dp"] * MP_BATCH * MAIN_SEQ
+            / step / n, "peak": peak, "counts": counts, "experts": experts,
+            "profiled_device_ms": profiled, "parity_max_err": worst}
+
+
+def _stage_fn(blocks, h):
+    for block in blocks:
+        h = block(h)
+    return h
+
+
+def _pipelined_lm(model, blocks, tokens, group=None):
+    """The LM with ``blocks`` in the pipeline over ``group`` (None: on
+    this card, microbatch after microbatch through the blocks in order):
+    embedding and head on every stage (their
+    inputs and outputs are the same there), the ``[M, T]`` batch as
+    ``M`` microbatches of ``[1, T]``.  -> (the loss, the blocks'
+    output)."""
+    import torch
+
+    from horovod_tpu_torch.models import lm_loss
+    from horovod_tpu_torch.parallel import pipeline_apply
+
+    m, t = tokens.shape
+    x = model.embed(tokens) + model.pos_embed(
+        torch.arange(t, device=tokens.device))
+    if group is None:   # the same microbatches, one after another
+        h = torch.cat([_stage_fn(blocks, x[i:i + 1]) for i in range(m)])
+    else:
+        h = pipeline_apply(_stage_fn, blocks, x[:, None], group=group)[:, 0]
+    logits = model.lm_head(model.ln_f(h).to(model.cfg.dtype))
+    return lm_loss(logits, tokens), h
+
+
+def pipeline_run(layers, profile=False):
+    """Phase 10 (d): the main path's 8 blocks as ``S = min(cards, 4)``
+    stages (``make_mesh({"pp": S})``), ``PIPE_MICRO`` microbatches of
+    ``[1, 2048]``.  First the LM in fp32 (TF32 off) with its blocks
+    pipelined, against the same LM with its blocks in order on this card:
+    the loss (rtol 1e-5) and the blocks' outputs (rtol 1e-4 atol 1e-5,
+    phase 4's), this stage's blocks' gradients and the embedding's and
+    head's (rtol 1e-3 atol 1e-5, phase 9's).  Then the bf16 LM with its
+    blocks pipelined, AdamW, ``MP_STEPS`` steps: finite and falling,
+    each kernel launched as ``layers / S`` blocks times ``M`` ticks
+    launch it, beside the one-card step of the same LM and the bubble
+    bound (M + S - 1) / M.  -> the numbers."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer
+    from horovod_tpu_torch.ops import cuda as kernels
+    from horovod_tpu_torch.parallel import make_mesh
+
+    n, dev = hvd.size(), hvd.device()
+    s = _fit(n, pp=4)["pp"]
+    mesh = make_mesh({"pp": s})
+    pp_g = mesh.group("pp")
+    idx, per, m = pp_g.rank(), layers // s, PIPE_MICRO
+    mine = range(idx * per, (idx + 1) * per)
+
+    tok = _rows(1200, m)[0].to(dev)
+    old = _tf32_off()
+    try:
+        cfg = main_config(layers, dtype=torch.float32)
+        model = Transformer(cfg, seed=0)
+        loss, out = _pipelined_lm(
+            model, [getattr(model, f"block_{i}") for i in mine], tok, pp_g)
+        loss.backward()
+        whole = Transformer(cfg, seed=0)
+        want, h = _pipelined_lm(
+            whole, [getattr(whole, f"block_{i}") for i in range(layers)],
+            tok)
+        want.backward()
+        assert_close("pipeline fp32 loss", loss, want, 1e-5, 1e-5)
+        assert_close("pipeline fp32 outputs", out, h, 1e-4, 1e-5)
+        worst = 0.0
+        grads = dict(whole.named_parameters())
+        for k, p in model.named_parameters():
+            if k.startswith("block_") and int(k.split(".")[0][6:]) \
+                    not in mine:
+                continue   # another stage's block
+            assert_close(f"pipeline fp32 grad {k}", p.grad, grads[k].grad,
+                         1e-3, 1e-5)
+            worst = max(worst, max_err(p.grad, grads[k].grad))
+        out_err = max_err(out, h)
+    finally:
+        _tf32_restore(old)
+    del model, whole, out, h, loss, want
+    _release()
+
+    model = Transformer(main_config(layers), seed=0)
+    blocks = [getattr(model, f"block_{i}") for i in mine]
+    params = [p for name, p in model.named_parameters()
+              if not name.startswith("block_")] + \
+        [p for b in blocks for p in b.parameters()]
+    opt = torch.optim.AdamW(params, lr=1e-4, weight_decay=1e-4)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, times = [], []
+
+    def pipe_step():
+        opt.zero_grad(set_to_none=True)
+        loss = _pipelined_lm(model, blocks, tok, pp_g)[0]
+        loss.backward()
+        opt.step()
+        return loss
+
+    for _ in range(MP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(pipe_step().item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches("pipeline", counts, per_step_launches(per * m),
+                    MP_STEPS)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"pipeline: losses {losses}")
+    step = statistics.median(times[1:])
+    profiled = _profile(pipe_step, f"profile_pp_rank{pp_g.rank()}.txt") \
+        if profile else None
+    del model, opt, blocks, params
+    _release()
+
+    whole = Transformer(main_config(layers), seed=0)
+    opt = torch.optim.AdamW(whole.parameters(), lr=1e-4, weight_decay=1e-4)
+    one = _lm_steps(whole, opt, tok, MP_STEPS)[1]
+    one_step = statistics.median(one[1:])
+    del whole, opt
+    _release()
+    bubble = (m + s - 1) / m
+    return {"stages": s, "blocks_per_stage": per, "micro": m,
+            "fp32_out_max_err": out_err, "fp32_grad_max_err": worst,
+            "losses": losses, "step_s": times, "step_ms": step * 1e3,
+            "one_card_step_ms": one_step * 1e3, "bubble_bound": bubble,
+            "ideal_step_ms": one_step * 1e3 / s * bubble,
+            "tokens_per_s_per_gpu": m * MAIN_SEQ / step / s, "peak": peak,
+            "counts": counts, "profiled_device_ms": profiled}
+
+
+def model_parallel_checks(layers, profile=False):
+    """Phase 10 on this rank, ``hvd.init()`` done; each part's wall
+    seconds kept.  ``profile``: one profiled step of each training run."""
+    import horovod_tpu_torch as hvd
+
+    n = hvd.size()
+    res = {"rank": hvd.rank(), "world": n, "wall_s": {}}
+    parts = [("groups", groups_on_card), ("zero", zero_on_grid),
+             ("tp_dp2", lambda: {"tp_dp2": tp_run(_fit(n, dp=2, tp=2),
+                                                  layers, profile)}),
+             ("tp_tp4", lambda: {"tp_tp4": tp_run(_fit(n, dp=1, tp=4),
+                                                  layers, profile)}),
+             ("moe", lambda: {"moe": moe_run(layers, profile)}),
+             ("pipeline", lambda: {"pipeline": pipeline_run(layers,
+                                                            profile)})]
+    for name, part in parts:
+        print(f"model parallel rank {res['rank']}: {name}", flush=True)
+        t0 = time.perf_counter()
+        res.update(part())
+        _release()
+        res["wall_s"][name] = time.perf_counter() - t0
+    return res
+
+
+def model_parallel_phase(smi, profile=False):
+    """Phase 10: :func:`model_parallel_checks` at ``min(cards, 4)``
+    ranks.  -> the ranks' results."""
+    results = in_ranks("model", LAYERS, profile)
+    for res in results:
+        n = res["world"]
+        head = f"model parallel rank {res['rank']} of {n}"
+        if n == 1:
+            print(f"{head}: one card: tp, ep and pp have size 1 (the "
+                  f"single-rank path of each)", flush=True)
+        print(f"{head}: groups {res['group_ranks']} exact, "
+              f"max_concurrent_groups {res['max_concurrent_groups']}; ZeRO "
+              f"over dp of {res['zero_axes']}: {res['zero_params']} "
+              f"parameters, max abs err against AdamW on one card "
+              f"{res['zero_max_err']:.3e}, tp columns bitwise equal",
+              flush=True)
+        for key in ("tp_dp2", "tp_tp4"):
+            tp = res[key]
+            print(f"{head}: tp {tp['axes']}: losses "
+                  f"{[round(x, 4) for x in tp['losses']]} (one card "
+                  f"{tp['first_loss_one_card']:.4f}), step "
+                  f"{tp['step_ms']:.2f} ms (s {[round(x, 4) for x in tp['step_s']]}), "
+                  f"{tp['tokens_per_s_per_gpu']:.1f} tokens/s per GPU, peak "
+                  f"{tp['peak'] / 2**30:.2f} GiB; two layers fp32 max abs "
+                  f"gradient err {tp['parity_max_err']:.3e}; launches "
+                  f"{tp['counts']} on {smi}", flush=True)
+        moe = res["moe"]
+        print(f"{head}: MoE {moe['axes']} ({moe['params_per_gpu']} "
+              f"parameters a GPU): losses "
+              f"{[round(x, 4) for x in moe['losses']]}, step "
+              f"{moe['step_ms']:.2f} ms, {moe['tokens_per_s_per_gpu']:.1f} "
+              f"tokens/s per GPU, peak {moe['peak'] / 2**30:.2f} GiB; two "
+              f"layers fp32 max abs gradient err "
+              f"{moe['parity_max_err']:.3e}; launches {moe['counts']} on "
+              f"{smi}", flush=True)
+        for name, e in moe["experts"].items():
+            print(f"{head}: MoE {name}: tokens kept an expert {e['kept']}, "
+                  f"routed {e['routed']}, dropped "
+                  f"{100 * e['dropped_share']:.2f}%", flush=True)
+        pp = res["pipeline"]
+        print(f"{head}: pipeline {pp['stages']} stages x "
+              f"{pp['blocks_per_stage']} blocks, {pp['micro']} microbatches: "
+              f"fp32 max abs err out {pp['fp32_out_max_err']:.3e}, grads "
+              f"{pp['fp32_grad_max_err']:.3e}; bf16 losses "
+              f"{[round(x, 4) for x in pp['losses']]}, step "
+              f"{pp['step_ms']:.2f} ms against one card's "
+              f"{pp['one_card_step_ms']:.2f} ms / {pp['stages']} x bubble "
+              f"bound {pp['bubble_bound']:.3f} = {pp['ideal_step_ms']:.2f} "
+              f"ms, {pp['tokens_per_s_per_gpu']:.1f} tokens/s per GPU, peak "
+              f"{pp['peak'] / 2**30:.2f} GiB; launches {pp['counts']} on "
+              f"{smi}", flush=True)
+        profiled = {k: res[k]["profiled_device_ms"]
+                    for k in ("tp_dp2", "tp_tp4", "moe", "pipeline")}
+        if any(v is not None for v in profiled.values()):
+            print(f"{head}: profiled step device busy ms {profiled} "
+                  f"(profile_*_rank{res['rank']}.txt)", flush=True)
+        print(f"{head}: wall s "
+              f"{ {k: round(v, 2) for k, v in res['wall_s'].items()} }",
+              flush=True)
+    return results
+
+
 RANK_PHASES = {"eager": eager_checks, "zero": zero_checks,
-               "sequence": sequence_checks}
+               "sequence": sequence_checks, "model": model_parallel_checks}
 
 
 def _profile_step(model, opt, tokens):
@@ -2387,10 +3014,10 @@ def _out_dir():
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile one extra training step of phases 5, 7 "
-                    "and 9")
+                    help="profile one extra training step of phases 5, 7, "
+                    "9 and each run of 10")
     ap.add_argument("--rank-of", nargs=2, metavar=("PHASE", "LAYERS"),
-                    help=argparse.SUPPRESS)  # one rank of phase 6, 8 or 9
+                    help=argparse.SUPPRESS)  # one rank of phase 6, 8-10
     args = ap.parse_args(argv)
     if args.rank_of is not None:
         return _rank_of(args.rank_of[0], int(args.rank_of[1]), args.profile)
@@ -2416,20 +3043,37 @@ def main(argv=None):
     print(f"build: {path.name} in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
-    kernels = check_kernels()
-    check_small_model()
-    counts, run = train(LAYERS, STEPS, smi, args.profile)
+    def timed(phase, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        print(f"phase {phase}: {time.perf_counter() - t0:.1f} s wall",
+              flush=True)
+        return out
+
+    kernels = timed(3, check_kernels)
+    timed(4, check_small_model)
+    counts, run = timed(5, train, LAYERS, STEPS, smi, args.profile)
     for k in kernels:
         k["launches"] = counts[k["name"]]
-    eager = eager_phase(smi, LAYERS)
-    cnn = cnn_phase(smi, args.profile)
-    zero = zero_phase(smi)
-    sequence = sequence_phase(smi, args.profile)
+    eager = timed(6, eager_phase, smi, LAYERS)
+    cnn = timed(7, cnn_phase, smi, args.profile)
+    zero = timed(8, zero_phase, smi)
+    sequence = timed(9, sequence_phase, smi, args.profile)
+    model = timed(10, model_parallel_phase, smi, args.profile)
+    paths = {"tp": model[0]["tp_dp2"]["counts"],
+             "moe": model[0]["moe"]["counts"],
+             "pp": model[0]["pipeline"]["counts"]}
+    for k in kernels:
+        k["launches_by_path"] = {"phase5": k["launches"], **{
+            f"phase10_{path}": c[k["name"]] for path, c in paths.items()}}
+        if not all(k["launches_by_path"].values()):
+            raise AssertionError(f"{k['name']}: not launched on every "
+                                 f"path: {k['launches_by_path']}")
 
     with open(os.path.join(_out_dir(), "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": kernels, "train": run,
                    "eager": eager, "cnn": cnn, "zero": zero,
-                   "sequence": sequence}, f, indent=1)
+                   "sequence": sequence, "model": model}, f, indent=1)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,8 +6,9 @@ kernels for the H100 (``horovod_tpu_torch/csrc``), and Horovod's eager
 collective plane: named async collectives negotiated across ranks, fused
 and run on NCCL (``mpi_ops``, Horovod's torch surface with integer
 handles, over ``ops/eager.py`` and ``ops/controller.py``); ZeRO-1
-(``sharding``) and sequence parallelism (``parallel``: ring, zigzag and
-Ulysses attention).
+(``sharding``); process groups (``new_group``, ``grid``); and model
+parallelism (``parallel``: the mesh, ring, zigzag and Ulysses attention,
+tensor parallelism, the pipeline and the switch MoE).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 
     import horovod_tpu_torch as hvd
@@ -34,6 +35,13 @@ from horovod_tpu_torch.common.basics import (  # noqa: F401
 from horovod_tpu_torch.common.compression import Compression  # noqa: F401
 from horovod_tpu_torch.common.handles import HvdError  # noqa: F401
 from horovod_tpu_torch.common.objects import broadcast_object  # noqa: F401
+from horovod_tpu_torch.groups import (  # noqa: F401
+    Grid,
+    GroupUnsatisfiableError,
+    ProcessGroup,
+    grid,
+    new_group,
+)
 from horovod_tpu_torch.common.ops_enum import (  # noqa: F401
     Adasum,
     Average,

@@ -33,18 +33,33 @@ what this rank submitted before each of its collectives
 (``Controller.drain``).  ``shutdown`` stops the plane (a negotiated step:
 every rank calls it) before it destroys the groups.
 
-One more group, made last, carries the sequence axis of
-``horovod_tpu_torch.parallel`` (ring, zigzag and Ulysses attention), the
-world until process groups are ported: its point-to-point transfers run
-inside the backward pass, where ``DistributedOptimizer``'s hooks start
-their allreduces on the default group, and a causal ring builds a
-different graph on every rank.  On one communicator the two could be
-launched in different orders on different ranks, and NCCL would
-deadlock.  On two, every rank launches each communicator's operations
-in the same order, but the two may still interleave differently from
-rank to rank, and NCCL does not promise progress then; they run on
-streams of their own, and ``chip_smoke.py`` phase 9's causal-ring
-training on four cards is what shows them finishing (see
+``HVD_TPU_EXECUTOR`` (``psum``, the default, or ``mesh``) picks the
+plane's executor: ``mesh`` runs it over a mesh's ``dp`` axis
+(``sharding/mesh_executor.py``); any other value raises.
+
+Process groups (``horovod_tpu_torch.groups``) add communicators: each
+group is two ``torch.distributed`` groups over its ranks, one for the
+eager plane's cycle thread and one for the collectives the caller's
+thread issues.  So beside the default group (``DistributedOptimizer``)
+and the plane's, every axis of a grid has communicators of its own: the
+sequence axis ``sp`` of ring, zigzag and Ulysses attention (a one-axis
+grid over the world, made last in ``init``, unless the caller passes a
+mesh's ``sp`` group), the tensor axis ``tp`` (the Megatron allreduces of
+``parallel/tensor_parallel.py``), the expert axis ``ep``
+(``parallel/moe.py``), the pipeline axis ``pp`` (the hops of
+``parallel/pipeline.py``) and the data axis ``dp`` of
+``DistributedOptimizer(group=)``.  Their collectives run inside the
+forward and backward passes, where ``DistributedOptimizer``'s hooks start
+their allreduces; a causal ring or a pipeline stage builds a different
+graph on every rank.  On one communicator the two could be launched in
+different orders on different ranks, and NCCL would deadlock.  On
+communicators of their own (each with NCCL streams of its own), every
+rank launches each communicator's operations in the same order, but two
+communicators may still interleave differently from rank to rank, and
+NCCL does not promise progress then (ROADMAP C.9).  What shows them
+finishing is a run: ``chip_smoke.py`` phase 9's causal-ring training
+(``sp`` beside the default group) and phase 10's tp, ep and pp training
+under ``DistributedOptimizer(group=dp)`` on four cards (see
 ``parallel/_comm.py``).
 """
 
@@ -55,6 +70,7 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch import groups
 from horovod_tpu_torch.common.compression import resolve_compression
 from horovod_tpu_torch.ops.controller import Controller
 from horovod_tpu_torch.ops.nccl_executor import Executor
@@ -76,7 +92,9 @@ class _State:
     controller: object   # ops.controller.Controller, the eager plane
     compression: str     # the job's default (HVD_TPU_COMPRESSION)
     zero_min_size: int   # HVD_TPU_ZERO_MIN_SIZE
-    sequence_group: object  # the sequence axis (parallel/_comm.py)
+    # the default sequence axis (parallel/_comm.py): the ``sp`` group of
+    # a one-axis grid over the world, a groups.ProcessGroup
+    sequence_group: object = None
 
 
 def resolve_device(device=None):
@@ -107,6 +125,8 @@ def init(device=None, store_path=None, timeout=timedelta(seconds=300)):
         if not 0 <= rank < size:
             raise ValueError(f"HVD_RANK={rank} outside HVD_SIZE={size}")
         compression = default_compression()
+        executor = _validated_executor(env_util.get_str(
+            env_util.HVD_TPU_EXECUTOR, "psum"))
         zero_min_size = _validated_nonneg(env_util.HVD_TPU_ZERO_MIN_SIZE,
                                           env_util.DEFAULT_ZERO_MIN_SIZE)
         if device.type == "cuda":
@@ -133,10 +153,14 @@ def init(device=None, store_path=None, timeout=timedelta(seconds=300)):
                     f"{env_util.HVD_RENDEZVOUS_PORT}")
             dist.init_process_group(backend, store=store, rank=rank,
                                     world_size=size, timeout=timeout)
-        controller = _start_eager_plane(rank, size, device, backend)
+        groups.reset()
+        controller = _start_eager_plane(rank, size, device, backend,
+                                        executor)
         _state = _State(rank, size, local_rank, local_size, cross_rank,
                         cross_size, device, controller, compression,
-                        zero_min_size, dist.new_group(backend=backend))
+                        zero_min_size)
+        _state = dataclasses.replace(
+            _state, sequence_group=groups.grid(sp=size).group("sp"))
 
 
 def default_compression():
@@ -156,11 +180,24 @@ def _validated_nonneg(name, default):
     return value
 
 
-def _start_eager_plane(rank, size, device, backend):
+def _validated_executor(name):
+    """An ``HVD_TPU_EXECUTOR`` typo must not silently run the default
+    plane (reference: ``common/config.py:_validated_executor``)."""
+    if name not in ("psum", "mesh"):
+        raise ValueError(
+            f"HVD_TPU_EXECUTOR must be 'psum' or 'mesh', got {name!r}")
+    return name
+
+
+def _start_eager_plane(rank, size, device, backend, executor="psum"):
     meta = dist.new_group(backend="gloo")
     data = dist.new_group(backend=backend)
-    controller = Controller(rank, size, meta,
-                            Executor(data, rank, size, device))
+    if executor == "mesh":
+        from horovod_tpu_torch.sharding.mesh_executor import MeshExecutor
+        cls = MeshExecutor
+    else:
+        cls = Executor
+    controller = Controller(rank, size, meta, cls(data, rank, size, device))
     controller.start()
     return controller
 
@@ -171,9 +208,19 @@ def shutdown():
         if _state is None:
             return
         _state.controller.shutdown()
+        groups.reset()
         if dist.is_initialized():
             dist.destroy_process_group()
         _state = None
+
+
+def _new_torch_groups(ranks):
+    """Two ``torch.distributed`` groups over ``ranks`` on the default
+    group's backend, for a process group (``groups``): the caller's and
+    the eager plane's.  Every rank calls it, in the same order."""
+    backend = dist.get_backend()
+    return (dist.new_group(ranks, backend=backend),
+            dist.new_group(ranks, backend=backend))
 
 
 def is_initialized():

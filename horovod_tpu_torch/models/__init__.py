@@ -12,8 +12,10 @@ from horovod_tpu_torch.models.resnet import (  # noqa: F401
     ResNet152,
 )
 from horovod_tpu_torch.models.transformer import (  # noqa: F401
+    MoeMlp,
     Transformer,
     TransformerConfig,
+    apply_with_aux,
     lm_loss,
 )
 from horovod_tpu_torch.models.vgg import VGG, VGG16, VGG19  # noqa: F401
@@ -40,7 +42,7 @@ def _is_conv_kernel(name, value):
             and len(parts) > 1 and parts[-2].lower().startswith("conv"))
 
 
-def params_from_flax(tree, batch_stats=None):
+def params_from_flax(tree, batch_stats=None, mesh=None):
     """The JAX package's ``params`` pytree (nested dicts of numpy arrays),
     and a CNN's ``batch_stats``, -> a ``state_dict`` for the port's model
     of the same config.
@@ -52,7 +54,8 @@ def params_from_flax(tree, batch_stats=None):
     ``qkv`` kernel ``(d_model, 3, h, d)`` too); convolution kernels go
     from flax's HWIO to torch's OIHW; the ``batch_stats``' ``mean`` and
     ``var`` become the BatchNorm buffers of those names.  Every tensor
-    comes out fp32."""
+    comes out fp32.  With ``mesh`` (the transformer's ``mesh=``), each
+    parameter is this rank's block (``parallel.tensor_parallel.shard_params``)."""
     flat = flatten_tree(tree)
     out = {}
     for name, value in flat.items():
@@ -62,4 +65,7 @@ def params_from_flax(tree, batch_stats=None):
         out[name] = torch.from_numpy(value)
     for name, value in flatten_tree(batch_stats or {}).items():
         out[name] = torch.from_numpy(np.array(value, dtype=np.float32))
+    if mesh is not None:
+        from horovod_tpu_torch.parallel.tensor_parallel import shard_params
+        out = shard_params(out, mesh)
     return out

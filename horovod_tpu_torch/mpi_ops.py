@@ -20,9 +20,10 @@ it into the input on that stream.
 the in-place forms take it too, which the reference's do not;
 ``"none"``, ``"bf16"``, ``"fp16"``, ``"int8"`` or a :class:`Compression`
 member) is the format on the wire of a reduction: a cast, or
-block-scaled int8 (``common/compression.py``).  Not in this slice, and
-refused rather than ignored: ``group=`` (process groups, ROADMAP A.10)
-and ``op=Adasum`` (A.11).
+block-scaled int8 (``common/compression.py``).  ``group=`` (a
+``ProcessGroup`` from ``hvd.new_group``/``hvd.grid``) runs a collective
+over the group's members alone (``ops/eager.py``).  Not in this slice,
+and refused rather than ignored: ``op=Adasum`` (ROADMAP A.11).
 """
 
 import time

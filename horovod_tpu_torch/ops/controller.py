@@ -25,6 +25,22 @@ rank's cycle thread
    collectives in that order on the data plane
    (:class:`~horovod_tpu_torch.ops.nccl_executor.Executor`).
 
+Process groups (``horovod_tpu_torch.groups``): a request's group id is
+part of its signature, and the table, the response cache and the
+duplicate check are keyed by (group id, name), so the same name in two
+groups is two negotiations; the group id is in ``allreduce_bucket_key``,
+so two groups' tensors never fuse.  A group's name is ready when every
+member has submitted it (joins are the world's: a group takes no zeros
+for a joined rank).  The members travel in the signature, so every rank
+decides readiness from the gathered data alone, also a rank that has not
+made the group yet (ranks make groups at different times), and the
+response cache stays the same on every rank.  Every rank absorbs every group's entries, since the
+exchange is over the world, but only members run them: on an executor of
+the group's own, over the group's eager-plane communicator and a stream
+of its own, so that disjoint groups' collectives are in flight at once.
+Each cycle records the number of distinct groups with entries open
+(``groups.note_inflight``).
+
 Since every rank computes the same responses from the same data, no rank
 coordinates the others.  A rank that has joined contributes zeros to the
 allreduces of the others; ``join`` completes, with the last rank to join,
@@ -64,11 +80,12 @@ import typing
 
 import torch
 
+from horovod_tpu_torch import groups
 from horovod_tpu_torch.common.fusion import plan_buckets
 from horovod_tpu_torch.common.handles import Handle
 from horovod_tpu_torch.common.ops_enum import ReduceOp, RequestType
 from horovod_tpu_torch.common.response_cache import SignatureCache
-from horovod_tpu_torch.ops.nccl_executor import all_gather_into
+from horovod_tpu_torch.ops.nccl_executor import Executor, all_gather_into
 from horovod_tpu_torch.utils import env as env_util
 
 _log = logging.getLogger("horovod_tpu_torch")
@@ -96,6 +113,8 @@ class Signature(typing.NamedTuple):
     postscale_factor: float = 1.0
     splits: tuple = None
     compression: str = "none"
+    group: str = ""     # the process group's id; "" is the world
+    group_ranks: tuple = None   # its members, in group order
 
 
 @dataclasses.dataclass
@@ -180,9 +199,10 @@ def validate(name, sigs, *, size, joined):
 
 def allreduce_bucket_key(sig):
     """Allreduces fuse only with their like (reference:
-    ``python_controller.py:608``): dtype, op, scales and compression."""
+    ``python_controller.py:608``): dtype, op, scales, compression and
+    process group."""
     return (sig.dtype, int(sig.op), sig.prescale_factor,
-            sig.postscale_factor, sig.compression)
+            sig.postscale_factor, sig.compression, sig.group)
 
 
 class _Entry:
@@ -218,14 +238,15 @@ class Controller:
         # guarded by the lock
         self._queue = []
         self._in_flight = 0     # this rank's requests not yet issued
-        self._issued = False    # on the plane's stream since the last drain
+        self._issued = set()    # streams issued on since the last drain
         self._join_handle = None
         self._stopping = False
         self._running = False
         self._error = None
         # the cycle thread's own
-        self._local = {}        # name -> this rank's outstanding Request
-        self._table = collections.OrderedDict()   # name -> _Entry
+        self._local = {}        # (gid, name) -> this rank's Request
+        self._table = collections.OrderedDict()   # (gid, name) -> _Entry
+        self._group_executors = {}                # gid -> Executor
         self._joined = []       # ranks in the order they joined
         self._negotiation_s = collections.deque(maxlen=1000)
         self.cycles = 0         # cycles run, idle ones too
@@ -270,9 +291,8 @@ class Controller:
         docstring: the optimizer calls it before its own collectives."""
         with self._cond:
             self._drained.wait_for(lambda: self._in_flight == 0)
-            issued, self._issued = self._issued, False
-        stream = self._executor.stream
-        if issued and stream is not None:
+            issued, self._issued = self._issued, set()
+        for stream in issued:
             torch.cuda.current_stream(self._executor.device).wait_stream(
                 stream)
 
@@ -309,11 +329,12 @@ class Controller:
             pending, self._queue = self._queue, []
             return (pending, self._join_handle is not None, self._stopping)
 
-    def _settle(self, n, issued=False):
-        """``n`` of this rank's requests were issued (or failed)."""
+    def _settle(self, n, streams=()):
+        """``n`` of this rank's requests were issued (or failed), on
+        ``streams``."""
         with self._cond:
             self._in_flight -= n
-            self._issued = self._issued or issued
+            self._issued.update(s for s in streams if s is not None)
             if self._in_flight == 0:
                 self._drained.notify_all()
 
@@ -332,14 +353,15 @@ class Controller:
                 t0 = time.perf_counter()
                 new = []
                 for req in pending:
-                    if req.name in self._local:
+                    key = (req.sig.group, req.name)
+                    if key in self._local:
                         req.handle.set_error(
                             f"duplicate request for tensor '{req.name}' from "
                             f"rank {self.rank} before previous one completed")
                         self._settle(1)
                         continue
-                    self._local[req.name] = req
-                    cache_id = self._cache.id_of(req.name, req.sig)
+                    self._local[key] = req
+                    cache_id = self._cache.id_of(key, req.sig)
                     new.append((req.name, req.sig) if cache_id is None
                                else cache_id)
                 mine = (new, joining, stopping)
@@ -405,33 +427,37 @@ class Controller:
             for item in new:
                 # a cache id is read back before anything below changes
                 # the cache: every rank's copy is still the sender's
-                name, sig = (self._cache.entry(item) if isinstance(item, int)
-                             else item)
-                entry = self._table.get(name)
+                if isinstance(item, int):
+                    key, sig = self._cache.entry(item)
+                else:
+                    name, sig = item
+                    key = (sig.group, name)
+                entry = self._table.get(key)
                 if entry is None:
-                    entry = self._table[name] = _Entry()
+                    entry = self._table[key] = _Entry()
                 entry.sigs[r] = sig
+        if self._table:
+            groups.note_inflight(gid for gid, _ in self._table)
         if self._stall_s is not None:
             self._check_stalls()
         joined = set(self._joined)
-        needed = set(range(self.size)) - joined
-        ready = [name for name, e in self._table.items()
-                 if needed.issubset(e.sigs)]
+        world = set(range(self.size)) - joined
+        ready = [key for key, e in self._table.items()
+                 if self._needed(e, world).issubset(e.sigs)]
         responses = []
-        for name in ready:
-            entry = self._table.pop(name)
-            if joined or not self._cache.check(name, entry.sigs.values()):
-                error = validate(name, entry.sigs, size=self.size,
-                                 joined=bool(joined))
+        for key in ready:
+            entry = self._table.pop(key)
+            if joined or not self._cache.check(key, entry.sigs.values()):
+                error = self._validate(key, entry.sigs, joined)
                 if error is not None:
-                    req = self._local.pop(name, None)
+                    req = self._local.pop(key, None)
                     if req is not None:
                         req.handle.set_error(error)
                         self._settle(1)
                     continue
                 if not joined:
-                    self._cache.store(name, entry.sigs.values())
-            responses.append((name, entry.sigs))
+                    self._cache.store(key, entry.sigs.values())
+            responses.append((key, entry.sigs))
         self._negotiation_s.append(time.perf_counter() - t0)
         self._dispatch(responses, joined)
         if len(joined) == self.size and not self._table:
@@ -442,14 +468,35 @@ class Controller:
             if handle is not None:
                 handle.set_result(last)
 
+    @staticmethod
+    def _needed(entry, world):
+        """The ranks whose submissions make a name ready: a group's
+        members, or the world's ranks that have not joined."""
+        granks = next(iter(entry.sigs.values())).group_ranks
+        return world if granks is None else set(granks)
+
+    def _validate(self, key, sigs, joined):
+        gid, name = key
+        if not gid:
+            return validate(name, sigs, size=self.size, joined=bool(joined))
+        sig = next(iter(sigs.values()))
+        granks = sig.group_ranks
+        error = validate(name, sigs, size=len(granks), joined=False)
+        root = sig.root_rank
+        if error is None and sig.req_type == RequestType.BROADCAST \
+                and root not in granks:
+            error = (f"broadcast '{name}': root rank {root} is not a member "
+                     f"of the process group (ranks {list(granks)})")
+        return error
+
     def _check_stalls(self):
         now = time.monotonic()
-        for name, entry in self._table.items():
+        world = set(range(self.size)) - set(self._joined)
+        for (_, name), entry in self._table.items():
             if entry.stall_warned or now - entry.first_ts <= self._stall_s:
                 continue
             ready = sorted(entry.sigs)
-            missing = sorted(set(range(self.size)) - set(ready)
-                             - set(self._joined))
+            missing = sorted(self._needed(entry, world) - set(ready))
             _log.warning(
                 "One or more tensors were submitted to be reduced, gathered "
                 "or broadcasted by subset of ranks and are waiting for "
@@ -474,13 +521,18 @@ class Controller:
         # the handles complete together once every collective of the
         # cycle is issued: a caller woken per bucket would contend with
         # this thread for the interpreter lock until it blocks again
-        done, mine = [], 0
+        done, mine, streams = [], 0, set()
         for bucket in plan_buckets(responses, key_fn=key, nbytes_fn=nbytes,
                                    threshold=self._threshold):
-            reqs = [self._local.pop(name, None) for name, _ in bucket]
+            sig = _agreed(bucket[0][1])
+            if sig.group and self.rank not in sig.group_ranks:
+                continue   # another group's collective
+            reqs = [self._local.pop(k, None) for k, _ in bucket]
             mine += sum(req is not None for req in reqs)
+            ex = self._executor_for(sig)
+            streams.add(ex.stream)
             try:
-                done += self._execute(bucket, reqs)
+                done += self._execute(ex, bucket, reqs)
             except Exception as exc:  # noqa: BLE001 — surfaced on handles
                 _log.exception("horovod_tpu_torch: collective failed")
                 for req in reqs:
@@ -490,13 +542,26 @@ class Controller:
         for req, out, event in done:
             req.handle.set_result(out, event)
         if mine:
-            self._settle(mine, issued=True)
+            self._settle(mine, streams)
 
-    def _execute(self, bucket, reqs):
-        """Issue one bucket's collective; -> (request, result, event) of
-        each of this rank's requests in it."""
-        ex = self._executor
+    def _executor_for(self, sig):
+        """The world's executor, or the group's own (made at its first
+        collective)."""
+        if not sig.group:
+            return self._executor
+        ex = self._group_executors.get(sig.group)
+        if ex is None:
+            granks = list(sig.group_ranks)
+            ex = self._group_executors[sig.group] = Executor(
+                groups.plane_group(sig.group), granks.index(self.rank),
+                len(granks), self._executor.device)
+        return ex
+
+    def _execute(self, ex, bucket, reqs):
+        """Issue one bucket's collective on ``ex``; -> (request, result,
+        event) of each of this rank's requests in it."""
         sig = _agreed(bucket[0][1])
+        order = sig.group_ranks or range(self.size)
         with ex.run(reqs) as run:
             if sig.req_type == RequestType.ALLREDUCE:
                 shapes = [_agreed(sigs).shape for _, sigs in bucket]
@@ -511,13 +576,11 @@ class Controller:
                 (name, sigs), req = bucket[0], reqs[0]
                 t = req.tensor
                 if sig.req_type == RequestType.ALLGATHER:
-                    out = ex.allgather(t, [sigs[r].shape[0]
-                                           for r in range(self.size)])
+                    out = ex.allgather(t, [sigs[r].shape[0] for r in order])
                 elif sig.req_type == RequestType.BROADCAST:
                     out = ex.broadcast(t, sig.root_rank)
                 elif sig.req_type == RequestType.ALLTOALL:
-                    out = ex.alltoall(t, [sigs[r].splits
-                                          for r in range(self.size)])
+                    out = ex.alltoall(t, [sigs[r].splits for r in order])
                 else:
                     out = ex.reduce_scatter(
                         t, sig.op, sig.prescale_factor, sig.postscale_factor,

@@ -17,14 +17,18 @@ stream before the submit, so a tensor that kernels are still writing is
 read once they are done; :func:`wait` makes the caller's current stream
 wait for the result.
 
-Not in this slice, and refused rather than ignored: ``group=`` (process
-groups, ROADMAP A.10) and ``op=Adasum`` (A.11).
+``group=`` (a ``ProcessGroup`` from ``hvd.new_group``/``hvd.grid``) scopes
+a collective to the group's members: only they call it, ranks are
+global (a broadcast's root too), and an Average divides by the group's
+size; a non-member's call raises.  Not in this slice, and refused rather
+than ignored: ``op=Adasum`` (ROADMAP A.11).
 """
 
 import threading
 
 import torch
 
+from horovod_tpu_torch import groups
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.compression import resolve_compression
 from horovod_tpu_torch.common.handles import Handle
@@ -60,10 +64,18 @@ def _resolve_op(op, average):
     return op
 
 
-def _check_group(group):
-    if group is not None:
-        raise NotImplementedError(
-            "process groups (group=) are not ported yet (ROADMAP A.10)")
+def _group(group, name):
+    """(the group's id, its ranks); ("", None) for the world.  A
+    non-member's collective could never complete, so it raises here
+    (reference: ``horovod_tpu/ops/eager.py:59-75``)."""
+    gid, granks = groups.resolve(group)
+    if gid:
+        me = basics.rank()
+        if me not in granks:
+            raise ValueError(
+                f"collective '{name}': rank {me} is not a member of "
+                f"process group {group.name!r} (ranks {list(granks)})")
+    return gid, granks
 
 
 def _ready_event(device):
@@ -78,7 +90,7 @@ def _ready_event(device):
 
 def _request(req_type, tensor, name, *, op=Sum, root_rank=-1,
              prescale_factor=1.0, postscale_factor=1.0, splits=None,
-             compression=None, ready=None):
+             compression=None, ready=None, group=("", None)):
     """``ready``: the event of a grouped submission, shared by its
     members; else one is recorded for this tensor."""
     state = basics._get_state()
@@ -96,7 +108,8 @@ def _request(req_type, tensor, name, *, op=Sum, root_rank=-1,
         postscale_factor=float(postscale_factor),
         splits=None if splits is None else tuple(int(s) for s in splits),
         compression=resolve_compression(compression,
-                                        default=state.compression))
+                                        default=state.compression),
+        group=group[0], group_ranks=group[1])
     req = Request(sig=sig, name=name, tensor=tensor, handle=Handle(name))
     if tensor.device.type == "cuda":
         req.stream = torch.cuda.current_stream(tensor.device)
@@ -117,12 +130,12 @@ def allreduce_async(tensor, average=None, name=None, op=None,
     ``HVD_TPU_COMPRESSION``), ``"none"``, ``"bf16"``, ``"fp16"``,
     ``"int8"`` or a :class:`horovod_tpu_torch.Compression` member: the
     format on the wire of this allreduce."""
-    _check_group(group)
     op = _resolve_op(op, average)
+    name = name or _auto_name("allreduce")
     return _submit([_request(
-        RequestType.ALLREDUCE, tensor, name or _auto_name("allreduce"),
-        op=op, prescale_factor=prescale_factor,
-        postscale_factor=postscale_factor, compression=compression)])[0]
+        RequestType.ALLREDUCE, tensor, name, op=op,
+        prescale_factor=prescale_factor, postscale_factor=postscale_factor,
+        compression=compression, group=_group(group, name))])[0]
 
 
 def grouped_allreduce_async(tensors, average=None, name=None, op=None,
@@ -130,14 +143,14 @@ def grouped_allreduce_async(tensors, average=None, name=None, op=None,
                             compression=None, group=None):
     """Submit the tensors in one cycle, as ``{name}.{i}``, so that fusion
     batches them; -> one handle each."""
-    _check_group(group)
     op = _resolve_op(op, average)
     base = name or _auto_name("grouped_allreduce")
+    gid = _group(group, base)
     ready = _ready_event(basics.device())
     return _submit([_request(
         RequestType.ALLREDUCE, t, f"{base}.{i}", op=op,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor,
-        compression=compression, ready=ready)
+        compression=compression, ready=ready, group=gid)
         for i, t in enumerate(tensors)])
 
 
@@ -149,59 +162,59 @@ def reduce_scatter_async(tensor, op=None, average=None, name=None,
     dimension: rank ``r`` receives rows ``split_sizes[r]`` of the reduced
     tensor (np.array_split partition: the first ``dim0 % size`` ranks get
     one extra row)."""
-    _check_group(group)
     op = _resolve_op(op, average)
+    name = name or _auto_name("reduce_scatter")
     return _submit([_request(
-        RequestType.REDUCE_SCATTER, tensor,
-        name or _auto_name("reduce_scatter"), op=op,
+        RequestType.REDUCE_SCATTER, tensor, name, op=op,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor,
-        compression=compression)])[0]
+        compression=compression, group=_group(group, name))])[0]
 
 
 # ------------------------------------------------------------- allgather
 def allgather_async(tensor, name=None, group=None) -> Handle:
     """Concatenation along dim 0 of every rank's tensor; the first
     dimension may differ from rank to rank."""
-    _check_group(group)
-    return _submit([_request(RequestType.ALLGATHER, tensor,
-                             name or _auto_name("allgather"))])[0]
+    name = name or _auto_name("allgather")
+    return _submit([_request(RequestType.ALLGATHER, tensor, name,
+                             group=_group(group, name))])[0]
 
 
 def grouped_allgather_async(tensors, name=None, group=None):
     """Submit the allgathers in one cycle, as ``{name}.{i}``; -> one
     handle each."""
-    _check_group(group)
     base = name or _auto_name("grouped_allgather")
+    gid = _group(group, base)
     ready = _ready_event(basics.device())
     return _submit([
-        _request(RequestType.ALLGATHER, t, f"{base}.{i}", ready=ready)
+        _request(RequestType.ALLGATHER, t, f"{base}.{i}", ready=ready,
+                 group=gid)
         for i, t in enumerate(tensors)])
 
 
 # ------------------------------------------------------------- broadcast
 def broadcast_async(tensor, root_rank, name=None, group=None) -> Handle:
-    _check_group(group)
-    return _submit([_request(RequestType.BROADCAST, tensor,
-                             name or _auto_name("broadcast"),
-                             root_rank=int(root_rank))])[0]
+    name = name or _auto_name("broadcast")
+    return _submit([_request(RequestType.BROADCAST, tensor, name,
+                             root_rank=int(root_rank),
+                             group=_group(group, name))])[0]
 
 
 # -------------------------------------------------------------- alltoall
 def alltoall_async(tensor, splits=None, name=None, group=None) -> Handle:
     """``splits[i]`` rows of dim 0 go to rank i (equal parts by
     default); the handle's result is ``(received, received_splits)``."""
-    _check_group(group)
+    name = name or _auto_name("alltoall")
+    gid = _group(group, name)
     if splits is None:
-        n = basics.size()
+        n = len(gid[1]) if gid[0] else basics.size()
         dim0 = int(tensor.shape[0])
         if dim0 % n != 0:
             raise ValueError(
                 f"alltoall without explicit splits requires the first "
                 f"dimension ({dim0}) to be divisible by size ({n})")
         splits = [dim0 // n] * n
-    return _submit([_request(RequestType.ALLTOALL, tensor,
-                             name or _auto_name("alltoall"),
-                             splits=list(splits))])[0]
+    return _submit([_request(RequestType.ALLTOALL, tensor, name,
+                             splits=list(splits), group=gid)])[0]
 
 
 # ------------------------------------------------------------ completion

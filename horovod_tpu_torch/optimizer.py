@@ -27,6 +27,16 @@ the rank each chunk goes to are the per-gradient ones, so one
 per-gradient result bit for bit.  The average is taken after the fp32
 sum.  ``compression=None`` is the job's default (``HVD_TPU_COMPRESSION``).
 
+``group=`` (a ``ProcessGroup``, e.g. ``grid.group("dp")``) reduces over
+that group's members on its ``torch.distributed`` group
+(``groups.torch_group``) instead of the world.  It is no new feature of
+the optimizer but the port's counterpart of the ``psum`` over ``dp``
+that GSPMD inserts in the JAX package's tensor- and expert-parallel step
+(``examples/transformer_lm.py``): there the gradient of a tp or ep shard
+is summed over the ranks that hold the same shard, never over the tp or
+ep axis.  Averaged over the world instead, a tp rank would mix its shard
+with the other tp ranks' different shards.
+
 Every collective here first waits for the eager plane to issue what this
 rank submitted to it (:meth:`ops.controller.Controller.drain`): the two
 use different communicators, and NCCL can deadlock when ranks launch the
@@ -39,6 +49,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from horovod_tpu_torch import groups
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.compression import (
     Compression, accumulate_int8, compressor_for, int8_chunk, is_quantized,
@@ -72,17 +83,19 @@ def _quantizes(tensor, compression):
 def _check_op(op):
     op = ReduceOp(op)
     if op == Adasum:
-        raise NotImplementedError("Adasum is not ported yet")
+        raise NotImplementedError("Adasum is not ported yet (ROADMAP A.11)")
     return op
 
 
 class _Bucket:
-    """Tensors reduced as one flat buffer."""
+    """Tensors reduced as one flat buffer over ``group`` (a
+    ``torch.distributed`` group; None: the default group)."""
 
-    def __init__(self, tensors, op, compression):
+    def __init__(self, tensors, op, compression, group=None):
         self.tensors = tensors
         self.op = op
         self.compression = compression
+        self.group = group
         self.work = None
         self.flat = None
         self.ctxs = None
@@ -97,13 +110,13 @@ class _Bucket:
         self.flat = torch.cat(compressed)
         _after_eager_plane()
         self.work = dist.all_reduce(self.flat, op=dist.ReduceOp.SUM,
-                                    async_op=True)
+                                    group=self.group, async_op=True)
 
     def wait(self):
         """-> the reduced tensors, in the order and shapes given."""
         self.work.wait()
         if self.op == Average:
-            self.flat.div_(dist.get_world_size())
+            self.flat.div_(dist.get_world_size(self.group))
         out, offset = [], 0
         for t, ctx in zip(self.tensors, self.ctxs):
             piece = self.flat[offset:offset + t.numel()].view(t.shape)
@@ -119,10 +132,11 @@ class _QuantizedBucket:
     docstring): the ``all_to_all`` of the quantized contributions starts
     in :meth:`start`; :meth:`wait` accumulates, requantizes and gathers."""
 
-    def __init__(self, tensors, op):
+    def __init__(self, tensors, op, group=None):
         self.tensors = tensors
         self.op = op
-        self.n = dist.get_world_size()
+        self.group = group
+        self.n = dist.get_world_size(group)
         self.chunks = [int8_chunk(t.numel(), self.n) for t in tensors]
         self.works = self.recv = None
 
@@ -132,7 +146,8 @@ class _QuantizedBucket:
         q, s = quantize_int8_blocks(torch.cat(rows, dim=1))
         self.recv = (torch.empty_like(q), torch.empty_like(s))
         _after_eager_plane()
-        self.works = [dist.all_to_all_single(out, src, async_op=True)
+        self.works = [dist.all_to_all_single(out, src, group=self.group,
+                                             async_op=True)
                       for out, src in zip(self.recv, (q, s))]
 
     def wait(self):
@@ -140,7 +155,7 @@ class _QuantizedBucket:
             work.wait()
         red = accumulate_int8(*self.recv)
         _after_eager_plane()
-        full = quantized_all_gather(red).view(self.n, -1)
+        full = quantized_all_gather(red, self.group).view(self.n, -1)
         out, offset = [], 0
         for t, c in zip(self.tensors, self.chunks):
             red = full[:, offset:offset + c].reshape(-1)[:t.numel()]
@@ -152,12 +167,12 @@ class _QuantizedBucket:
         return out
 
 
-def _new_bucket(tensors, op, compression):
+def _new_bucket(tensors, op, compression, group=None):
     if _quantizes(tensors[0], compression):
-        return _QuantizedBucket(tensors, op)
+        return _QuantizedBucket(tensors, op, group)
     if getattr(compression, "block_quantized", False):
         compression = Compression.none   # below one block, or not float
-    return _Bucket(tensors, op, compression)
+    return _Bucket(tensors, op, compression, group)
 
 
 def _plan(tensors, compression, threshold):
@@ -175,15 +190,17 @@ def _plan(tensors, compression, threshold):
         threshold=threshold))
 
 
-def allreduce_gradients(grads, op=Average, compression=Compression.none):
-    """Reduce gradients across all ranks.  ``grads`` is a dict of tensors
-    or a list of tensors; the result has the same structure, with new
-    tensors."""
+def allreduce_gradients(grads, op=Average, compression=Compression.none,
+                        group=None):
+    """Reduce gradients across all ranks (``group``: across that
+    ``ProcessGroup``'s members).  ``grads`` is a dict of tensors or a list
+    of tensors; the result has the same structure, with new tensors."""
     op = _check_op(op)
     compression = _compressor(compression)
+    tg = groups.torch_group(group)
     keys = list(grads) if isinstance(grads, dict) else None
     tensors = [grads[k] for k in keys] if keys is not None else list(grads)
-    buckets = [_new_bucket([tensors[i] for i in idx], op, compression)
+    buckets = [_new_bucket([tensors[i] for i in idx], op, compression, tg)
                for idx in _plan(tensors, compression, _fusion_threshold())]
     for b in buckets:
         b.start()
@@ -193,9 +210,11 @@ def allreduce_gradients(grads, op=Average, compression=Compression.none):
 
 class _DistributedOptimizerMixin:
     def _hvd_init(self, named_parameters, compression,
-                  backward_passes_per_step, op, average_aggregated_gradients):
+                  backward_passes_per_step, op, average_aggregated_gradients,
+                  group):
         self._compression = compression
         self._op = op
+        self._group = groups.torch_group(group)
         self._backward_passes_per_step = backward_passes_per_step
         self._average_aggregated_gradients = average_aggregated_gradients
         self._should_synchronize = True
@@ -270,7 +289,8 @@ class _DistributedOptimizerMixin:
                     # rank applies the same update
                     p.grad = torch.zeros_like(p)
                 grads.append(p.grad)
-            bucket = _new_bucket(grads, self._op, self._compression)
+            bucket = _new_bucket(grads, self._op, self._compression,
+                                 self._group)
             bucket.start()
             self._launched.append(bucket)
 
@@ -314,9 +334,11 @@ class _DistributedOptimizerMixin:
 def DistributedOptimizer(optimizer, named_parameters=None, op=Average,
                          compression=Compression.none,
                          backward_passes_per_step=1,
-                         average_aggregated_gradients=True):
+                         average_aggregated_gradients=True, group=None):
     """Wrap a torch optimizer so that ``step()`` applies gradients
-    averaged (``op=Average``) or summed (``op=Sum``) over all ranks.
+    averaged (``op=Average``) or summed (``op=Sum``) over all ranks, or
+    over the members of ``group`` (a ``ProcessGroup``: the data-parallel
+    group of a grid, see the module docstring).
 
     ``backward_passes_per_step`` accumulates gradients locally for N
     backward passes and reduces once per N.  With
@@ -333,7 +355,7 @@ def DistributedOptimizer(optimizer, named_parameters=None, op=Average,
     optimizer.__class__ = cls
     optimizer._hvd_init(named_parameters, compression,
                         backward_passes_per_step, op,
-                        average_aggregated_gradients)
+                        average_aggregated_gradients, group)
     return optimizer
 
 

@@ -1,10 +1,12 @@
 """The sequence axis of the parallel modules: what ``_compat.py`` and
 ``jax.lax`` give the JAX package's ring, zigzag and Ulysses attention.
 
-The axis is a ``torch.distributed`` process group (``group=None``: the
-sequence group ``hvd.init()`` makes, the world until process groups are
-ported, ROADMAP A.10).  ``axis_size`` and ``axis_index`` are its size and
-this rank's place in it.  Two differentiable collectives:
+The axis is a process group: ``group=None`` is the ``sp`` group of the
+one-axis grid over the world that ``hvd.init()`` makes; a mesh or a grid
+gives its ``sp`` axis group; a ``ProcessGroup`` (``hvd.new_group``,
+``grid.group(axis)``) or a ``torch.distributed`` group is taken as it
+is.  ``axis_size`` and ``axis_index`` are its size and this rank's place
+in it.  Two differentiable collectives:
 
 - :func:`ring_permute` is ``lax.ppermute`` with ``perm = [(i, (i + 1) %
   P)]``: every tensor goes to the next rank and comes from the previous
@@ -28,8 +30,9 @@ rank, yet the two may interleave differently from rank to rank, and
 NCCL promises progress only for one order across all of a rank's
 communicators.  What shows them finishing is a run, ``chip_smoke.py``
 phase 9's causal ring training under ``DistributedOptimizer`` on four
-cards; holding the buckets until the backward ends would remove the
-hazard.  Within the sequence group every rank launches the same
+cards (and phase 10's for the tp, ep and pp groups, whose hops and
+allreduces meet ``DistributedOptimizer(group=dp)`` the same way);
+holding the buckets until the backward ends would remove the hazard.  Within the sequence group every rank launches the same
 transfers in the same order: the permutations of
 one attention call form a chain, each one's backward waiting for the
 next one's, and :func:`anchor` ties the chain's last output to the
@@ -42,12 +45,26 @@ first waits for the eager plane to issue what this rank submitted to it
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch import groups
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.optimizer import _after_eager_plane
 
 
+def axis_group(group, axis):
+    """The ``torch.distributed`` group for a ``group=`` argument: a
+    ``ProcessGroup``'s, the ``axis`` group of a mesh or grid, or a
+    ``torch.distributed`` group as it is."""
+    if isinstance(group, groups.Grid) or hasattr(group, "axis_names"):
+        group = group.group(axis)
+    if isinstance(group, groups.ProcessGroup):
+        return groups.torch_group(group)
+    return group
+
+
 def sequence_group(group=None):
-    return basics._get_state().sequence_group if group is None else group
+    if group is None:
+        group = basics._get_state().sequence_group
+    return axis_group(group, "sp")
 
 
 def axis_size(group=None):

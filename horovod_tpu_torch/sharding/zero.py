@@ -33,6 +33,9 @@ gathered parameters back into the model.  Torch's in-place update
   no padding, the first ``n % world`` ranks hold one element more).
   Below ``min_size`` parameters (``HVD_TPU_ZERO_MIN_SIZE``), or at one
   rank, the update stays replicated behind one ``zero.allreduce``.
+  ``group=`` (the data-parallel group of a grid) scopes the layout and
+  both collectives to the group's members (reference:
+  ``horovod_tpu/sharding/zero.py:172-264``).
 
 Gradients are flattened over every parameter of the optimizer, as the
 reference flattens the whole tree; a parameter without a gradient takes
@@ -46,6 +49,7 @@ import inspect
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch import groups
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.compression import (
     Compression, all_gather_into, quantized_reduce_scatter,
@@ -219,11 +223,19 @@ class _Sharded(_ZeroOptimizer):
         return full
 
 
+def _topology(group):
+    """(rank, size) over ``group``'s members, or the world's.  Anything
+    but a ``ProcessGroup`` raises ``groups.resolve``'s error."""
+    if groups.resolve(group)[0]:
+        return group.rank(), group.size
+    return basics.rank(), basics.size()
+
+
 class _Eager(_ZeroOptimizer):
-    def __init__(self, optimizer, op, compression, min_size):
+    def __init__(self, optimizer, op, compression, min_size, group):
         self.compression = compression   # None: the job's default
-        self.world = basics.size()
-        self.rank = basics.rank()
+        self.group = group
+        self.rank, self.world = _topology(group)
         self.min_size = _resolve_min_size(min_size)
         super().__init__(optimizer, op, "ZeroDistributedOptimizer")
 
@@ -248,14 +260,15 @@ class _Eager(_ZeroOptimizer):
             if self.world > 1:
                 flat_g = mpi_ops.allreduce(
                     flat_g, op=self.op, name="zero.allreduce",
-                    compression=self.compression)
+                    compression=self.compression, group=self.group)
             self._step_inner(flat_g)
             return self.shard
         g_block = mpi_ops.reduce_scatter(
             flat_g, op=self.op, name="zero.reduce_scatter",
-            compression=self.compression)
+            compression=self.compression, group=self.group)
         self._step_inner(g_block)
-        return mpi_ops.allgather(self.shard, name="zero.allgather")
+        return mpi_ops.allgather(self.shard, name="zero.allgather",
+                                 group=self.group)
 
 
 def ShardedDistributedOptimizer(optimizer, op=Average,
@@ -276,11 +289,10 @@ def ZeroDistributedOptimizer(optimizer, op=Average, compression=None,
     the gradient reduce-scatter's wire format; parameters are gathered at
     full precision.  Below ``min_size`` flat parameters (default
     ``HVD_TPU_ZERO_MIN_SIZE``), or at one rank, the update stays
-    replicated.  ``group=`` waits for process groups (ROADMAP A.10)."""
-    if group is not None:
-        raise NotImplementedError(
-            "process groups (group=) are not ported yet (ROADMAP A.10)")
-    return _Eager(optimizer, op, compression, min_size)
+    replicated.  ``group`` (a ``ProcessGroup``, the data-parallel group of
+    a grid) scopes the shard layout, the reduce-scatter and the allgather
+    to its members."""
+    return _Eager(optimizer, op, compression, min_size, group)
 
 
 # ------------------------------------------------- checkpoint / resharding
@@ -299,22 +311,21 @@ def gather_zero_state(state, n_params, name_prefix="zero.state_gather",
     of ``state`` (an inner optimizer's ``state_dict()``) whose length is
     this rank's block is allgathered through the eager plane, named by its
     path so that every rank pairs them; step counters and full-size
-    tensors stay as they are.  The result is the same on every rank."""
-    if group is not None:
-        raise NotImplementedError(
-            "process groups (group=) are not ported yet (ROADMAP A.10)")
+    tensors stay as they are.  The result is the same on every rank (of
+    ``group``, when one is given)."""
     from horovod_tpu_torch import mpi_ops
 
-    world, n_params = basics.size(), int(n_params)
+    rank, world = _topology(group)
+    n_params = int(n_params)
     if world <= 1:
         return state
-    _, _, cnt = zero_shard_layout(n_params, world, basics.rank())
+    _, _, cnt = zero_shard_layout(n_params, world, rank)
 
     def gather(path, leaf):
         if (torch.is_tensor(leaf) and leaf.dim() == 1
                 and leaf.shape[0] == cnt and cnt != n_params):
             name = ".".join([name_prefix] + [str(k) for k in path])
-            return mpi_ops.allgather(leaf, name=name)
+            return mpi_ops.allgather(leaf, name=name, group=group)
         return leaf
 
     return _tree_map(gather, state)
@@ -323,14 +334,13 @@ def gather_zero_state(state, n_params, name_prefix="zero.state_gather",
 def reshard_zero_state(full_state, n_params, group=None):
     """Inverse of :func:`gather_zero_state` at the current world size
     (which may differ from the one it was gathered at): each full-size
-    1-D tensor is cut to this rank's block."""
-    if group is not None:
-        raise NotImplementedError(
-            "process groups (group=) are not ported yet (ROADMAP A.10)")
-    world, n_params = basics.size(), int(n_params)
+    1-D tensor is cut to this rank's block (its block over ``group``'s
+    members, when one is given)."""
+    rank, world = _topology(group)
+    n_params = int(n_params)
     if world <= 1:
         return full_state
-    _, off, cnt = zero_shard_layout(n_params, world, basics.rank())
+    _, off, cnt = zero_shard_layout(n_params, world, rank)
 
     def reshard(path, leaf):
         if (torch.is_tensor(leaf) and leaf.dim() == 1

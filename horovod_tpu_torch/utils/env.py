@@ -2,8 +2,9 @@
 
 The subset of ``horovod_tpu/utils/env.py`` that the port reads: the
 launcher -> worker rank contract, the fusion threshold, the job-wide
-default compression, ZeRO's replicated-update threshold and the eager
-plane's cycle, cache and stall knobs.
+default compression, ZeRO's replicated-update threshold, the cap on
+live process groups, the eager plane's executor and its cycle, cache and
+stall knobs.
 Kept as a copy so that the port never imports the JAX package.
 """
 
@@ -22,6 +23,12 @@ HVD_TPU_COMPRESSION = "HVD_TPU_COMPRESSION"
 # update replicated (tiny models pay more in collective latency than they
 # save in state memory)
 HVD_TPU_ZERO_MIN_SIZE = "HVD_TPU_ZERO_MIN_SIZE"
+# cap on live process groups (hvd.new_group); groups leak when created
+# per step
+HVD_TPU_GROUP_MAX = "HVD_TPU_GROUP_MAX"
+# the eager plane's executor: psum (over the world) | mesh (over a mesh's
+# dp axis, sharding/mesh_executor.py)
+HVD_TPU_EXECUTOR = "HVD_TPU_EXECUTOR"
 
 # --- launcher -> worker contract ---------------------------------------------
 HVD_RANK = "HVD_RANK"
@@ -40,6 +47,7 @@ DEFAULT_CYCLE_TIME_MS = 1.0
 DEFAULT_CACHE_CAPACITY = 1024
 DEFAULT_STALL_WARNING_SECONDS = 60
 DEFAULT_ZERO_MIN_SIZE = 1024  # flat params below this stay replicated
+DEFAULT_GROUP_MAX = 64  # live process groups per job
 
 _warned = set()
 _warned_lock = threading.Lock()

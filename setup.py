@@ -75,10 +75,12 @@ setup(
         # the PyTorch/CUDA port; its kernels build from csrc/ at first use
         "horovod_tpu_torch",
         "horovod_tpu_torch.common",
+        "horovod_tpu_torch.groups",
         "horovod_tpu_torch.models",
         "horovod_tpu_torch.ops",
         "horovod_tpu_torch.ops.cuda",
         "horovod_tpu_torch.parallel",
+        "horovod_tpu_torch.sharding",
         "horovod_tpu_torch.utils",
     ],
     package_data={"horovod_tpu": ["lib/libhvdcore.so"],

@@ -48,7 +48,11 @@ def test_import_leaves_jax_and_horovod_tpu_out():
         "horovod_tpu_torch.parallel._comm, "
         "horovod_tpu_torch.parallel.ring_attention, "
         "horovod_tpu_torch.parallel.zigzag_attention, "
-        "horovod_tpu_torch.parallel.ulysses\n"
+        "horovod_tpu_torch.parallel.ulysses, horovod_tpu_torch.groups, "
+        "horovod_tpu_torch.parallel.mesh, "
+        "horovod_tpu_torch.parallel.tensor_parallel, "
+        "horovod_tpu_torch.parallel.moe, horovod_tpu_torch.parallel.pipeline, "
+        "horovod_tpu_torch.sharding.mesh_executor\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"

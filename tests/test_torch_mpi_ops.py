@@ -389,6 +389,18 @@ def one_rank():
     (lambda t: mpi_ops.allreduce_async_(t, op=hvd.Adasum), "A.11"),
 ])
 def test_unported_arguments_raise(one_rank, call, roadmap):
+    """An argument of a later slice raises ``NotImplementedError`` naming
+    its ROADMAP item.  ``group=`` is ported (A.10): anything but a
+    ``ProcessGroup`` there raises the reference's ``groups.resolve``
+    error."""
+    if roadmap == "A.10":
+        with pytest.raises(hvd.HvdError) as got:
+            call(torch.ones(3))
+        from horovod_tpu.groups import resolve as jax_resolve
+        with pytest.raises(Exception) as want:
+            jax_resolve(object())
+        assert str(got.value) == str(want.value)
+        return
     with pytest.raises(NotImplementedError, match=roadmap):
         call(torch.ones(3))
 

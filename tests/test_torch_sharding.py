@@ -19,8 +19,9 @@ JAX package's (``horovod_tpu/sharding/zero.py``).
 - ``gather_zero_state`` then ``reshard_zero_state`` give each rank's
   state back bitwise; the state gathered at 2 ranks, resharded at 4,
   takes a fourth step that matches the replicated update.
-- Adasum and ``group=`` are refused with the reference's words, as are
-  parameter groups with different hyperparameters; a negative
+- Adasum, and a ``group=`` that is no ``ProcessGroup``, are refused with
+  the reference's words, as are parameter groups with different
+  hyperparameters; a negative
   ``HVD_TPU_ZERO_MIN_SIZE`` raises in ``hvd.init``.
 """
 
@@ -390,11 +391,18 @@ def test_adasum_and_groups_are_refused_as_the_reference_does(one_rank):
         with pytest.raises(ValueError) as want:
             getattr(jz, name)(optax.adam(1e-3), op=jz.Adasum)
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="A.10"):
+    # group= is ported (ROADMAP A.10): anything but a ProcessGroup is
+    # refused with the reference's groups.resolve error
+    from horovod_tpu.groups import resolve as jax_resolve
+    with pytest.raises(Exception) as want:
+        jax_resolve(object())
+    with pytest.raises(hvd.HvdError) as got:
         hvd.ZeroDistributedOptimizer(torch.optim.AdamW(ps), group=object())
+    assert str(got.value) == str(want.value)
     for fn in (hvd.gather_zero_state, hvd.reshard_zero_state):
-        with pytest.raises(NotImplementedError, match="A.10"):
+        with pytest.raises(hvd.HvdError) as got:
             fn({}, 4, group=object())
+        assert str(got.value) == str(want.value)
     two = torch.optim.AdamW([{"params": ps}, {
         "params": [torch.nn.Parameter(torch.zeros(2))], "lr": 0.5}])
     with pytest.raises(ValueError, match="hyperparameters"):

@@ -164,8 +164,14 @@ def test_reference_attention_matches_jax(causal, tq, tk):
 
 @pytest.mark.parametrize("option", [{"moe_every": 2}])
 def test_later_slice_options_raise(option):
-    """``remat`` is ported (held to flax's ``nn.remat`` in
-    ``tests/test_torch_sequence_parallel.py``); ``moe_every`` still
-    raises."""
-    with pytest.raises(NotImplementedError):
-        Transformer(TransformerConfig(**SMALL, **option), device="cpu")
+    """The options of later slices are ported and raise no more: ``remat``
+    (held to flax's ``nn.remat`` in ``tests/test_torch_sequence_parallel.py``)
+    and ``moe_every``, whose every second block is a switch-MoE block with
+    flax's parameter names (held to flax in
+    ``tests/test_torch_model_parallel.py``)."""
+    model = Transformer(TransformerConfig(**SMALL, **option), device="cpu")
+    names = dict(model.named_parameters())
+    assert {"block_1.moe.router_kernel", "block_1.moe.wi_kernel",
+            "block_1.moe.wo_kernel"} <= set(names)
+    assert "block_0.mlp.up.kernel" in names
+    assert not any(n.startswith("block_1.mlp") for n in names)
