@@ -92,13 +92,37 @@ Phases, each of which must pass:
    outputs and every stage's gradients against the sequential blocks on
    one card in fp32, then the bf16 LM with its blocks pipelined for 5
    steps beside the one-card step and the (M + S - 1) / M bubble bound.
-   At one card tp, ep and pp have size 1 (the single-rank path).
+   At one card tp, ep and pp have size 1 (the single-rank path);
+11. Adasum, durable checkpoints and the input pipeline at the largest
+   power of two <= ``min(cards, 4)`` ranks: (a) the eager plane's
+   ``allreduce(op=Adasum)`` in fp32, bf16 and fp16, ``grouped_allreduce``,
+   ``allreduce_``, with the last rank joined and over each half of the
+   world as a process group, each rank with values of its own, held to
+   the float64 ``adasum_reference`` (rtol 1e-4, atol 1e-5 in fp32) and
+   bitwise the same on every rank; at four ranks again with
+   ``HVD_ADASUM_HIERARCHICAL=1``, ``HVD_HIER_LOCAL_SIZE=2`` against
+   Adasum of the local averages; the grouped Adasum allreduce of phase
+   5's 169,904,128 fp32 gradients beside the Sum one, in turns; (b)
+   phase 5's model, each rank on its own batch, 5 steps under
+   ``DistributedOptimizer(AdamW, op=Adasum)`` and 5 of
+   ``allreduce_gradients(op=Adasum)`` + AdamW: the loss falls, the
+   ranks' parameters bitwise equal after each step, every kernel at
+   phase 5's count; step times in turns with ``op=Average``; (c)
+   ``elastic.run`` with ``HVD_TPU_CKPT_DIR`` (in ``smoke_scratch/``,
+   removed after) every 2 steps, stopped after 5, then a new model,
+   optimizer and manager resumed from step 4 and trained to 6 against an
+   uninterrupted 6-step run (bitwise where two uninterrupted runs are);
+   commit, write and restore times and bytes; (d) phase 7's ResNet-50
+   step fed by ``BatchIterator`` + ``prefetch_to_device``, by the
+   iterator without prefetch and from a resident batch, in turns
+   (images/s per GPU); the prefetched batches equal the host's.
 
 Each phase's wall seconds are printed on a line of its own.
 
 Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` in
-phase 5's run, and ``launches_by_path``: phase 5's and phase 10's tp,
-MoE and pipeline runs', each of which must be above 0), the
+phase 5's run, and ``launches_by_path``: phase 5's, phase 10's tp, MoE
+and pipeline runs' and phase 11's ``op=Adasum`` run's, each of which
+must be above 0), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that last line.  ``--profile`` adds one profiled step of phase 5, one of
@@ -1335,17 +1359,20 @@ def _world():
     return min(torch.cuda.device_count(), 4)
 
 
-def in_ranks(phase, layers, profile=False):
+def in_ranks(phase, layers, profile=False, world=None, env=None):
     """Run ``RANK_PHASES[phase](layers)`` (with ``profile=True`` when
-    asked) on ``_world()`` ranks: in this process at one card
-    (``hvd.init`` around it), else one process a card over NCCL (two
-    ranks on one card are refused by NCCL), each printing its result as
-    one ``RANK_RESULT`` line.  -> the ranks' results."""
+    asked) on ``world`` ranks (default ``_world()``): in this process at
+    one card (``hvd.init`` around it), else one process a card over NCCL
+    (two ranks on one card are refused by NCCL), each with ``env`` added
+    to its environment and printing its result as one ``RANK_RESULT``
+    line.  -> the ranks' results."""
     import socket
 
     import horovod_tpu_torch as hvd
 
-    world = _world()
+    world = world or _world()
+    if env and world == 1:
+        raise ValueError("in_ranks: env= needs rank processes")
     if world == 1:
         hvd.init()
         try:
@@ -1358,15 +1385,16 @@ def in_ranks(phase, layers, profile=False):
     procs = []
     try:
         for r in range(world):
-            env = dict(os.environ, HVD_RANK=str(r), HVD_SIZE=str(world),
-                       HVD_LOCAL_RANK=str(r), HVD_LOCAL_SIZE=str(world),
-                       HVD_RENDEZVOUS_ADDR="127.0.0.1",
-                       HVD_RENDEZVOUS_PORT=str(port))
+            rank_env = dict(os.environ, HVD_RANK=str(r),
+                            HVD_SIZE=str(world), HVD_LOCAL_RANK=str(r),
+                            HVD_LOCAL_SIZE=str(world),
+                            HVD_RENDEZVOUS_ADDR="127.0.0.1",
+                            HVD_RENDEZVOUS_PORT=str(port), **(env or {}))
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--rank-of",
                  phase, str(layers)] + (["--profile"] if profile else []),
-                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
+                env=rank_env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
         outs = [p.communicate(timeout=900)[0] for p in procs]
     finally:
         for p in procs:
@@ -1506,16 +1534,23 @@ def _flat_params(model):
     return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
 
 
-def _same_on_every_rank(what, flat):
+def _same_on_every_rank(what, t, group=None, like=None):
+    """``t`` must be bitwise the same on every rank (of ``group``, a
+    ``ProcessGroup``); a rank without a result takes part with ``t=None``
+    and ``like``, a tensor of its shape and dtype."""
     import torch
     import torch.distributed as dist
 
-    root = flat.clone()
+    from horovod_tpu_torch import groups
+
+    tg = groups.torch_group(group)
+    root = t.clone() if t is not None else torch.empty_like(like)
     _drain()
-    dist.broadcast(root, 0)
-    if not torch.equal(root, flat):
-        raise AssertionError(f"{what}: rank {dist.get_rank()}'s parameters "
-                             f"are not bitwise rank 0's")
+    dist.broadcast(root, dist.get_global_rank(tg, 0) if tg is not None
+                   else 0, group=tg)
+    if t is not None and not torch.equal(root, t):
+        raise AssertionError(f"{what}: rank {dist.get_rank()}'s values are "
+                             f"not bitwise its group's first rank's")
 
 
 def _state_bytes(state):
@@ -2793,8 +2828,496 @@ def model_parallel_phase(smi, profile=False):
     return results
 
 
+# ------------------------------------------------------------------ phase 11
+# (a) the fast group of hierarchical Adasum at four ranks
+HIER_LOCAL = 2
+# Adasum's tolerances against the float64 reference (tests/test_collectives.py
+# :253 for fp32, tests/test_dtype_matrix.py:149 for bf16; fp16 tighter than
+# the dtype matrix's 2e-2)
+ADASUM_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (5e-2, 5e-2),
+              "float16": (1e-2, 1e-2)}
+# (b) checked steps of each Adasum path, then blocks of steps in turns
+ADASUM_STEPS, ADASUM_BLOCK_STEPS, ADASUM_PAIRS = 5, 4, 3
+# (c) the uninterrupted runs' steps, the step the first elastic run stops
+# after (its newest checkpoint is the interval's multiple below), the
+# checkpoint interval
+CKPT_STEPS, CKPT_STOP, CKPT_INTERVAL = 6, 5, 2
+# (d) batches a rank holds, steps a timed window, rounds of the three feeds
+PIPE_BATCHES, PIPE_STEPS, PIPE_PAIRS = 4, 10, 3
+
+
+def _pow2_world():
+    """Ranks of phase 11: the largest power of two <= min(cards, 4)."""
+    world = _world()
+    return 1 << (world.bit_length() - 1)
+
+
+def _scratch_dir():
+    """Where phase 11 writes its checkpoints (GBs): inside the checkout,
+    beside the output directory, which keeps only logs and results."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "smoke_scratch")
+
+
+def _model_grads(layers, seed):
+    """fp32 gradients of the shapes of phase 5's parameters, from seeds."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer
+
+    dev = hvd.device()
+    shapes = [p.shape for p in Transformer(main_config(layers), device=dev,
+                                           seed=0).parameters()]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=gen, device=dev) for s in shapes]
+
+
+def adasum_eager_checks(layers, hier=False):
+    """Phase 11 (a) on this rank, ``hvd.init()`` done: the eager plane's
+    Adasum, each rank with values of its own (every rank makes every
+    rank's from seeds): ``allreduce`` in fp32, bf16 and fp16,
+    ``grouped_allreduce``, ``allreduce_``, and (flat, above one rank) with
+    the last rank joined and over each half of the world as a process
+    group; each held to ``adasum_reference`` in float64 on the host (of
+    the local groups' averages when ``hier``), and bitwise the same on
+    every rank.  Then the grouped Adasum allreduce of phase 5's
+    169,904,128 fp32 gradients beside the Sum one, in turns.  -> the
+    rank's numbers."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops.adasum import adasum_reference
+
+    dev, r, n = hvd.device(), hvd.rank(), hvd.size()
+    checked, errs = [], {}
+
+    def every(shape, dtype, seed):
+        return [torch.randn(shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(seed * 1009 + q)).to(dtype)
+            for q in range(n)]
+
+    def leaves(xs):
+        """The reference's operands: every rank's, or the local groups'
+        averages."""
+        if not hier:
+            return xs
+        return [sum(x.double() for x in xs[c:c + HIER_LOCAL]) / HIER_LOCAL
+                for c in range(0, n, HIER_LOCAL)]
+
+    def expect(what, got, xs, group=None):
+        name = str(got.dtype).replace("torch.", "")
+        want = adasum_reference([x.double().cpu().numpy() for x in xs])
+        err = np.abs(got.double().cpu().numpy() - want)
+        rtol, atol = ADASUM_TOL[name]
+        if not np.all(err <= atol + rtol * np.abs(want)):
+            raise AssertionError(f"adasum {what}: max abs err "
+                                 f"{err.max():.3e} against the reference")
+        _same_on_every_rank(f"adasum {what}", got, group)
+        errs[what] = float(err.max())
+        checked.append(what)
+
+    dtypes = ("float32",) if hier else ("float32", "bfloat16", "float16")
+    for i, name in enumerate(dtypes):
+        xs = every((1 << 16,), getattr(torch, name), 10 + i)
+        expect(name, hvd.allreduce(xs[r], op=hvd.Adasum,
+                                   name=f"p11.{name}"), leaves(xs))
+    many = [every(s, torch.float32, 20 + i)
+            for i, s in enumerate([(4096,), (33, 129), (1000,)])]
+    outs = hvd.grouped_allreduce([xs[r] for xs in many], op=hvd.Adasum,
+                                 name="p11.grouped")
+    for i, (out, xs) in enumerate(zip(outs, many)):
+        expect(f"grouped[{i}]", out, leaves(xs))
+    xs = every((3, 1000), torch.float32, 30)
+    t = xs[r].clone()
+    hvd.allreduce_(t, op=hvd.Adasum, name="p11.inplace")
+    expect("in place", t, leaves(xs))
+    if n > 1 and not hier:
+        xs = every((5000,), torch.float32, 40)
+        handle = None
+        if r != n - 1:
+            handle = hvd.allreduce_async(xs[r], op=hvd.Adasum,
+                                         name="p11.joined")
+        hvd.join()
+        if handle is not None:
+            expect("joined", hvd.synchronize(handle),
+                   xs[:-1] + [torch.zeros_like(xs[-1])])
+        else:
+            _same_on_every_rank("adasum joined", None, like=xs[-1])
+        halves = [list(range(n // 2)), list(range(n // 2, n))]
+        pgs = [hvd.new_group(h, name=f"p11.half.{i}")
+               for i, h in enumerate(halves)]
+        mine = r // (n // 2)
+        xs = every((7000,), torch.float32, 50)
+        expect(f"group {halves[mine]}", hvd.allreduce(
+            xs[r], op=hvd.Adasum, group=pgs[mine], name="p11.half"),
+            [xs[q] for q in halves[mine]], group=pgs[mine])
+
+    grads = _model_grads(layers, 100 + r)
+    nbytes = sum(g.numel() * g.element_size() for g in grads)
+    out = hvd.grouped_allreduce(grads, op=hvd.Adasum, name="p11.grads")
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(o).all() for o in out):
+        raise AssertionError("adasum of the model's gradients: non-finite")
+    _same_on_every_rank("adasum of the model's gradients", out[0])
+    del out
+
+    def timed(fn, iters=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    ada_ms, sum_ms = [], []
+    for _ in range(3):
+        ada_ms.append(timed(lambda: hvd.grouped_allreduce(
+            grads, op=hvd.Adasum, name="p11.grads")))
+        sum_ms.append(timed(lambda: hvd.grouped_allreduce(
+            grads, op=hvd.Sum, name="p11.grads.sum")))
+    ada, summed = statistics.median(ada_ms), statistics.median(sum_ms)
+    return {"checks": checked, "max_abs_err": errs,
+            "params": sum(g.numel() for g in grads), "bytes": nbytes,
+            "adasum_ms": ada, "adasum_gb_s": nbytes / ada / 1e6,
+            "sum_ms": summed, "sum_gb_s": nbytes / summed / 1e6,
+            "adasum_ms_turns": ada_ms, "sum_ms_turns": sum_ms}
+
+
+def adasum_training(layers):
+    """Phase 11 (b): phase 5's transformer, each rank on a batch of its
+    own, ``ADASUM_STEPS`` steps under ``DistributedOptimizer(AdamW,
+    op=Adasum)``, then as many of ``allreduce_gradients(op=Adasum)`` and
+    AdamW: the loss finite and falling, every rank's parameters bitwise
+    the same after each step, every kernel launched at phase 5's count a
+    step; then both beside ``op=Average`` in blocks of steps in turns.
+    -> the numbers and the first path's launch counts."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer, lm_loss
+    from horovod_tpu_torch.ops import cuda as kernels
+
+    r = hvd.rank()
+    tokens = torch.from_numpy(np.random.RandomState(100 + r).randint(
+        0, VOCAB, (MAIN_BATCH, MAIN_SEQ))).to(hvd.device())
+
+    def adamw(model):
+        return torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                 weight_decay=1e-4)
+
+    def grads_step(model, opt):
+        opt.zero_grad(set_to_none=True)
+        loss = lm_loss(model(tokens), tokens)
+        loss.backward()
+        params = list(model.parameters())
+        for p, g in zip(params, hvd.allreduce_gradients(
+                [p.grad for p in params], op=hvd.Adasum)):
+            p.grad = g
+        opt.step()
+        return loss.detach()
+
+    models, steps, res = {}, {}, {}
+    for name in ("do_adasum", "allreduce_gradients_adasum", "do_average"):
+        model = models[name] = Transformer(main_config(layers), seed=0)
+        if name == "allreduce_gradients_adasum":
+            opt = adamw(model)
+            steps[name] = lambda m=model, o=opt: grads_step(m, o)
+        else:
+            opt = hvd.DistributedOptimizer(
+                adamw(model), named_parameters=model.named_parameters(),
+                op=hvd.Adasum if name == "do_adasum" else hvd.Average)
+            steps[name] = lambda m=model, o=opt: _lm_step(m, o, tokens)
+    for name in ("do_adasum", "allreduce_gradients_adasum"):
+        kernels.reset_launch_counts()
+        losses = []
+        for s in range(ADASUM_STEPS):
+            losses.append(float(steps[name]()))
+            _same_on_every_rank(f"{name} step {s} parameters",
+                        _flat_params(models[name]))
+        counts = kernels.launch_counts()
+        expect_launches(name, counts, per_step_launches(layers),
+                        ADASUM_STEPS)
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{name}: losses {losses}")
+        res[name] = {"losses": losses, "counts": counts}
+    turns = _blocks_in_turns(steps, ADASUM_BLOCK_STEPS, ADASUM_PAIRS)
+    for name, (medians, _) in turns.items():
+        res.setdefault(name, {})["step_ms_blocks"] = medians
+        res[name]["step_ms"] = statistics.median(medians)
+    return res
+
+
+def durable_resume(layers):
+    """Phase 11 (c): phase 5's transformer under ``DistributedOptimizer``
+    (AdamW), each rank on batches of its own, a function of the step.
+    Two uninterrupted runs of ``CKPT_STEPS`` steps; then ``elastic.run``
+    with ``HVD_TPU_CKPT_DIR`` (interval ``CKPT_INTERVAL``) for
+    ``CKPT_STOP`` steps, a commit each; then a new model (another seed),
+    optimizer, state and manager: ``run`` resumes from the newest
+    checkpoint and trains to ``CKPT_STEPS``.  Its parameters must equal
+    the uninterrupted run's, bitwise where the two uninterrupted runs
+    are bitwise the same, else within their gap.  -> the numbers."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer
+
+    r = hvd.rank()
+    directory = os.path.join(_scratch_dir(), "ckpt")
+    if r == 0:
+        shutil.rmtree(directory, ignore_errors=True)
+    hvd.barrier(name="p11.ckpt.clean")
+
+    def batch(step):
+        return torch.from_numpy(np.random.RandomState(1000 * r + step)
+                                .randint(0, VOCAB, (MAIN_BATCH, MAIN_SEQ))
+                                ).to(hvd.device())
+
+    def build(seed):
+        model = Transformer(main_config(layers), seed=seed)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4,
+                              weight_decay=1e-4),
+            named_parameters=model.named_parameters())
+        return model, opt
+
+    def uninterrupted():
+        model, opt = build(0)
+        for s in range(CKPT_STEPS):
+            _lm_step(model, opt, batch(s))
+        torch.cuda.synchronize()
+        flat = _flat_params(model).clone()
+        del model, opt
+        _release()
+        return flat
+
+    plain, again = uninterrupted(), uninterrupted()
+    plain_gap = max_err(plain, again)
+    del again
+    commit_s, managers = [], []
+
+    def train_to(last, model, opt):
+        def fn(state):
+            entered = time.perf_counter()
+            resumed = state.step
+            managers.append(state._ckpt)
+            while state.step < last:
+                _lm_step(model, opt, batch(state.step))
+                state.step += 1
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state.commit()
+                commit_s.append(time.perf_counter() - t0)
+            return resumed, entered
+        return fn
+
+    os.environ["HVD_TPU_CKPT_DIR"] = directory
+    os.environ["HVD_TPU_CKPT_INTERVAL"] = str(CKPT_INTERVAL)
+    try:
+        model, opt = build(0)
+        state = hvd.elastic.State(params=model, optimizer_state=opt)
+        hvd.elastic.run(train_to(CKPT_STOP, model, opt), state)
+        del model, opt, state
+        _release()
+        model, opt = build(1)
+        state = hvd.elastic.State(params=model, optimizer_state=opt)
+        t0 = time.perf_counter()
+        resumed, entered = hvd.elastic.run(
+            train_to(CKPT_STEPS, model, opt), state)
+        resume_s = entered - t0
+        torch.cuda.synchronize()
+        gap = max_err(_flat_params(model), plain)
+    finally:
+        del os.environ["HVD_TPU_CKPT_DIR"]
+        del os.environ["HVD_TPU_CKPT_INTERVAL"]
+    if resumed != CKPT_STOP - CKPT_STOP % CKPT_INTERVAL:
+        raise AssertionError(f"resumed from step {resumed}")
+    if gap > plain_gap:
+        raise AssertionError(f"resumed run {gap:.3e} from the uninterrupted "
+                             f"one, whose two runs differ by {plain_gap:.3e}")
+    writes = [w for m in managers for w in m.writes]
+    if any(m.errors for m in managers) or not writes:
+        raise AssertionError(f"checkpoint writes {writes}")
+    hvd.barrier(name="p11.ckpt.done")
+    if r == 0:
+        shutil.rmtree(directory, ignore_errors=True)
+    return {"resumed_from": resumed, "max_abs_err": gap,
+            "uninterrupted_gap": plain_gap, "commit_s": commit_s,
+            "writes": writes, "resume_s": resume_s}
+
+
+def input_pipeline():
+    """Phase 11 (d): phase 7's ResNet-50 step (batch 64, 224x224x3, bf16,
+    ``DistributedOptimizer(SGD(0.1, momentum=0.9))``) fed three ways in
+    turns, ``PIPE_PAIRS`` windows of ``PIPE_STEPS`` steps each: from
+    ``BatchIterator`` (shuffled, over ``PIPE_BATCHES`` batches of this
+    rank's own images on the host) through ``prefetch_to_device``, from
+    the same iterator copied to the card in the loop, and from one batch
+    resident on the card.  The prefetched batches must equal the host
+    batches, over an epoch and a batch.  -> images/s of each."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import train_cnn
+    from horovod_tpu_torch.models import ResNet50
+    from horovod_tpu_torch.utils.data import BatchIterator, prefetch_to_device
+
+    r, dev = hvd.rank(), hvd.device()
+    batch, image = CNN_SIZES["resnet50"]
+    rng = np.random.default_rng(200 + r)
+    data = {"x": rng.standard_normal((PIPE_BATCHES * batch, image, image, 3),
+                                     dtype=np.float32),
+            "y": rng.integers(0, 1000, PIPE_BATCHES * batch)}
+
+    def batches():
+        return iter(BatchIterator(data, batch, shuffle=True, seed=r,
+                                  epochs=None))
+
+    staged = prefetch_to_device(batches(), size=2)
+    host = batches()
+    for i in range(PIPE_BATCHES + 1):
+        h, d = next(host), next(staged)
+        if d["x"].device != dev or not all(
+                torch.equal(d[k].cpu(), torch.from_numpy(h[k]))
+                for k in ("x", "y")):
+            raise AssertionError(f"prefetched batch {i} is not the host's")
+
+    torch.backends.cudnn.benchmark = True
+    try:
+        model = ResNet50(num_classes=1000, dtype=torch.bfloat16, seed=0)
+        opt = train_cnn.make_optimizer(model)
+        resident = next(staged)
+
+        def feed(kind):
+            if kind == "prefetch":
+                return next(staged)
+            if kind == "host":
+                b = next(host)
+                return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            return resident
+
+        losses = [train_cnn.train_step(model, opt, resident["x"],
+                                       resident["y"])
+                  for _ in range(CNN_WARMUP)]
+        windows = {k: [] for k in ("prefetch", "host", "resident")}
+        for _ in range(PIPE_PAIRS):
+            for kind in windows:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(PIPE_STEPS):
+                    b = feed(kind)
+                    losses.append(train_cnn.train_step(model, opt, b["x"],
+                                                       b["y"]))
+                torch.cuda.synchronize()
+                windows[kind].append(time.perf_counter() - t0)
+        losses = torch.stack(losses).tolist()
+    finally:
+        staged.close()
+        torch.backends.cudnn.benchmark = False
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"input pipeline: losses {losses}")
+    return {"images_per_s": {k: [batch * PIPE_STEPS / w for w in ws]
+                             for k, ws in windows.items()},
+            "checked_batches": PIPE_BATCHES + 1,
+            "loss_first_last": (losses[0], losses[-1])}
+
+
+def adasum_checks(layers):
+    """Phase 11 on this rank, ``hvd.init()`` done: (a)-(d).  -> the
+    rank's numbers."""
+    import horovod_tpu_torch as hvd
+
+    res = {"rank": hvd.rank(), "world": hvd.size(), "wall_s": {}}
+    for name, fn in [("eager", lambda: adasum_eager_checks(layers)),
+                     ("training", lambda: adasum_training(layers)),
+                     ("resume", lambda: durable_resume(layers)),
+                     ("pipeline", input_pipeline)]:
+        t0 = time.perf_counter()
+        res[name] = fn()
+        _release()
+        res["wall_s"][name] = time.perf_counter() - t0
+    return res
+
+
+def adasum_hier_checks(layers):
+    """Phase 11 (a) under ``HVD_ADASUM_HIERARCHICAL=1`` and
+    ``HVD_HIER_LOCAL_SIZE=2``."""
+    import horovod_tpu_torch as hvd
+
+    return {"rank": hvd.rank(), "world": hvd.size(),
+            "eager": adasum_eager_checks(layers, hier=True)}
+
+
+def adasum_phase(smi):
+    """Phase 11: :func:`adasum_checks` at ``_pow2_world()`` ranks, then at
+    four the hierarchical (a).  -> the ranks' results."""
+    world = _pow2_world()
+    results = in_ranks("adasum", LAYERS, world=world)
+    hier = []
+    if world == 4:
+        hier = in_ranks("adasum_hier", LAYERS, world=4, env={
+            "HVD_ADASUM_HIERARCHICAL": "1",
+            "HVD_HIER_LOCAL_SIZE": str(HIER_LOCAL)})
+    for mode, res in [("flat", x) for x in results] + [
+            ("hierarchical", x) for x in hier]:
+        n, e = res["world"], res["eager"]
+        head = f"adasum rank {res['rank']} of {n}"
+        print(f"{head} ({mode}): {len(e['checks'])} checks against the "
+              f"float64 reference, max abs err "
+              f"{ {k: f'{v:.3e}' for k, v in e['max_abs_err'].items()} }",
+              flush=True)
+        print(f"{head} ({mode}): grouped_allreduce of {e['params']} fp32 "
+              f"gradients: Adasum {e['adasum_ms']:.3f} ms "
+              f"({e['adasum_gb_s']:.1f} GB/s; turns "
+              f"{[round(t, 3) for t in e['adasum_ms_turns']]}), Sum "
+              f"{e['sum_ms']:.3f} ms ({e['sum_gb_s']:.1f} GB/s; turns "
+              f"{[round(t, 3) for t in e['sum_ms_turns']]}) on {smi}",
+              flush=True)
+    if world < 4:
+        print(f"adasum: hierarchical Adasum needs four ranks (two local "
+              f"groups of {HIER_LOCAL}); {world} here", flush=True)
+    for res in results:
+        head = f"adasum rank {res['rank']} of {res['world']}"
+        t = res["training"]
+        for name in ("do_adasum", "allreduce_gradients_adasum",
+                     "do_average"):
+            losses = t[name].get("losses")
+            print(f"{head}: {name}: step {t[name]['step_ms']:.2f} ms (block "
+                  f"medians {[round(x, 2) for x in t[name]['step_ms_blocks']]}"
+                  f" in turns)" + (f", losses {[round(x, 4) for x in losses]}"
+                                   if losses else "") + f" on {smi}",
+                  flush=True)
+        c = res["resume"]
+        print(f"{head}: durable resume from step {c['resumed_from']}: max "
+              f"abs err {c['max_abs_err']:.3e} against an uninterrupted run "
+              f"(two uninterrupted runs differ by "
+              f"{c['uninterrupted_gap']:.3e}); commit s "
+              f"{[round(x, 3) for x in c['commit_s']]}; writes (step, bytes, "
+              f"s) {[(s, b, round(x, 3)) for s, b, x in c['writes']]}; "
+              f"restore and sync {c['resume_s']:.3f} s on {smi}", flush=True)
+        p = res["pipeline"]
+        print(f"{head}: ResNet-50 images/s per GPU: "
+              f"{ {k: [round(x, 1) for x in v] for k, v in p['images_per_s'].items()} }"
+              f" ({p['checked_batches']} prefetched batches equal the host's;"
+              f" loss {p['loss_first_last'][0]:.4f} -> "
+              f"{p['loss_first_last'][1]:.4f}) on {smi}", flush=True)
+        print(f"{head}: wall s "
+              f"{ {k: round(v, 2) for k, v in res['wall_s'].items()} }",
+              flush=True)
+    return results, hier
+
+
 RANK_PHASES = {"eager": eager_checks, "zero": zero_checks,
-               "sequence": sequence_checks, "model": model_parallel_checks}
+               "sequence": sequence_checks, "model": model_parallel_checks,
+               "adasum": adasum_checks, "adasum_hier": adasum_hier_checks}
 
 
 def _profile_step(model, opt, tokens):
@@ -3060,12 +3583,14 @@ def main(argv=None):
     zero = timed(8, zero_phase, smi)
     sequence = timed(9, sequence_phase, smi, args.profile)
     model = timed(10, model_parallel_phase, smi, args.profile)
-    paths = {"tp": model[0]["tp_dp2"]["counts"],
-             "moe": model[0]["moe"]["counts"],
-             "pp": model[0]["pipeline"]["counts"]}
+    adasum, adasum_hier = timed(11, adasum_phase, smi)
+    paths = {"phase10_tp": model[0]["tp_dp2"]["counts"],
+             "phase10_moe": model[0]["moe"]["counts"],
+             "phase10_pp": model[0]["pipeline"]["counts"],
+             "phase11": adasum[0]["training"]["do_adasum"]["counts"]}
     for k in kernels:
         k["launches_by_path"] = {"phase5": k["launches"], **{
-            f"phase10_{path}": c[k["name"]] for path, c in paths.items()}}
+            path: c[k["name"]] for path, c in paths.items()}}
         if not all(k["launches_by_path"].values()):
             raise AssertionError(f"{k['name']}: not launched on every "
                                  f"path: {k['launches_by_path']}")
@@ -3073,7 +3598,8 @@ def main(argv=None):
     with open(os.path.join(_out_dir(), "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "kernels": kernels, "train": run,
                    "eager": eager, "cnn": cnn, "zero": zero,
-                   "sequence": sequence, "model": model}, f, indent=1)
+                   "sequence": sequence, "model": model, "adasum": adasum,
+                   "adasum_hierarchical": adasum_hier}, f, indent=1)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,7 +8,10 @@ and run on NCCL (``mpi_ops``, Horovod's torch surface with integer
 handles, over ``ops/eager.py`` and ``ops/controller.py``); ZeRO-1
 (``sharding``); process groups (``new_group``, ``grid``); and model
 parallelism (``parallel``: the mesh, ring, zigzag and Ulysses attention,
-tensor parallelism, the pipeline and the switch MoE).
+tensor parallelism, the pipeline and the switch MoE); Adasum
+(``op=hvd.Adasum``); elastic state with durable checkpoints
+(``elastic``, ``checkpoint``), the input pipeline (``utils.data``) and
+the training-loop helpers (``callbacks``).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 
     import horovod_tpu_torch as hvd
@@ -88,3 +91,4 @@ from horovod_tpu_torch.sharding import (  # noqa: F401
     shard_chunk_size,
 )
 from horovod_tpu_torch.sync_batch_norm import SyncBatchNorm  # noqa: F401
+from horovod_tpu_torch import callbacks, checkpoint, elastic  # noqa: F401,E402

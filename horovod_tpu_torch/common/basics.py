@@ -33,6 +33,14 @@ what this rank submitted before each of its collectives
 (``Controller.drain``).  ``shutdown`` stops the plane (a negotiated step:
 every rank calls it) before it destroys the groups.
 
+``HVD_ADASUM_HIERARCHICAL`` turns the eager plane's Adasum hierarchical
+over ``HVD_HIER_LOCAL_SIZE`` (default ``HVD_LOCAL_SIZE``) ranks a fast
+group: ``init`` then makes the ``(cross, local)`` grid of the hierarchy
+(``groups.grid``, before the sequence grid, in the same order on every
+rank) for the plane's executor.  A local size that gives no two-level
+hierarchy with a power-of-two cross size leaves Adasum flat, with a
+warning when it was set (reference: ``xla_executor.py:102-137``).
+
 ``HVD_TPU_EXECUTOR`` (``psum``, the default, or ``mesh``) picks the
 plane's executor: ``mesh`` runs it over a mesh's ``dp`` axis
 (``sharding/mesh_executor.py``); any other value raises.
@@ -64,6 +72,7 @@ under ``DistributedOptimizer(group=dp)`` on four cards (see
 """
 
 import dataclasses
+import logging
 import threading
 from datetime import timedelta
 
@@ -159,6 +168,12 @@ def init(device=None, store_path=None, timeout=timedelta(seconds=300)):
         _state = _State(rank, size, local_rank, local_size, cross_rank,
                         cross_size, device, controller, compression,
                         zero_min_size)
+        local = _adasum_local_size(size, local_size)
+        if local is not None:
+            hier = groups.grid(cross=size // local, local=local)
+            controller._executor.hierarchy = tuple(
+                groups.plane_group(hier.group(axis).gid)
+                for axis in ("local", "cross"))
         _state = dataclasses.replace(
             _state, sequence_group=groups.grid(sp=size).group("sp"))
 
@@ -178,6 +193,27 @@ def _validated_nonneg(name, default):
     if value < 0:
         raise ValueError(f"{name} must be >= 0, got {value}")
     return value
+
+
+def _adasum_local_size(size, local_size):
+    """The local size of hierarchical Adasum, or None for the flat path:
+    ``HVD_ADASUM_HIERARCHICAL`` unset, or a local size ``L`` (explicit
+    ``HVD_HIER_LOCAL_SIZE``, else the launcher's local size) that is not
+    ``1 < L < size`` with ``size / L`` a power of two."""
+    if not env_util.get_bool(env_util.HVD_ADASUM_HIERARCHICAL):
+        return None
+    explicit = env_util.get_int(env_util.HVD_HIER_LOCAL_SIZE, 0) or None
+    local = explicit or local_size
+    if 1 < local < size and size % local == 0:
+        cross = size // local
+        if cross & (cross - 1) == 0:
+            return local
+    if explicit is not None:
+        logging.getLogger("horovod_tpu_torch").warning(
+            "HVD_HIER_LOCAL_SIZE=%s does not define a two-level hierarchy "
+            "over %d ranks with a power-of-two cross size; hierarchical "
+            "Adasum will run the flat path", explicit, size)
+    return None
 
 
 def _validated_executor(name):

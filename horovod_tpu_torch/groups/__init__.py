@@ -27,7 +27,7 @@ need no communication).  The group ids are the reference's: a hash of
 the name and the member ids, the same on every rank.
 
 Not ported: ``reform`` and the sticky unsatisfiable state it creates,
-which belong to elastic reconfiguration (ROADMAP A.12); the port's
+which belong to elastic reconfiguration (ROADMAP A.13); the port's
 membership is the world of ``hvd.init()``, and a worker id is its rank.
 """
 
@@ -147,7 +147,7 @@ def new_group(ranks, name=None):
         raise HvdError(
             f"new_group: ranks {list(rank_list)} out of range for "
             f"world size {world}")
-    wids = rank_list   # a worker id is its rank until A.12
+    wids = rank_list   # a worker id is its rank until A.13
     if name is None:
         name = f"group.{rank_list[0]}-{rank_list[-1]}" \
                f".{_auto_seq(('ranks', rank_list))}"
@@ -310,7 +310,7 @@ def reform(members):
     reconfiguration, which is not ported yet."""
     raise NotImplementedError(
         "groups.reform: elastic reconfiguration is not ported yet "
-        "(ROADMAP A.12)")
+        "(ROADMAP A.13)")
 
 
 def reset():

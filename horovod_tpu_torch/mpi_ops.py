@@ -22,8 +22,9 @@ the in-place forms take it too, which the reference's do not;
 member) is the format on the wire of a reduction: a cast, or
 block-scaled int8 (``common/compression.py``).  ``group=`` (a
 ``ProcessGroup`` from ``hvd.new_group``/``hvd.grid``) runs a collective
-over the group's members alone (``ops/eager.py``).  Not in this slice,
-and refused rather than ignored: ``op=Adasum`` (ROADMAP A.11).
+over the group's members alone (``ops/eager.py``).  ``op=Adasum``
+combines the ranks' tensors with Adasum (``ops/adasum.py``), each tensor
+on its own and on the exact wire; ``reduce_scatter`` refuses it.
 """
 
 import time

@@ -23,7 +23,10 @@ rank's cycle thread
 4. fuses the allreduces by ``allreduce_bucket_key`` through
    ``plan_buckets`` up to ``HVD_FUSION_THRESHOLD`` bytes, and runs the
    collectives in that order on the data plane
-   (:class:`~horovod_tpu_torch.ops.nccl_executor.Executor`).
+   (:class:`~horovod_tpu_torch.ops.nccl_executor.Executor`).  An Adasum
+   request (``RequestType.ADASUM``) is validated as an allreduce and run
+   on its own, never fused (reference: ``python_controller.py:530-540,
+   694-695``).
 
 Process groups (``horovod_tpu_torch.groups``): a request's group id is
 part of its signature, and the table, the response cache and the
@@ -154,14 +157,15 @@ def validate(name, sigs, *, size, joined):
     dtypes = {s.dtype for s in sv}
     if len(dtypes) > 1:
         return f"mismatched dtypes for tensor '{name}': {sorted(dtypes)}"
-    if req_type in (RequestType.ALLREDUCE, RequestType.REDUCE_SCATTER):
+    if req_type in (RequestType.ALLREDUCE, RequestType.ADASUM,
+                    RequestType.REDUCE_SCATTER):
         if len({s.op for s in sv}) > 1:
             return f"mismatched reduce ops for tensor '{name}'"
         if len({s.prescale_factor for s in sv}) > 1 \
                 or len({s.postscale_factor for s in sv}) > 1:
             return f"mismatched scale factors for tensor '{name}'"
     shapes = {s.shape for s in sv}
-    if req_type == RequestType.ALLREDUCE:
+    if req_type in (RequestType.ALLREDUCE, RequestType.ADASUM):
         if len(shapes) > 1:
             return (f"mismatched shapes for allreduce '{name}': "
                     f"{sorted(shapes)}")
@@ -574,8 +578,11 @@ class Controller:
                 run.outputs = [(r, [o]) for r, o in results if r is not None]
             else:
                 (name, sigs), req = bucket[0], reqs[0]
-                t = req.tensor
-                if sig.req_type == RequestType.ALLGATHER:
+                t = None if req is None else req.tensor
+                if sig.req_type == RequestType.ADASUM:
+                    # one tensor, a joined rank's zeros included
+                    out = ex.adasum(t, sig.shape, _torch_dtype(sig.dtype))
+                elif sig.req_type == RequestType.ALLGATHER:
                     out = ex.allgather(t, [sigs[r].shape[0] for r in order])
                 elif sig.req_type == RequestType.BROADCAST:
                     out = ex.broadcast(t, sig.root_rank)
@@ -587,7 +594,7 @@ class Controller:
                         sig.compression)
                 results = [(req, out)]
                 run.outputs = [(req, [out[0] if isinstance(out, tuple)
-                                      else out])]
+                                      else out])] if req is not None else []
         return [(req, out, run.done) for req, out in results
                 if req is not None]
 

@@ -20,8 +20,13 @@ wait for the result.
 ``group=`` (a ``ProcessGroup`` from ``hvd.new_group``/``hvd.grid``) scopes
 a collective to the group's members: only they call it, ranks are
 global (a broadcast's root too), and an Average divides by the group's
-size; a non-member's call raises.  Not in this slice, and refused rather
-than ignored: ``op=Adasum`` (ROADMAP A.11).
+size; a non-member's call raises.
+
+``op=Adasum`` submits an ``ADASUM`` request, which the plane runs one
+tensor at a time (never fused: Adasum's coefficients belong to one
+tensor) and always on the exact wire, since Adasum combines full-precision
+vectors (reference: ``horovod_tpu/ops/eager.py:78-82,131-132``);
+``reduce_scatter`` refuses it.
 """
 
 import threading
@@ -57,11 +62,12 @@ def _resolve_op(op, average):
         raise ValueError("cannot specify both op and average")
     if op is None:
         op = Average if average in (None, True) else Sum
-    op = ReduceOp(op)
-    if op == Adasum:
-        raise NotImplementedError(
-            "op=Adasum is not ported yet (ROADMAP A.11)")
-    return op
+    return ReduceOp(op)
+
+
+def _reduction(op):
+    """The request type of a reduction with ``op``."""
+    return RequestType.ADASUM if op == Adasum else RequestType.ALLREDUCE
 
 
 def _group(group, name):
@@ -94,6 +100,8 @@ def _request(req_type, tensor, name, *, op=Sum, root_rank=-1,
     """``ready``: the event of a grouped submission, shared by its
     members; else one is recorded for this tensor."""
     state = basics._get_state()
+    if req_type == RequestType.ADASUM:
+        compression = "none"
     if not torch.is_tensor(tensor):
         raise TypeError(f"collective '{name}': expected a torch.Tensor, got "
                         f"{type(tensor).__name__}")
@@ -133,7 +141,7 @@ def allreduce_async(tensor, average=None, name=None, op=None,
     op = _resolve_op(op, average)
     name = name or _auto_name("allreduce")
     return _submit([_request(
-        RequestType.ALLREDUCE, tensor, name, op=op,
+        _reduction(op), tensor, name, op=op,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor,
         compression=compression, group=_group(group, name))])[0]
 
@@ -148,7 +156,7 @@ def grouped_allreduce_async(tensors, average=None, name=None, op=None,
     gid = _group(group, base)
     ready = _ready_event(basics.device())
     return _submit([_request(
-        RequestType.ALLREDUCE, t, f"{base}.{i}", op=op,
+        _reduction(op), t, f"{base}.{i}", op=op,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor,
         compression=compression, ready=ready, group=gid)
         for i, t in enumerate(tensors)])
@@ -163,6 +171,8 @@ def reduce_scatter_async(tensor, op=None, average=None, name=None,
     tensor (np.array_split partition: the first ``dim0 % size`` ranks get
     one extra row)."""
     op = _resolve_op(op, average)
+    if op == Adasum:
+        raise ValueError("reduce_scatter does not support the Adasum op")
     name = name or _auto_name("reduce_scatter")
     return _submit([_request(
         RequestType.REDUCE_SCATTER, tensor, name, op=op,

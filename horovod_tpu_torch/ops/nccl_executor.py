@@ -5,7 +5,8 @@ card, a CUDA stream of its own.
 Port of ``horovod_tpu/ops/xla_executor.py``: ``allreduce_fused`` (:242),
 ``allgather`` (:432), ``reduce_scatter`` (:499), ``broadcast`` (:602) and
 ``alltoall`` (:714), with NCCL in place of the jitted ``psum`` /
-``all_gather`` / ``psum_scatter`` programs.  The arithmetic around the
+``all_gather`` / ``psum_scatter`` programs, and ``adasum`` (:654).  The
+arithmetic around the
 collective is the reference's, in its order: prescale and the wire cast
 before the sum; the cast back, the average and the postscale after it.
 Integer tensors keep the sum exact and take all scaling once in float64,
@@ -21,6 +22,13 @@ each input was submitted at, and the inputs and outputs are marked with
 ``record_stream`` for the stream that uses them, so that the caching
 allocator does not hand their memory out early.  :meth:`Executor.run`
 returns the event at which the outputs are complete.
+
+Adasum runs one tensor at a time: flat, an ``all_gather`` of the ranks'
+contributions and the pairing tree on the stack; hierarchical, when
+``hvd.init`` set :attr:`Executor.hierarchy` (``HVD_ADASUM_HIERARCHICAL``,
+the world only: a process group's executor stays flat, as the
+reference's sub-executors do), ``ops/adasum.py``'s local
+reduce-scatter, cross VHDD and local all-gather.
 """
 
 import collections
@@ -35,6 +43,8 @@ from horovod_tpu_torch.common.compression import (all_gather_into,
                                                   reduce_scatter_into)
 from horovod_tpu_torch.common.ops_enum import (INT8_BLOCK, ReduceOp,
                                                reduce_scatter_split_sizes)
+from horovod_tpu_torch.ops.adasum import (adasum_reduce_hierarchical,
+                                         adasum_reduce_stacked)
 
 _WIRE = {"bf16": torch.bfloat16, "fp16": torch.float16}
 
@@ -65,6 +75,8 @@ class Executor:
                        else None)
         # reductions run, by the wire format they used
         self.wires = collections.Counter()
+        # (local group, cross group) of hierarchical Adasum, or None
+        self.hierarchy = None
 
     @contextlib.contextmanager
     def run(self, requests):
@@ -156,6 +168,28 @@ class Executor:
         if postscale != 1.0:
             flat.mul_(postscale)
         return flat
+
+    # --------------------------------------------------------------- adasum
+    def adasum(self, tensor, shape, dtype):
+        """Adasum of one tensor over the ranks (reference:
+        ``XlaExecutor.adasum``, ``xla_executor.py:654-707``); ``None``
+        where this rank has joined: zeros, which the zero-norm guard
+        turns into plain addition.  -> the result, new, the same on
+        every rank."""
+        total = math.prod(shape)
+        flat = (tensor.reshape(-1) if tensor is not None else
+                torch.zeros(total, dtype=dtype, device=self.device))
+        if self.hierarchy is not None:
+            local, cross = self.hierarchy
+            out = adasum_reduce_hierarchical(flat, local, cross,
+                                             scalar_group=self.group)
+        else:
+            stacked = torch.empty(self.size, total, dtype=dtype,
+                                  device=self.device)
+            all_gather_into(stacked.view(-1), flat.contiguous(),
+                            group=self.group)
+            out = adasum_reduce_stacked(stacked)
+        return out.view(shape)
 
     # ------------------------------------------------------------ allgather
     def allgather(self, tensor, dims0):

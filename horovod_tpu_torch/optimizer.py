@@ -41,6 +41,24 @@ Every collective here first waits for the eager plane to issue what this
 rank submitted to it (:meth:`ops.controller.Controller.drain`): the two
 use different communicators, and NCCL can deadlock when ranks launch the
 operations of two communicators in different orders.
+
+Adasum (``op=Adasum``, ``ops/adasum.py``) takes two forms, the
+reference's:
+
+- ``allreduce_gradients(grads, op=Adasum)`` is ``jax_api``'s
+  ``adasum_reduce_pytree``: each gradient on its own is compressed,
+  all-gathered over the group and reduced along the pairing tree, then
+  decompressed.  ``Compression.int8`` is its compressor's local round
+  trip there (quantize and dequantize), as the reference's pytree reduce
+  does (``common/compression.py:160-175``).
+- ``DistributedOptimizer(opt, op=Adasum)`` is the torch binding's
+  ``_DistributedAdasumOptimizer`` (``horovod_tpu/torch/optimizer.py:
+  142-176``): no gradient hooks; ``step()`` applies the wrapped
+  optimizer locally, Adasum-reduces each parameter's change through the
+  eager plane (``adasum.<name>``) and writes the start plus the reduced
+  change.  Every parameter that requires a gradient takes part (a zero
+  change where it has none), so that every rank submits every name.  All
+  of its collectives run on the plane: it has no second communicator.
 """
 
 import contextlib
@@ -49,13 +67,14 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from horovod_tpu_torch import groups
+from horovod_tpu_torch import groups, mpi_ops
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.compression import (
-    Compression, accumulate_int8, compressor_for, int8_chunk, is_quantized,
-    quantize_int8_blocks, quantized_all_gather)
+    Compression, accumulate_int8, all_gather_into, compressor_for,
+    int8_chunk, is_quantized, quantize_int8_blocks, quantized_all_gather)
 from horovod_tpu_torch.common.fusion import plan_buckets
 from horovod_tpu_torch.common.ops_enum import Adasum, Average, ReduceOp
+from horovod_tpu_torch.ops.adasum import adasum_reduce_stacked
 from horovod_tpu_torch.utils import env as env_util
 
 
@@ -78,13 +97,6 @@ def _compressor(compression):
 def _quantizes(tensor, compression):
     return getattr(compression, "block_quantized", False) \
         and is_quantized(tensor)
-
-
-def _check_op(op):
-    op = ReduceOp(op)
-    if op == Adasum:
-        raise NotImplementedError("Adasum is not ported yet (ROADMAP A.11)")
-    return op
 
 
 class _Bucket:
@@ -195,17 +207,56 @@ def allreduce_gradients(grads, op=Average, compression=Compression.none,
     """Reduce gradients across all ranks (``group``: across that
     ``ProcessGroup``'s members).  ``grads`` is a dict of tensors or a list
     of tensors; the result has the same structure, with new tensors."""
-    op = _check_op(op)
+    op = ReduceOp(op)
     compression = _compressor(compression)
     tg = groups.torch_group(group)
     keys = list(grads) if isinstance(grads, dict) else None
     tensors = [grads[k] for k in keys] if keys is not None else list(grads)
+    if op == Adasum:
+        reduced = [_adasum_gradient(t, compression, tg) for t in tensors]
+        return dict(zip(keys, reduced)) if keys is not None else reduced
     buckets = [_new_bucket([tensors[i] for i in idx], op, compression, tg)
                for idx in _plan(tensors, compression, _fusion_threshold())]
     for b in buckets:
         b.start()
     reduced = [t for b in buckets for t in b.wait()]
     return dict(zip(keys, reduced)) if keys is not None else reduced
+
+
+def _adasum_gradient(tensor, compression, group):
+    """One gradient through ``adasum_reduce_pytree``'s leaf reduce."""
+    compressed, ctx = compression.compress(tensor)
+    flat = compressed.reshape(-1).contiguous()
+    stacked = torch.empty((dist.get_world_size(group), flat.numel()),
+                          dtype=flat.dtype, device=flat.device)
+    _after_eager_plane()
+    all_gather_into(stacked.view(-1), flat, group=group)
+    reduced = adasum_reduce_stacked(stacked).view(compressed.shape)
+    return compression.decompress(reduced, ctx)
+
+
+def _parameter_names(optimizer, named_parameters):
+    """Parameter -> the name its collectives carry, the same on every
+    rank."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    if named_parameters is None:
+        # one global index across groups, so names never collide
+        return {p: f"allreduce.noname.{i}" for i, p in enumerate(params)}
+    named_parameters = list(named_parameters)
+    names = [k for k, _ in named_parameters]
+    dups = {n for n in names if names.count(n) > 1}
+    if dups:
+        # duplicate names would pair the wrong tensors across ranks
+        # (reference: horovod torch/__init__.py:84-90)
+        raise ValueError(
+            f"named_parameters contains duplicate names: {sorted(dups)}")
+    named = {v: k for k, v in named_parameters}
+    unnamed = [p for p in params if p not in named]
+    if unnamed:
+        raise ValueError(
+            f"named_parameters does not name {len(unnamed)} of the "
+            f"optimizer's parameters")
+    return named
 
 
 class _DistributedOptimizerMixin:
@@ -219,29 +270,9 @@ class _DistributedOptimizerMixin:
         self._average_aggregated_gradients = average_aggregated_gradients
         self._should_synchronize = True
 
-        params = [p for group in self.param_groups for p in group["params"]]
-        if named_parameters is not None:
-            named_parameters = list(named_parameters)
-            names = [k for k, _ in named_parameters]
-            dups = {n for n in names if names.count(n) > 1}
-            if dups:
-                # duplicate names would pair the wrong tensors across
-                # ranks (reference: horovod torch/__init__.py:84-90)
-                raise ValueError(
-                    f"named_parameters contains duplicate names: "
-                    f"{sorted(dups)}")
-            self._parameter_names = {v: k for k, v in named_parameters}
-            unnamed = [p for p in params if p not in self._parameter_names]
-            if unnamed:
-                raise ValueError(
-                    f"named_parameters does not name {len(unnamed)} of the "
-                    f"optimizer's parameters")
-        else:
-            # one global index across groups, so names never collide
-            self._parameter_names = {
-                p: f"allreduce.noname.{i}" for i, p in enumerate(params)}
-
-        self._requires_update = [p for p in params if p.requires_grad]
+        self._parameter_names = _parameter_names(self, named_parameters)
+        self._requires_update = [p for g in self.param_groups
+                                 for p in g["params"] if p.requires_grad]
         order = self._requires_update[::-1]
         self._buckets = [[order[i] for i in idx] for idx in _plan(
             order, compression, _fusion_threshold())]
@@ -331,6 +362,39 @@ class _DistributedOptimizerMixin:
         return super(_DistributedOptimizerMixin, self).step(closure)
 
 
+class _DistributedAdasumOptimizerMixin:
+    """``step()`` applies the wrapped optimizer locally, then replaces
+    each parameter's change by the Adasum of the ranks' changes (see the
+    module docstring)."""
+
+    def _hvd_init(self, named_parameters, group):
+        self._group = group
+        self._parameter_names = _parameter_names(self, named_parameters)
+        self._requires_update = [p for g in self.param_groups
+                                 for p in g["params"] if p.requires_grad]
+
+    def synchronize(self):
+        """Nothing to wait for: gradients are not reduced."""
+
+    @contextlib.contextmanager
+    def skip_synchronize(self):
+        yield
+
+    def step(self, closure=None):
+        params = self._requires_update
+        with torch.no_grad():
+            starting = [p.detach().clone() for p in params]
+        loss = super(_DistributedAdasumOptimizerMixin, self).step(closure)
+        with torch.no_grad():
+            handles = [mpi_ops.allreduce_async(
+                p.detach() - start, op=Adasum, group=self._group,
+                name=f"adasum.{self._parameter_names[p]}")
+                for p, start in zip(params, starting)]
+            for p, start, handle in zip(params, starting, handles):
+                p.copy_(start + mpi_ops.synchronize(handle).view(p.shape))
+        return loss
+
+
 def DistributedOptimizer(optimizer, named_parameters=None, op=Average,
                          compression=Compression.none,
                          backward_passes_per_step=1,
@@ -346,16 +410,26 @@ def DistributedOptimizer(optimizer, named_parameters=None, op=Average,
     gradient is divided by N, as ``optax.MultiSteps`` does in the JAX
     package; without it the N passes are summed (the JAX package's
     ``optax.scale(N)`` before ``MultiSteps``, ``jax_api.py:127-133``): the
-    ranks' reduction is taken over the sum of the passes.  Call
-    ``hvd.init()`` first."""
-    op = _check_op(op)
+    ranks' reduction is taken over the sum of the passes.
+
+    ``op=Adasum`` reduces each step's parameter changes instead, through
+    the eager plane (see the module docstring); ``compression`` and
+    ``backward_passes_per_step`` do not apply to it, as in the reference.
+    Call ``hvd.init()`` first."""
+    op = ReduceOp(op)
     compression = _compressor(compression)   # raises unless initialised
-    cls = type(optimizer.__class__.__name__,
-               (_DistributedOptimizerMixin, optimizer.__class__), {})
+    adasum = op == Adasum
+    mixin = (_DistributedAdasumOptimizerMixin if adasum
+             else _DistributedOptimizerMixin)
+    cls = type(optimizer.__class__.__name__, (mixin, optimizer.__class__),
+               {})
     optimizer.__class__ = cls
-    optimizer._hvd_init(named_parameters, compression,
-                        backward_passes_per_step, op,
-                        average_aggregated_gradients, group)
+    if adasum:
+        optimizer._hvd_init(named_parameters, group)
+    else:
+        optimizer._hvd_init(named_parameters, compression,
+                            backward_passes_per_step, op,
+                            average_aggregated_gradients, group)
     return optimizer
 
 

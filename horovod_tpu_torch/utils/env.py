@@ -4,7 +4,7 @@ The subset of ``horovod_tpu/utils/env.py`` that the port reads: the
 launcher -> worker rank contract, the fusion threshold, the job-wide
 default compression, ZeRO's replicated-update threshold, the cap on
 live process groups, the eager plane's executor and its cycle, cache and
-stall knobs.
+stall knobs, hierarchical Adasum, and durable checkpointing.
 Kept as a copy so that the port never imports the JAX package.
 """
 
@@ -29,6 +29,20 @@ HVD_TPU_GROUP_MAX = "HVD_TPU_GROUP_MAX"
 # the eager plane's executor: psum (over the world) | mesh (over a mesh's
 # dp axis, sharding/mesh_executor.py)
 HVD_TPU_EXECUTOR = "HVD_TPU_EXECUTOR"
+# ranks per fast group of the hierarchy (default: HVD_LOCAL_SIZE)
+HVD_HIER_LOCAL_SIZE = "HVD_HIER_LOCAL_SIZE"
+# opt-in hierarchical Adasum: Adasum of the local groups' averages, a
+# different result from the flat Adasum of every rank's tensor
+HVD_ADASUM_HIERARCHICAL = "HVD_ADASUM_HIERARCHICAL"
+
+# --- durable sharded checkpointing --------------------------------------------
+# checkpoint directory (unset = durable checkpointing off): each rank
+# writes its parameter and optimizer shard there from the commit snapshot
+HVD_TPU_CKPT_DIR = "HVD_TPU_CKPT_DIR"
+# commit-steps between checkpoint snapshots (default 10)
+HVD_TPU_CKPT_INTERVAL = "HVD_TPU_CKPT_INTERVAL"
+# complete checkpoints retained before pruning (default 2; 0 = keep all)
+HVD_TPU_CKPT_KEEP = "HVD_TPU_CKPT_KEEP"
 
 # --- launcher -> worker contract ---------------------------------------------
 HVD_RANK = "HVD_RANK"
@@ -48,6 +62,8 @@ DEFAULT_CACHE_CAPACITY = 1024
 DEFAULT_STALL_WARNING_SECONDS = 60
 DEFAULT_ZERO_MIN_SIZE = 1024  # flat params below this stay replicated
 DEFAULT_GROUP_MAX = 64  # live process groups per job
+DEFAULT_CKPT_INTERVAL_STEPS = 10
+DEFAULT_CKPT_KEEP = 2
 
 _warned = set()
 _warned_lock = threading.Lock()

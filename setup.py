@@ -81,6 +81,8 @@ setup(
         "horovod_tpu_torch.ops.cuda",
         "horovod_tpu_torch.parallel",
         "horovod_tpu_torch.sharding",
+        "horovod_tpu_torch.checkpoint",
+        "horovod_tpu_torch.elastic",
         "horovod_tpu_torch.utils",
     ],
     package_data={"horovod_tpu": ["lib/libhvdcore.so"],

@@ -11,7 +11,7 @@ per-thread auto-name counters start at 0 as the port's do.
 
 - The handle API (ranks, size, rank, membership, repr, the deterministic
   id), the auto-names, the cap on live groups and the error texts equal
-  the JAX ones; ``reform`` raises ``NotImplementedError`` naming A.12.
+  the JAX ones; ``reform`` raises ``NotImplementedError`` naming A.13.
 - ``hvd.grid(dp=2, tp=2, pp=2)`` at 8 ranks: axes, coords, every group's
   name, id and ranks, and the error texts, equal the JAX grid's.
 - ``group=`` on allreduce, broadcast, allgather, grouped_allgather,
@@ -400,7 +400,7 @@ def test_group_handle_api_matches_jax(port_runs, jax_hvd):
     kind, text = errors["cap"]
     assert kind == "HvdError" and "HVD_TPU_GROUP_MAX" in text
     assert errors["reform"][0] == "NotImplementedError"
-    assert "A.12" in errors["reform"][1]
+    assert "A.13" in errors["reform"][1]
 
 
 def test_group_cap_text_matches_jax(port_runs, jax_hvd, monkeypatch):

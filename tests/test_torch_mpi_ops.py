@@ -384,25 +384,17 @@ def one_rank():
 @pytest.mark.parametrize("call,roadmap", [
     (lambda t: hvd.allreduce(t, group=object()), "A.10"),
     (lambda t: hvd.allgather(t, group=object()), "A.10"),
-    (lambda t: hvd.allreduce(t, op=hvd.Adasum), "A.11"),
-    (lambda t: mpi_ops.allreduce(t, op=hvd.Adasum), "A.11"),
-    (lambda t: mpi_ops.allreduce_async_(t, op=hvd.Adasum), "A.11"),
 ])
 def test_unported_arguments_raise(one_rank, call, roadmap):
-    """An argument of a later slice raises ``NotImplementedError`` naming
-    its ROADMAP item.  ``group=`` is ported (A.10): anything but a
-    ``ProcessGroup`` there raises the reference's ``groups.resolve``
-    error."""
-    if roadmap == "A.10":
-        with pytest.raises(hvd.HvdError) as got:
-            call(torch.ones(3))
-        from horovod_tpu.groups import resolve as jax_resolve
-        with pytest.raises(Exception) as want:
-            jax_resolve(object())
-        assert str(got.value) == str(want.value)
-        return
-    with pytest.raises(NotImplementedError, match=roadmap):
+    """``group=`` is ported (A.10): anything but a ``ProcessGroup`` there
+    raises the reference's ``groups.resolve`` error.  (``op=Adasum`` is
+    ported too, A.11: ``tests/test_torch_adasum.py``.)"""
+    with pytest.raises(hvd.HvdError) as got:
         call(torch.ones(3))
+    from horovod_tpu.groups import resolve as jax_resolve
+    with pytest.raises(Exception) as want:
+        jax_resolve(object())
+    assert str(got.value) == str(want.value)
 
 
 def test_int8_at_one_rank_is_the_exact_wire(one_rank):

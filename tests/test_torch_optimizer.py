@@ -454,13 +454,6 @@ def test_broadcast_optimizer_state_keeps_root_values(one_rank):
                                        atol=0)
 
 
-def test_adasum_not_ported_yet(one_rank):
-    m = _model()
-    with pytest.raises(NotImplementedError):
-        hvd.DistributedOptimizer(torch.optim.SGD(m.parameters(), lr=0.1),
-                                 op=hvd.Adasum)
-
-
 def test_bf16_compressor_round_trip():
     t = torch.randn(7, dtype=torch.float32)
     c, ctx = Compression.bf16.compress(t)
