@@ -115,14 +115,35 @@ Phases, each of which must pass:
    commit, write and restore times and bytes; (d) phase 7's ResNet-50
    step fed by ``BatchIterator`` + ``prefetch_to_device``, by the
    iterator without prefetch and from a resident batch, in turns
-   (images/s per GPU); the prefetched batches equal the host's.
+   (images/s per GPU); the prefetched batches equal the host's;
+12. the launcher at ``min(cards, 4)`` ranks (one launched rank at one
+   card): (a) ``python -m horovod_tpu_torch.run -np W --output-filename
+   chiprun_out/launcher/train python chip_smoke.py --rank-of
+   launcher_train 8`` trains phase 5's main path (each rank its own
+   batch) for 5 steps: every kernel at its count a step, the loss
+   finite and falling, the parameters bitwise the same on every rank,
+   exit code 0; prints the time from the launcher's start to every
+   rank's ``hvd.init()`` returning, the median step beside phase 5's,
+   and the negotiation time a cycle with its HMAC share beside phase
+   6's; (b) ``run(fn, np=W)``: each rank's ``hvd.init()`` and an
+   allreduce on the card, the results in rank order, HMAC-checked; (c)
+   the last rank of a ``-np W`` job exits with 3 after ``init``: the
+   launcher returns 3 naming it, and no worker is alive after the grace
+   window; (d) the last rank with another ``HVD_SECRET_KEY``:
+   ``broadcast_object`` fails on the others with the HMAC error and
+   unpickles nothing (at one card two ranks share the card here: the
+   failing exchange is the plane's gloo metadata, no NCCL collective
+   runs).
 
+Phases 6 and 8-11 start their ranks above one card through the port's
+launcher (``run/launch.py::launch_job``, a rendezvous KV server and a
+job key of their own; rank logs under ``chiprun_out/ranks/<phase>``).
 Each phase's wall seconds are printed on a line of its own.
 
 Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` in
 phase 5's run, and ``launches_by_path``: phase 5's, phase 10's tp, MoE
-and pipeline runs' and phase 11's ``op=Adasum`` run's, each of which
-must be above 0), the
+and pipeline runs', phase 11's ``op=Adasum`` run's and phase 12's
+launched run's, each of which must be above 0), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that last line.  ``--profile`` adds one profiled step of phase 5, one of
@@ -131,14 +152,19 @@ ResNet-50, one of phase 9's zigzag transformer and one of each of phase
 """
 
 import argparse
+import contextlib
 import json
 import math
 import os
+import shlex
 import statistics
 import subprocess
 import sys
 import time
 
+# wall-clock time at which this process had its interpreter and this
+# module (standard library only) loaded: phase 12's ranks report it
+T_PROCESS = time.time()
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores
@@ -975,6 +1001,10 @@ def eager_checks(layers):
            "negotiation_ms_median": 1e3 * statistics.median(
                controller.negotiation_times()),
            "cycles": len(controller.negotiation_times()),
+           # each exchange's signing and checking (none at one rank)
+           "hmac_ms_median": (1e3 * statistics.median(
+               controller.hmac_times()) if controller.hmac_times()
+               else None),
            "cache_hits": controller.cache_hits, **int8_res}
     del grads
     checked += sync_batch_norm_under_optimizer()
@@ -1306,6 +1336,7 @@ def step_with_and_without_plane(layers, steps=6, pairs=3):
 
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.common.config import Config
     from horovod_tpu_torch.models import Transformer, TransformerConfig
 
     batch, seq = 8, 2048
@@ -1329,7 +1360,8 @@ def step_with_and_without_plane(layers, steps=6, pairs=3):
             basics._state = dataclasses.replace(
                 state, controller=basics._start_eager_plane(
                     state.rank, state.size, state.device,
-                    "nccl" if state.device.type == "cuda" else "gloo"))
+                    "nccl" if state.device.type == "cuda" else "gloo",
+                    Config.from_env(), state.key))
         controller = basics._get_state().controller
         if controller.is_running() != running:
             raise AssertionError(f"block {block}: the eager plane is "
@@ -1363,12 +1395,22 @@ def in_ranks(phase, layers, profile=False, world=None, env=None):
     """Run ``RANK_PHASES[phase](layers)`` (with ``profile=True`` when
     asked) on ``world`` ranks (default ``_world()``): in this process at
     one card (``hvd.init`` around it), else one process a card over NCCL
-    (two ranks on one card are refused by NCCL), each with ``env`` added
-    to its environment and printing its result as one ``RANK_RESULT``
-    line.  -> the ranks' results."""
-    import socket
+    (two ranks on one card are refused by NCCL), started by the port's
+    launcher (``run/launch.py::launch_job`` on ``allocate``'d local
+    slots, with a rendezvous KV server and a job key of their own), each
+    with ``env`` added to its environment and printing its result as
+    one ``RANK_RESULT`` line into its log (``chiprun_out/ranks/<phase>/
+    rank.<N>/stdout|stderr``).  A rank that fails fails the phase with
+    the logs of the ranks that printed no result.  -> the ranks'
+    results."""
+    import base64
 
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.run import allocate
+    from horovod_tpu_torch.run.http_server import RendezvousServer
+    from horovod_tpu_torch.run.launch import launch_job
+    from horovod_tpu_torch.run.service import secret
+    from horovod_tpu_torch.utils.logging import get_logger
 
     world = world or _world()
     if env and world == 1:
@@ -1379,34 +1421,66 @@ def in_ranks(phase, layers, profile=False, world=None, env=None):
             return [_run_phase(phase, layers, profile)]
         finally:
             hvd.shutdown()
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    procs = []
+    slots = allocate.allocate([allocate.HostInfo("localhost", world)], world)
+    logs = os.path.join(_out_dir(), "ranks", phase)
+    extra = {"HVD_SECRET_KEY": base64.b64encode(
+        secret.make_secret_key()).decode(), **(env or {})}
+    command = " ".join(shlex.quote(a) for a in _rank_argv(
+        phase, layers, profile))
+    get_logger()   # its handler writes to this script's stderr
+    server = RendezvousServer()
+    port = server.start()
     try:
-        for r in range(world):
-            rank_env = dict(os.environ, HVD_RANK=str(r),
-                            HVD_SIZE=str(world), HVD_LOCAL_RANK=str(r),
-                            HVD_LOCAL_SIZE=str(world),
-                            HVD_RENDEZVOUS_ADDR="127.0.0.1",
-                            HVD_RENDEZVOUS_PORT=str(port), **(env or {}))
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--rank-of",
-                 phase, str(layers)] + (["--profile"] if profile else []),
-                env=rank_env, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-        outs = [p.communicate(timeout=900)[0] for p in procs]
+        # the rank logs are the record; the console stays this script's
+        with open(os.devnull, "w") as null, \
+                contextlib.redirect_stdout(null), \
+                contextlib.redirect_stderr(null):
+            code = launch_job(slots, command, "127.0.0.1", port,
+                              extra_env=extra, output_filename=logs)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            raise AssertionError(f"{phase} rank {r} exited "
-                                 f"{p.returncode}:\n{out}")
-    return [json.loads(line.split(" ", 1)[1]) for out in outs
-            for line in out.splitlines() if line.startswith("RANK_RESULT ")]
+        server.stop()
+    return _rank_results(phase, logs, world, code)
+
+
+def _rank_argv(phase, layers, profile=False):
+    """One rank of ``phase``: this script with ``--rank-of``."""
+    return ([sys.executable, os.path.abspath(__file__), "--rank-of", phase,
+             str(layers)] + (["--profile"] if profile else []))
+
+
+def _rank_log(logs, r, world):
+    """(stdout, stderr) of rank ``r`` under the launcher's
+    ``--output-filename`` layout."""
+    rank_dir = os.path.join(logs, f"rank.{r:0{len(str(max(world - 1, 1)))}d}")
+    out = []
+    for name in ("stdout", "stderr"):
+        try:
+            with open(os.path.join(rank_dir, name)) as f:
+                out.append(f.read())
+        except FileNotFoundError:
+            out.append("")
+    return out
+
+
+def _rank_results(phase, logs, world, code):
+    """Each rank's ``RANK_RESULT``; the launcher's exit code ``code`` or
+    a rank without a result fails ``phase`` with the logs of the ranks
+    that printed none."""
+    results, missing = [], []
+    for r in range(world):
+        out, err = _rank_log(logs, r, world)
+        lines = [line for line in out.splitlines()
+                 if line.startswith("RANK_RESULT ")]
+        if lines:
+            results.append(json.loads(lines[-1].split(" ", 1)[1]))
+        else:
+            missing.append(f"--- rank {r} stdout (tail) ---\n{out[-4000:]}"
+                           f"\n--- rank {r} stderr (tail) ---\n"
+                           f"{err[-4000:]}")
+    if code != 0 or missing:
+        raise AssertionError(f"{phase}: the launcher exited {code}; ranks "
+                             f"without a result:\n" + "\n".join(missing))
+    return results
 
 
 def _run_phase(phase, layers, profile):
@@ -1428,11 +1502,15 @@ def _rank_of(phase, layers, profile):
     import horovod_tpu_torch as hvd
 
     faulthandler.dump_traceback_later(RANK_WATCHDOG_S, exit=True)
-    hvd.init()
-    try:
-        res = _run_phase(phase, layers, profile)
-    finally:
-        hvd.shutdown()
+    if phase in LAUNCHER_PHASES:
+        # phase 12's ranks make their own init and shutdown
+        res = RANK_PHASES[phase](layers)
+    else:
+        hvd.init()
+        try:
+            res = _run_phase(phase, layers, profile)
+        finally:
+            hvd.shutdown()
     print("RANK_RESULT " + json.dumps(res), flush=True)
     return 0
 
@@ -1445,7 +1523,10 @@ def eager_phase(smi, layers):
         print(f"eager rank {res['rank']} of {res['world']}: {res['checks']} "
               f"checks passed; negotiation median "
               f"{res['negotiation_ms_median']:.4f} ms over {res['cycles']} "
-              f"cycles; grouped_allreduce of {res['params']} fp32 gradients "
+              f"cycles (HMAC "
+              + (f"{res['hmac_ms_median'] * 1e3:.2f} us a cycle"
+                 if res["hmac_ms_median"] is not None else "none: one rank")
+              + f"); grouped_allreduce of {res['params']} fp32 gradients "
               f"{res['eager_ms']:.3f} ms ({res['eager_gb_s']:.1f} GB/s), "
               f"allreduce_gradients {res['direct_ms']:.3f} ms "
               f"({res['direct_gb_s']:.1f} GB/s); {res['cache_hits']} cache "
@@ -3315,9 +3396,337 @@ def adasum_phase(smi):
     return results, hier
 
 
+# phase 12: the launcher's grace window (HVD_TPU_TERM_GRACE) in (c), and
+# the HMAC timing's message size and repeats
+TERM_GRACE_S, HMAC_BYTES, HMAC_REPEATS = 5.0, 4096, 1000
+
+
+def _launcher_argv(world, logs, phase, layers=LAYERS, extra=()):
+    """``python -m horovod_tpu_torch.run -np world ...`` starting
+    ``--rank-of phase layers`` of this script on every rank."""
+    return ([sys.executable, "-m", "horovod_tpu_torch.run", "-np",
+             str(world), "--output-filename", logs, *extra]
+            + _rank_argv(phase, layers))
+
+
+def _launcher_cli(world, logs, phase, layers=LAYERS, extra=(),
+                  timeout=900):
+    """Run the launcher CLI from the repository's root; -> (its exit
+    code, its stdout and stderr)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(_launcher_argv(world, logs, phase, layers,
+                                           extra),
+                            cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        # SIGTERM: the launcher forwards it to its ranks and kills what
+        # outlives the grace window
+        proc.terminate()
+        out, err = proc.communicate(timeout=60)
+        raise AssertionError(f"{phase}: the launcher ran past {timeout} s:"
+                             f"\n{(out + err)[-4000:]}") from None
+    os.makedirs(logs, exist_ok=True)
+    with open(os.path.join(logs, "launcher.log"), "w") as f:
+        f.write(out + "\n--- stderr ---\n" + err)
+    return proc.returncode, out + err
+
+
+def launcher_train(layers):
+    """Phase 12 (a) on one rank that ``python -m horovod_tpu_torch.run``
+    started: phase 5's main path (``hvd.init()`` on the launcher's
+    contract, the full-width transformer, ``DistributedOptimizer(AdamW(
+    1e-4, wd 1e-4))``, ``[8, 2048]`` tokens a GPU, each rank its own),
+    ``STEPS`` steps.  The loss must be finite and fall, every kernel
+    launch its count a step, and the parameters be bitwise the same on
+    every rank.  -> the rank's numbers, with the wall-clock times at
+    which its interpreter had started (``T_PROCESS``), it had imported
+    torch and the port, and its ``hvd.init()`` returned."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.models import Transformer
+    from horovod_tpu_torch.ops import cuda as kernels
+
+    imported = time.time()
+    hvd.init()
+    init_done = time.time()
+    try:
+        r, n = hvd.rank(), hvd.size()
+        model = Transformer(main_config(layers), seed=0)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4,
+                              weight_decay=1e-4),
+            named_parameters=model.named_parameters())
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        tokens = torch.from_numpy(np.random.RandomState(r).randint(
+            0, VOCAB, (MAIN_BATCH, MAIN_SEQ))).to(hvd.device())
+        kernels.reset_launch_counts()
+        logits, losses, times = _timed_steps(model, opt, tokens, STEPS)
+        counts = kernels.launch_counts()
+        if tuple(logits.shape) != (MAIN_BATCH, MAIN_SEQ, VOCAB):
+            raise AssertionError(f"logits shape {tuple(logits.shape)}")
+        if not torch.isfinite(logits).all():
+            raise AssertionError("non-finite logits")
+        del logits
+        _same_on_every_rank("phase 12 parameters", _flat_params(model))
+        controller = basics._get_state().controller
+        negotiation, hmac_s = (controller.negotiation_times(),
+                               controller.hmac_times())
+    finally:
+        hvd.shutdown()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"rank {r}: loss not finite or not falling: "
+                             f"{losses}")
+    expect_launches(f"launched rank {r}", counts, per_step_launches(layers),
+                    STEPS)
+    return {"rank": r, "world": n, "started": T_PROCESS,
+            "imported": imported, "init_done": init_done,
+            "losses": losses, "step_s": times, "counts": counts,
+            "cycles": len(negotiation),
+            "negotiation_ms_median": (1e3 * statistics.median(negotiation)
+                                      if negotiation else None),
+            "hmac_ms_median": (1e3 * statistics.median(hmac_s)
+                               if hmac_s else None)}
+
+
+def launcher_fail(layers):
+    """Phase 12 (c) on one rank: after ``hvd.init()`` and one allreduce
+    (every rank's init done), the last rank exits with 3; the others
+    print their pids and wait to be terminated."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    r, n = hvd.rank(), hvd.size()
+    hvd.allreduce(torch.ones(1, device=hvd.device()), name="p12.ready")
+    print(f"PID {os.getpid()}", flush=True)
+    if r == n - 1:
+        os._exit(3)
+    time.sleep(RANK_WATCHDOG_S)
+    raise AssertionError(f"rank {r} was not terminated")
+
+
+def _trip(marker):
+    """Unpickling a ``_Tripwire`` calls this: it must never run."""
+    with open(marker, "w") as f:
+        f.write(str(os.getpid()))
+    return "unpickled"
+
+
+class _Tripwire:
+    def __init__(self, marker):
+        self.marker = marker
+
+    def __reduce__(self):
+        return _trip, (self.marker,)
+
+
+def launcher_key(layers):
+    """Phase 12 (d) on one rank: the last rank sets another
+    ``HVD_SECRET_KEY`` before ``hvd.init()``; every rank then calls
+    ``broadcast_object`` of an object whose unpickling would leave a
+    file.  -> the rank's error (None if the call returned)."""
+    import base64
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.run.service import secret
+
+    if int(os.environ["HVD_RANK"]) == int(os.environ["HVD_SIZE"]) - 1:
+        os.environ["HVD_SECRET_KEY"] = base64.b64encode(
+            secret.make_secret_key()).decode()
+    hvd.init()
+    r = hvd.rank()
+    marker = os.path.join(_out_dir(), "launcher", "key", f"tripped.{r}")
+    try:
+        hvd.broadcast_object(_Tripwire(marker), root_rank=0, name="p12.key")
+        error = None
+    except Exception as exc:  # noqa: BLE001 — the failure is the result
+        error = f"{type(exc).__name__}: {exc}"
+    finally:
+        hvd.shutdown()
+    return {"rank": r, "error": error, "tripped": os.path.exists(marker)}
+
+
+def run_fn_allreduce():
+    """Phase 12 (b), shipped by ``run(fn)``: ``hvd.init()``, then an
+    allreduce of ``rank + 1`` on the card.  -> (rank, the sum)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    try:
+        t = torch.full((1 << 20,), float(hvd.rank() + 1),
+                       device=hvd.device())
+        total = hvd.allreduce(t, op=hvd.Sum, name="p12.run_fn")
+        if not torch.equal(total, torch.full_like(t, total[0].item())):
+            raise AssertionError("allreduce result not uniform")
+        return hvd.rank(), total[0].item()
+    finally:
+        hvd.shutdown()
+
+
+def _alive(pid):
+    """Running and not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+def _hmac_us():
+    """Host time of the cycle's HMAC on a message of ``HMAC_BYTES``:
+    median of ``HMAC_REPEATS`` sign + check pairs, in us."""
+    from horovod_tpu_torch.run.service import secret
+
+    key, msg = secret.make_secret_key(), os.urandom(HMAC_BYTES)
+    times = []
+    for _ in range(HMAC_REPEATS):
+        t0 = time.perf_counter()
+        if not secret.check(key, msg, secret.sign(key, msg)):
+            raise AssertionError("HMAC check failed on its own digest")
+        times.append(time.perf_counter() - t0)
+    return 1e6 * statistics.median(times)
+
+
+def launcher_phase(smi, phase5_step_ms, phase6_negotiation_ms):
+    """Phase 12 at ``world = _world()`` ranks (one launched rank at one
+    card): (a) ``python -m horovod_tpu_torch.run`` trains phase 5's main
+    path (:func:`launcher_train`); (b) ``run(fn)`` of an allreduce on
+    the card, results in rank order; (c) a rank exits with 3: the
+    launcher returns 3 and names it, no rank outlives the grace window;
+    (d) one rank with another ``HVD_SECRET_KEY``: ``broadcast_object``
+    fails on the others with the HMAC error, nothing is unpickled (at
+    one card two ranks share it: the failing exchange is the plane's
+    gloo metadata, and no NCCL collective runs).  -> (a)'s results."""
+    from horovod_tpu_torch.run import run
+
+    import chip_smoke
+
+    world = _world()
+    out = os.path.join(_out_dir(), "launcher")
+    wall = {}
+
+    # (a) the CLI
+    t0 = time.time()
+    code, text = _launcher_cli(world, os.path.join(out, "train"),
+                               "launcher_train")
+    results = _rank_results("phase 12 (a)", os.path.join(out, "train"),
+                            world, code)
+    wall["a"] = time.time() - t0
+    to_init = max(res["init_done"] for res in results) - t0
+    for res in results:
+        steady = statistics.median(res["step_s"][1:])
+        neg = res["negotiation_ms_median"]
+        hm = res["hmac_ms_median"]
+        print(f"launcher rank {res['rank']} of {res['world']}: losses "
+              f"{[round(x, 4) for x in res['losses']]}; median step "
+              f"{steady * 1e3:.2f} ms (phase 5 in this run: "
+              f"{phase5_step_ms:.2f} ms); negotiation median "
+              + (f"{neg:.4f} ms over {res['cycles']} cycles, of which HMAC "
+                 f"{hm * 1e3:.2f} us" if hm is not None else
+                 f"{neg:.4f} ms over {res['cycles']} cycles (one rank: no "
+                 f"exchange, no HMAC)" if neg is not None else
+                 "(no cycle ran)")
+              + (f" (phase 6: {phase6_negotiation_ms:.4f} ms)"
+                 if phase6_negotiation_ms is not None else "")
+              + f"; launches {res['counts']} on {smi}", flush=True)
+    first = {k: min(res[k] for res in results) - t0
+             for k in ("started", "imported", "init_done")}
+    last = {k: max(res[k] for res in results) - t0
+            for k in ("started", "imported", "init_done")}
+    print(f"launcher: {world} rank(s), launcher start to every rank's "
+          f"hvd.init() returning {to_init:.2f} s: ranks' interpreters up "
+          f"at {first['started']:.2f}-{last['started']:.2f} s (the "
+          f"launcher's own start, its imports and the spawn), torch and "
+          f"the port imported at {first['imported']:.2f}-"
+          f"{last['imported']:.2f} s, init returned at "
+          f"{first['init_done']:.2f}-{last['init_done']:.2f} s; HMAC sign "
+          f"+ check of a "
+          f"{HMAC_BYTES}-byte message {_hmac_us():.2f} us (host, median of "
+          f"{HMAC_REPEATS}) on {smi}", flush=True)
+
+    # (b) run(fn)
+    t0 = time.time()
+    got = run(chip_smoke.run_fn_allreduce, np=world, extra_env={
+        "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))})
+    want = [(r, float(world * (world + 1) // 2)) for r in range(world)]
+    if [tuple(x) for x in got] != want:
+        raise AssertionError(f"run(fn): {got}, expected {want}")
+    wall["b"] = time.time() - t0
+    print(f"launcher: run(fn) on {world} rank(s) returned {got} in rank "
+          f"order, HMAC-checked, in {wall['b']:.2f} s", flush=True)
+
+    # (c) a failing rank
+    t0 = time.time()
+    logs = os.path.join(out, "fail")
+    code, text = _launcher_cli(
+        world, logs, "launcher_fail", 0,
+        extra=("--term-grace", str(TERM_GRACE_S)), timeout=300)
+    culprit = f"rank {world - 1} failed first (exit code 3)"
+    if code != 3 or culprit not in text:
+        raise AssertionError(f"phase 12 (c): launcher exited {code}, "
+                             f"expected 3 naming '{culprit}':\n"
+                             f"{text[-4000:]}")
+    pids = []
+    for r in range(world):
+        stdout, _ = _rank_log(logs, r, world)
+        pids += [int(line.split()[1]) for line in stdout.splitlines()
+                 if line.startswith("PID ")]
+    if len(pids) != world:
+        raise AssertionError(f"phase 12 (c): {len(pids)} pids of {world}")
+    deadline = time.time() + TERM_GRACE_S
+    while any(_alive(p) for p in pids) and time.time() < deadline:
+        time.sleep(0.1)
+    if any(_alive(p) for p in pids):
+        raise AssertionError(f"phase 12 (c): ranks alive after the grace "
+                             f"window: {[p for p in pids if _alive(p)]}")
+    wall["c"] = time.time() - t0
+    print(f"launcher: rank {world - 1} of {world} exited 3 after init: the "
+          f"launcher returned {code} naming it, and none of the {world} "
+          f"worker pid(s) is alive ({wall['c']:.2f} s)", flush=True)
+
+    # (d) a rank with another job key
+    t0 = time.time()
+    kworld = max(world, 2)
+    logs = os.path.join(out, "key")
+    code, text = _launcher_cli(kworld, logs, "launcher_key", 0,
+                               timeout=300)
+    keyed = _rank_results("phase 12 (d)", logs, kworld, code)
+    for res in keyed:
+        if res["error"] is None or "failed HMAC verification" not in \
+                res["error"] or res["tripped"]:
+            raise AssertionError(f"phase 12 (d): rank {res['rank']}: {res}")
+    for res in keyed[:-1]:
+        if f"rank {kworld - 1} failed HMAC" not in res["error"]:
+            raise AssertionError(f"phase 12 (d): rank {res['rank']} does "
+                                 f"not name rank {kworld - 1}: {res}")
+    wall["d"] = time.time() - t0
+    print(f"launcher: rank {kworld - 1} of {kworld} with another job key: "
+          f"broadcast_object failed on every rank ({keyed[0]['error']}), "
+          f"nothing unpickled ({wall['d']:.2f} s)", flush=True)
+    print(f"launcher: wall s { {k: round(v, 2) for k, v in wall.items()} }",
+          flush=True)
+    return {"world": world, "launch_to_init_s": to_init,
+            "launch_first_s": first, "launch_last_s": last,
+            "ranks": results,
+            "run_fn": got, "key_errors": [r["error"] for r in keyed],
+            "wall_s": wall}
+
+
 RANK_PHASES = {"eager": eager_checks, "zero": zero_checks,
                "sequence": sequence_checks, "model": model_parallel_checks,
-               "adasum": adasum_checks, "adasum_hier": adasum_hier_checks}
+               "adasum": adasum_checks, "adasum_hier": adasum_hier_checks,
+               "launcher_train": launcher_train,
+               "launcher_fail": launcher_fail, "launcher_key": launcher_key}
+# the ranks of these phases make their own hvd.init() and shutdown
+LAUNCHER_PHASES = ("launcher_train", "launcher_fail", "launcher_key")
 
 
 def _profile_step(model, opt, tokens):
@@ -3540,7 +3949,7 @@ def main(argv=None):
                     help="profile one extra training step of phases 5, 7, "
                     "9 and each run of 10")
     ap.add_argument("--rank-of", nargs=2, metavar=("PHASE", "LAYERS"),
-                    help=argparse.SUPPRESS)  # one rank of phase 6, 8-10
+                    help=argparse.SUPPRESS)  # one rank of phase 6, 8-12
     args = ap.parse_args(argv)
     if args.rank_of is not None:
         return _rank_of(args.rank_of[0], int(args.rank_of[1]), args.profile)
@@ -3584,10 +3993,15 @@ def main(argv=None):
     sequence = timed(9, sequence_phase, smi, args.profile)
     model = timed(10, model_parallel_phase, smi, args.profile)
     adasum, adasum_hier = timed(11, adasum_phase, smi)
+    _release()
+    launcher = timed(12, launcher_phase, smi,
+                     1e3 * statistics.median(run["step_s"][1:]),
+                     eager[0]["negotiation_ms_median"])
     paths = {"phase10_tp": model[0]["tp_dp2"]["counts"],
              "phase10_moe": model[0]["moe"]["counts"],
              "phase10_pp": model[0]["pipeline"]["counts"],
-             "phase11": adasum[0]["training"]["do_adasum"]["counts"]}
+             "phase11": adasum[0]["training"]["do_adasum"]["counts"],
+             "phase12": launcher["ranks"][0]["counts"]}
     for k in kernels:
         k["launches_by_path"] = {"phase5": k["launches"], **{
             path: c[k["name"]] for path, c in paths.items()}}
@@ -3599,7 +4013,8 @@ def main(argv=None):
         json.dump({"card": smi, "kernels": kernels, "train": run,
                    "eager": eager, "cnn": cnn, "zero": zero,
                    "sequence": sequence, "model": model, "adasum": adasum,
-                   "adasum_hierarchical": adasum_hier}, f, indent=1)
+                   "adasum_hierarchical": adasum_hier,
+                   "launcher": launcher}, f, indent=1)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -10,8 +10,10 @@ handles, over ``ops/eager.py`` and ``ops/controller.py``); ZeRO-1
 parallelism (``parallel``: the mesh, ring, zigzag and Ulysses attention,
 tensor parallelism, the pipeline and the switch MoE); Adasum
 (``op=hvd.Adasum``); elastic state with durable checkpoints
-(``elastic``, ``checkpoint``), the input pipeline (``utils.data``) and
-the training-loop helpers (``callbacks``).
+(``elastic``, ``checkpoint``), the input pipeline (``utils.data``),
+the training-loop helpers (``callbacks``) and the launcher (``run``:
+``hvdrun-torch`` / ``python -m horovod_tpu_torch.run``, and
+``run.run(fn)``).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 
     import horovod_tpu_torch as hvd

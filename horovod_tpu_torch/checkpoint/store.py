@@ -104,8 +104,9 @@ def read_shard(directory, step, epoch, world, rank) -> dict:
             f"{name}: codec {codec!r} cannot be read here (only "
             f"{CODEC!r}; flax msgpack is not ported)")
     try:
-        # a local checkpoint file of this job, sha256-verified against
-        # its sidecar before it reaches the unpickler
+        # wire-safe: not wire input — a local checkpoint file this job
+        # (or a prior incarnation of it) wrote, sha256-verified against
+        # its meta sidecar before it reaches the unpickler
         return pickle.loads(blob)
     except Exception as exc:  # noqa: BLE001 — an undecodable payload
         raise CorruptShardError(f"{name}: undecodable: {exc}") from exc

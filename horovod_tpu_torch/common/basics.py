@@ -1,16 +1,32 @@
 """Process model on ``torch.distributed``: ``init`` / ``rank`` / ``size`` / ...
 
 Port of ``horovod_tpu/common/basics.py``.  One process is one rank.  The
-rank layout comes from the launcher contract (``HVD_RANK``, ``HVD_SIZE``,
-``HVD_LOCAL_RANK``, ``HVD_LOCAL_SIZE``, ``HVD_CROSS_*``); without it the
-job is one rank.
+rank layout comes from ``common/topology.py::from_env``: the launcher
+contract (``HVD_RANK``, ``HVD_SIZE``, ``HVD_LOCAL_RANK``,
+``HVD_LOCAL_SIZE``, ``HVD_CROSS_*``), else the MPI runtime's placement
+under ``hvdrun-torch --launcher mpirun|jsrun``; without either the job
+is one rank.  The knobs below are read once, through
+``common/config.py::Config``.
 
 Rendezvous, in order of precedence:
 
 - ``store_path``: a ``FileStore`` on a file every rank can see;
-- ``HVD_RENDEZVOUS_ADDR`` / ``HVD_RENDEZVOUS_PORT``: rank 0 hosts a
-  ``TCPStore`` there;
+- ``HVD_RENDEZVOUS_ADDR`` / ``HVD_RENDEZVOUS_PORT``: the launcher's KV
+  server (``run/http_server.py``), as in the reference's contract
+  (``horovod_tpu/common/distributed.py:75-95``): rank 0 reserves a free
+  port, publishes ``host:port`` under the scope ``torchdist`` and hosts a
+  ``TCPStore`` there; the other ranks read the address from the KV,
+  waiting up to ``HVD_START_TIMEOUT`` seconds (default 120);
 - world size 1: an in-process ``HashStore``.
+
+The job key signs the bytes that ranks unpickle from each other (the
+eager plane's cycle messages, ``broadcast_object``): ``HVD_SECRET_KEY``
+(base64; the launcher sets it), else, on a loopback rendezvous, under
+``store_path`` or at one rank, a key derived from the rendezvous
+location.  A rendezvous on another address without ``HVD_SECRET_KEY``
+raises: a key anyone can derive from public values would let whoever
+reaches the port drive the unpickler (reference:
+``ops/global_controller.py:676-695``).
 
 The backend is NCCL on the card (the default) and gloo only when the
 caller asks for the CPU.  Asking for the card on a machine without one
@@ -71,8 +87,12 @@ under ``DistributedOptimizer(group=dp)`` on four cards (see
 ``parallel/_comm.py``).
 """
 
+import base64
+import binascii
 import dataclasses
+import hashlib
 import logging
+import socket
 import threading
 from datetime import timedelta
 
@@ -80,13 +100,20 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch import groups
-from horovod_tpu_torch.common.compression import resolve_compression
+from horovod_tpu_torch.common import topology
+from horovod_tpu_torch.common.config import Config
 from horovod_tpu_torch.ops.controller import Controller
 from horovod_tpu_torch.ops.nccl_executor import Executor
 from horovod_tpu_torch.utils import env as env_util
 
 _state = None
 _state_lock = threading.Lock()
+# inits this process has made: each publishes rank 0's store under its
+# own key, so that a later init never reads an earlier one's address
+_generation = 0
+
+STORE_SCOPE = "torchdist"
+LOOPBACK = ("localhost", "127.0.0.1", "::1")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +128,7 @@ class _State:
     controller: object   # ops.controller.Controller, the eager plane
     compression: str     # the job's default (HVD_TPU_COMPRESSION)
     zero_min_size: int   # HVD_TPU_ZERO_MIN_SIZE
+    key: bytes           # the job key (HVD_SECRET_KEY or derived)
     # the default sequence axis (parallel/_comm.py): the ``sp`` group of
     # a one-axis grid over the world, a groups.ProcessGroup
     sequence_group: object = None
@@ -120,24 +148,23 @@ def resolve_device(device=None):
 
 def init(device=None, store_path=None, timeout=timedelta(seconds=300)):
     """Join the job.  ``device`` is ``"cuda"`` (default) or ``"cpu"``."""
-    global _state
+    global _state, _generation
     with _state_lock:
         if _state is not None:
             return
         device = resolve_device(device)
-        rank = env_util.get_int(env_util.HVD_RANK, 0)
-        size = env_util.get_int(env_util.HVD_SIZE, 1)
-        local_rank = env_util.get_int(env_util.HVD_LOCAL_RANK, rank)
-        local_size = env_util.get_int(env_util.HVD_LOCAL_SIZE, size)
-        cross_rank = env_util.get_int(env_util.HVD_CROSS_RANK, 0)
-        cross_size = env_util.get_int(env_util.HVD_CROSS_SIZE, 1)
+        topo = topology.from_env()
+        if topo is None:
+            rank, size, local_rank, local_size = 0, 1, 0, 1
+            cross_rank, cross_size = 0, 1
+        else:
+            rank, size = topo.rank, topo.size
+            local_rank, local_size = topo.local_rank, topo.local_size
+            cross_rank, cross_size = topo.cross_rank, topo.cross_size
         if not 0 <= rank < size:
             raise ValueError(f"HVD_RANK={rank} outside HVD_SIZE={size}")
-        compression = default_compression()
-        executor = _validated_executor(env_util.get_str(
-            env_util.HVD_TPU_EXECUTOR, "psum"))
-        zero_min_size = _validated_nonneg(env_util.HVD_TPU_ZERO_MIN_SIZE,
-                                          env_util.DEFAULT_ZERO_MIN_SIZE)
+        config = Config.from_env()
+        key = job_key(store_path, size)
         if device.type == "cuda":
             if device.index is None:
                 device = torch.device("cuda", local_rank
@@ -150,25 +177,26 @@ def init(device=None, store_path=None, timeout=timedelta(seconds=300)):
             if store_path is not None:
                 store = dist.FileStore(str(store_path), size)
             elif addr is not None and size > 1:
-                store = dist.TCPStore(
+                _generation += 1
+                store = _kv_rendezvous(
                     addr, env_util.get_int(env_util.HVD_RENDEZVOUS_PORT),
-                    size, is_master=rank == 0, timeout=timeout)
+                    rank, size, config.start_timeout_seconds, timeout)
             elif size == 1:
                 store = dist.HashStore()
             else:
                 raise RuntimeError(
                     f"HVD_SIZE={size} needs a rendezvous: pass store_path= "
-                    f"or set {env_util.HVD_RENDEZVOUS_ADDR}/"
-                    f"{env_util.HVD_RENDEZVOUS_PORT}")
+                    f"or start the ranks with the launcher "
+                    f"(python -m horovod_tpu_torch.run)")
             dist.init_process_group(backend, store=store, rank=rank,
                                     world_size=size, timeout=timeout)
         groups.reset()
         controller = _start_eager_plane(rank, size, device, backend,
-                                        executor)
+                                        config, key)
         _state = _State(rank, size, local_rank, local_size, cross_rank,
-                        cross_size, device, controller, compression,
-                        zero_min_size)
-        local = _adasum_local_size(size, local_size)
+                        cross_size, device, controller, config.compression,
+                        config.zero_min_size, key)
+        local = _adasum_local_size(size, local_size, config)
         if local is not None:
             hier = groups.grid(cross=size // local, local=local)
             controller._executor.hierarchy = tuple(
@@ -178,31 +206,107 @@ def init(device=None, store_path=None, timeout=timedelta(seconds=300)):
             _state, sequence_group=groups.grid(sp=size).group("sp"))
 
 
+def job_key(store_path=None, size=1):
+    """The job key: ``HVD_SECRET_KEY`` (base64), else derived from the
+    rendezvous location where that is safe (a loopback rendezvous, a
+    ``store_path``, one rank); a rendezvous on another address without
+    the variable raises."""
+    supplied = env_util.get_str(env_util.HVD_SECRET_KEY)
+    if supplied:
+        try:
+            return base64.b64decode(supplied, validate=True)
+        except binascii.Error as exc:
+            raise ValueError(
+                f"{env_util.HVD_SECRET_KEY} is not base64: {exc}") from None
+    addr = env_util.get_str(env_util.HVD_RENDEZVOUS_ADDR)
+    if store_path is not None:
+        seed = f"file:{store_path}"
+    elif addr is None or addr in LOOPBACK or size == 1:
+        seed = (f"{addr or 'local'}:"
+                f"{env_util.get_str(env_util.HVD_RENDEZVOUS_PORT, '0')}")
+    else:
+        raise RuntimeError(
+            f"the rendezvous {addr} is not loopback and "
+            f"{env_util.HVD_SECRET_KEY} is not set: refusing to derive the "
+            f"job key from public values (the launcher, python -m "
+            f"horovod_tpu_torch.run, sets {env_util.HVD_SECRET_KEY})")
+    return hashlib.sha256(seed.encode()).digest()
+
+
+def _reserve_port():
+    """Bind a free port and keep the socket open; the caller closes it
+    just before the store binds the port, so the window in which another
+    process can take it is microseconds (reference:
+    ``horovod_tpu/common/distributed.py:27-36``)."""
+    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    s.bind(("", 0))
+    return s, s.getsockname()[1]
+
+
+def _my_address():
+    """The address the other ranks use to reach rank 0's store: the
+    address of ``HVD_IFACE`` if set, loopback under a loopback
+    rendezvous, else the host name's (reference:
+    ``horovod_tpu/common/distributed.py:39-55``)."""
+    iface = env_util.get_str(env_util.HVD_IFACE)
+    if iface:
+        from horovod_tpu_torch.run.service import network
+        ip = network.local_interfaces().get(iface)
+        if ip:
+            return ip
+    if env_util.get_str(env_util.HVD_RENDEZVOUS_ADDR, "") in LOOPBACK:
+        return "127.0.0.1"
+    try:
+        return socket.gethostbyname(socket.gethostname())
+    except OSError:
+        return "127.0.0.1"
+
+
+def _kv_rendezvous(addr, port, rank, size, start_timeout, timeout):
+    """``torch.distributed``'s store through the launcher's KV: rank 0
+    hosts a ``TCPStore`` on a port it reserved and publishes its address
+    under ``STORE_SCOPE``; the others read it (waiting up to
+    ``start_timeout`` seconds) and connect."""
+    from horovod_tpu_torch.run import http_client
+
+    name = f"store.{_generation}"
+    if rank == 0:
+        reserved, store_port = _reserve_port()
+        host = _my_address()
+        http_client.put(addr, port, STORE_SCOPE, name,
+                        f"{host}:{store_port}".encode())
+        reserved.close()
+        return dist.TCPStore(host, store_port, size, is_master=True,
+                             timeout=timeout)
+    try:
+        where = http_client.get(addr, port, STORE_SCOPE, name,
+                                timeout=start_timeout).decode()
+    except KeyError:
+        raise TimeoutError(
+            f"rank {rank}: rank 0 published no store address at the "
+            f"rendezvous {addr}:{port} within {start_timeout:g} s "
+            f"({env_util.HVD_START_TIMEOUT})") from None
+    host, _, store_port = where.rpartition(":")
+    return dist.TCPStore(host, int(store_port), size, is_master=False,
+                         timeout=timeout)
+
+
 def default_compression():
-    """``HVD_TPU_COMPRESSION``'s canonical name (``"none"`` when unset);
-    a typo raises ``ValueError`` rather than leaving every reduction
-    uncompressed (reference: ``common/config.py:_validated_compression``)."""
-    return resolve_compression(
-        env_util.get_str(env_util.HVD_TPU_COMPRESSION, "none"))
+    """``HVD_TPU_COMPRESSION``'s canonical name (``"none"`` when unset),
+    as ``Config`` reads it: a typo raises ``ValueError`` rather than
+    leaving every reduction uncompressed."""
+    return Config.from_env().compression
 
 
-def _validated_nonneg(name, default):
-    """A negative count raises at ``init`` (reference:
-    ``common/config.py:_validated_nonneg``)."""
-    value = env_util.get_int(name, default)
-    if value < 0:
-        raise ValueError(f"{name} must be >= 0, got {value}")
-    return value
-
-
-def _adasum_local_size(size, local_size):
+def _adasum_local_size(size, local_size, config):
     """The local size of hierarchical Adasum, or None for the flat path:
     ``HVD_ADASUM_HIERARCHICAL`` unset, or a local size ``L`` (explicit
     ``HVD_HIER_LOCAL_SIZE``, else the launcher's local size) that is not
     ``1 < L < size`` with ``size / L`` a power of two."""
-    if not env_util.get_bool(env_util.HVD_ADASUM_HIERARCHICAL):
+    if not config.adasum_hierarchical:
         return None
-    explicit = env_util.get_int(env_util.HVD_HIER_LOCAL_SIZE, 0) or None
+    explicit = config.hier_local_size or None
     local = explicit or local_size
     if 1 < local < size and size % local == 0:
         cross = size // local
@@ -216,24 +320,16 @@ def _adasum_local_size(size, local_size):
     return None
 
 
-def _validated_executor(name):
-    """An ``HVD_TPU_EXECUTOR`` typo must not silently run the default
-    plane (reference: ``common/config.py:_validated_executor``)."""
-    if name not in ("psum", "mesh"):
-        raise ValueError(
-            f"HVD_TPU_EXECUTOR must be 'psum' or 'mesh', got {name!r}")
-    return name
-
-
-def _start_eager_plane(rank, size, device, backend, executor="psum"):
+def _start_eager_plane(rank, size, device, backend, config, key):
     meta = dist.new_group(backend="gloo")
     data = dist.new_group(backend=backend)
-    if executor == "mesh":
+    if config.executor == "mesh":
         from horovod_tpu_torch.sharding.mesh_executor import MeshExecutor
         cls = MeshExecutor
     else:
         cls = Executor
-    controller = Controller(rank, size, meta, cls(data, rank, size, device))
+    controller = Controller(rank, size, meta, cls(data, rank, size, device),
+                            key, config)
     controller.start()
     return controller
 

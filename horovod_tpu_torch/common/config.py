@@ -1,0 +1,101 @@
+"""Runtime configuration, resolved from env vars at ``hvd.init()`` time
+(port of ``horovod_tpu/common/config.py``; reference: knob parsing in
+``horovod/common/operations.cc:404-500``).
+
+Only the fields of the knobs the port reads at ``init`` are here: the
+eager plane's fusion threshold, cycle time, cache capacity and stall
+warning, the job's default compression, the plane's executor, ZeRO's
+replicated-update threshold, hierarchical Adasum with its local size,
+and the gang-start deadline of the rendezvous.  Field names, defaults
+and validation texts are the reference's; ``hier_local_size`` and
+``start_timeout_seconds`` have no reference field (the reference reads
+those two variables where it uses them).  The reference's other fields
+join with the module that reads them (ROADMAP A.13-A.14).
+"""
+
+import dataclasses
+
+from horovod_tpu_torch.utils import env as env_util
+
+
+@dataclasses.dataclass
+class Config:
+    fusion_threshold_bytes: int = env_util.DEFAULT_FUSION_THRESHOLD
+    cycle_time_ms: float = env_util.DEFAULT_CYCLE_TIME_MS
+    cache_capacity: int = env_util.DEFAULT_CACHE_CAPACITY
+    stall_check_disable: bool = False
+    stall_warning_seconds: float = env_util.DEFAULT_STALL_WARNING_SECONDS
+    # Opt-in: hierarchical Adasum changes the result (Adasum of the
+    # local groups' averages), it is not a schedule-only switch.
+    adasum_hierarchical: bool = False
+    # ranks per fast group of the hierarchy (0: the launcher's local
+    # size)
+    hier_local_size: int = 0
+    # Default on-the-wire allreduce compression ("none" | "bf16" |
+    # "fp16" | "int8") for requests that don't pass one explicitly.
+    compression: str = "none"
+    # the eager plane's executor: "psum" over the world, "mesh" over a
+    # mesh's dp axis (sharding/mesh_executor.py)
+    executor: str = "psum"
+    # flat parameter count below which ZeroDistributedOptimizer keeps
+    # the update replicated
+    zero_min_size: int = env_util.DEFAULT_ZERO_MIN_SIZE
+    # how long a rank waits for rank 0's store address at the rendezvous
+    start_timeout_seconds: float = env_util.DEFAULT_START_TIMEOUT_SECONDS
+
+    @classmethod
+    def from_env(cls) -> "Config":
+        return cls(
+            fusion_threshold_bytes=env_util.get_int(
+                env_util.HVD_FUSION_THRESHOLD,
+                env_util.DEFAULT_FUSION_THRESHOLD),
+            cycle_time_ms=env_util.get_float(
+                env_util.HVD_CYCLE_TIME, env_util.DEFAULT_CYCLE_TIME_MS),
+            cache_capacity=env_util.get_int(
+                env_util.HVD_CACHE_CAPACITY, env_util.DEFAULT_CACHE_CAPACITY),
+            stall_check_disable=env_util.get_bool(
+                env_util.HVD_STALL_CHECK_DISABLE),
+            stall_warning_seconds=env_util.get_float(
+                env_util.HVD_STALL_CHECK_TIME_SECONDS,
+                env_util.DEFAULT_STALL_WARNING_SECONDS),
+            adasum_hierarchical=env_util.get_bool(
+                env_util.HVD_ADASUM_HIERARCHICAL),
+            hier_local_size=env_util.get_int(
+                env_util.HVD_HIER_LOCAL_SIZE, 0),
+            compression=_validated_compression(env_util.get_str(
+                env_util.HVD_TPU_COMPRESSION, "none")),
+            executor=_validated_executor(env_util.get_str(
+                env_util.HVD_TPU_EXECUTOR, "psum")),
+            zero_min_size=_validated_nonneg(
+                env_util.HVD_TPU_ZERO_MIN_SIZE,
+                env_util.DEFAULT_ZERO_MIN_SIZE),
+            start_timeout_seconds=env_util.get_float(
+                env_util.HVD_START_TIMEOUT,
+                env_util.DEFAULT_START_TIMEOUT_SECONDS),
+        )
+
+
+def _validated_nonneg(name, default):
+    """A negative count fails at init() like the other validated
+    knobs."""
+    value = env_util.get_int(name, default)
+    if value < 0:
+        raise ValueError(f"{name} must be >= 0, got {value}")
+    return value
+
+
+def _validated_executor(name: str) -> str:
+    """Same fail-at-init rule: an HVD_TPU_EXECUTOR typo must not
+    silently run the default data plane."""
+    if name not in ("psum", "mesh"):
+        raise ValueError(
+            f"HVD_TPU_EXECUTOR must be 'psum' or 'mesh', got {name!r}")
+    return name
+
+
+def _validated_compression(name: str) -> str:
+    """Fail at init() with a clear message rather than at the first
+    allreduce when HVD_TPU_COMPRESSION holds a typo."""
+    from horovod_tpu_torch.common.compression import resolve_compression
+
+    return resolve_compression(name)

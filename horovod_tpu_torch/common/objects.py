@@ -1,7 +1,12 @@
 """Pickled-object broadcast over the eager plane (port of
 ``horovod_tpu/common/objects.py``; reference:
 ``horovod/torch/__init__.py:608`` broadcast_object: pickle to a byte
-tensor, broadcast the length, then the payload)."""
+tensor, broadcast the length, then the payload).
+
+The root signs the pickle with the job key (``basics.job_key``) and
+every rank checks the digest before it unpickles: gloo and NCCL carry no
+authentication, and the reference unpickles only bytes that came
+through its HMAC-verified frames (``horovod_tpu/common/objects.py``)."""
 
 import pickle
 
@@ -9,6 +14,7 @@ import torch
 
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.ops import eager
+from horovod_tpu_torch.run.service import secret
 
 
 def broadcast_object(obj, root_rank=0, name=None):
@@ -18,8 +24,10 @@ def broadcast_object(obj, root_rank=0, name=None):
     payload."""
     name = name or "bcast_object"
     dev = basics.device()
+    key = basics._get_state().key
     if basics.rank() == root_rank:
         data = pickle.dumps(obj)
+        data = secret.sign(key, data) + data
         payload = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
         length = torch.tensor([len(data) & 0x7FFFFFFF, len(data) >> 31],
                               dtype=torch.int32, device=dev)
@@ -33,5 +41,11 @@ def broadcast_object(obj, root_rank=0, name=None):
                               dtype=torch.uint8, device=dev)
     out = eager.wait(eager.broadcast_async(payload, root_rank,
                                           name=f"{name}.data"))
-    # the bytes come from this job's own ranks over its process group
-    return pickle.loads(out.cpu().numpy().tobytes())
+    blob = out.cpu().numpy().tobytes()
+    digest, data = blob[:secret.DIGEST_LEN], blob[secret.DIGEST_LEN:]
+    if not secret.check(key, data, digest):
+        raise PermissionError(
+            f"broadcast_object '{name}' from root rank {root_rank} failed "
+            f"HMAC verification on rank {basics.rank()}: the ranks' job "
+            f"keys differ (HVD_SECRET_KEY)")
+    return pickle.loads(data)

@@ -9,9 +9,14 @@ rank's cycle thread
 1. contributes the signatures of its newly submitted requests (type,
    name, dtype, shape, op, root, scales, splits, compression; for a name
    the response cache holds with the same signature, the entry's id in
-   their place), its join flag and its shutdown flag: pickled into a
-   fixed slot of bytes, one ``all_gather`` on a gloo group of the
-   plane's own (a second one when a message outgrows its slot);
+   their place), its join flag and its shutdown flag: pickled, signed
+   with the job key (HMAC-SHA256, ``run/service/secret.py``) and put
+   into a fixed slot of bytes, one ``all_gather`` on a gloo group of the
+   plane's own (a second one when a message outgrows its slot); each
+   rank checks every message's digest before it unpickles any, and a
+   digest that does not verify fails the cycle with an error naming the
+   sender (gloo carries no authentication; the reference unpickles only
+   HMAC-verified frames, ``horovod_tpu/run/service/network.py``);
 2. adds them to a table of names that every rank holds identically (the
    same gathered data, absorbed in the same order), and takes, in the
    table's order, the names that every rank that has not joined has
@@ -89,7 +94,7 @@ from horovod_tpu_torch.common.handles import Handle
 from horovod_tpu_torch.common.ops_enum import ReduceOp, RequestType
 from horovod_tpu_torch.common.response_cache import SignatureCache
 from horovod_tpu_torch.ops.nccl_executor import Executor, all_gather_into
-from horovod_tpu_torch.utils import env as env_util
+from horovod_tpu_torch.run.service import secret
 
 _log = logging.getLogger("horovod_tpu_torch")
 SHUT_DOWN = "horovod_tpu_torch has been shut down"
@@ -221,21 +226,19 @@ class _Entry:
 class Controller:
     """One rank's side of the negotiation; see the module docstring."""
 
-    def __init__(self, rank, size, meta_group, executor):
+    def __init__(self, rank, size, meta_group, executor, key, config):
+        """``key``: the job key the cycle messages are signed with;
+        ``config``: the knobs (``common/config.py::Config``)."""
         self.rank = rank
         self.size = size
         self._meta = meta_group
         self._executor = executor
-        self._cycle_s = env_util.get_float(
-            env_util.HVD_CYCLE_TIME, env_util.DEFAULT_CYCLE_TIME_MS) / 1e3
-        self._threshold = env_util.get_int(env_util.HVD_FUSION_THRESHOLD,
-                                           env_util.DEFAULT_FUSION_THRESHOLD)
-        self._stall_s = (None if env_util.get_bool(
-            env_util.HVD_STALL_CHECK_DISABLE) else env_util.get_float(
-            env_util.HVD_STALL_CHECK_TIME_SECONDS,
-            env_util.DEFAULT_STALL_WARNING_SECONDS))
-        self._cache = SignatureCache(env_util.get_int(
-            env_util.HVD_CACHE_CAPACITY, env_util.DEFAULT_CACHE_CAPACITY))
+        self._key = key
+        self._cycle_s = config.cycle_time_ms / 1e3
+        self._threshold = config.fusion_threshold_bytes
+        self._stall_s = (None if config.stall_check_disable
+                         else config.stall_warning_seconds)
+        self._cache = SignatureCache(config.cache_capacity)
         lock = threading.Lock()
         self._cond = threading.Condition(lock)      # work for the cycle
         self._drained = threading.Condition(lock)   # _in_flight fell to 0
@@ -253,6 +256,7 @@ class Controller:
         self._group_executors = {}                # gid -> Executor
         self._joined = []       # ranks in the order they joined
         self._negotiation_s = collections.deque(maxlen=1000)
+        self._hmac_s = collections.deque(maxlen=1000)
         self.cycles = 0         # cycles run, idle ones too
         self._thread = None
 
@@ -267,6 +271,11 @@ class Controller:
         """Seconds of the last (up to 1000) cycles' negotiation: the
         metadata exchange and the decision, without the collectives."""
         return list(self._negotiation_s)
+
+    def hmac_times(self):
+        """Seconds each of the last (up to 1000) exchanges spent signing
+        this rank's message and checking every rank's."""
+        return list(self._hmac_s)
 
     # ---------------------------------------------------------- user side
     def start(self):
@@ -390,6 +399,9 @@ class Controller:
         message that does not travels in a second all_gather, sized to
         the longest one."""
         data = pickle.dumps(mine, protocol=pickle.HIGHEST_PROTOCOL)
+        t0 = time.perf_counter()
+        data = secret.sign(self._key, data) + data
+        signing = time.perf_counter() - t0
         slot = torch.zeros(_SLOT, dtype=torch.uint8)
         slot[:8] = torch.tensor([len(data)], dtype=torch.int64).view(
             torch.uint8)
@@ -407,8 +419,22 @@ class Controller:
             rows = torch.empty(self.size, top, dtype=torch.uint8)
             all_gather_into(rows.view(-1), buf, group=self._meta)
             offset = 0
-        return [pickle.loads(rows[r, offset:offset + n].numpy().tobytes())
-                for r, n in enumerate(lengths)]
+        blobs = [rows[r, offset:offset + n].numpy().tobytes()
+                 for r, n in enumerate(lengths)]
+        t0 = time.perf_counter()
+        payloads = []
+        for r, blob in enumerate(blobs):
+            digest = blob[:secret.DIGEST_LEN]
+            payload = blob[secret.DIGEST_LEN:]
+            if not secret.check(self._key, payload, digest):
+                raise PermissionError(
+                    f"the cycle message of rank {r} failed HMAC "
+                    f"verification: its job key differs from rank "
+                    f"{self.rank}'s (HVD_SECRET_KEY)")
+            payloads.append(payload)
+        self._hmac_s.append(signing + time.perf_counter() - t0)
+        # every payload verified before the first is unpickled
+        return [pickle.loads(payload) for payload in payloads]
 
     def _fail_outstanding(self, message):
         with self._cond:

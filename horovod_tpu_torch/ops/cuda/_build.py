@@ -72,23 +72,28 @@ def _run_all(cmds):
                            + "\n".join(failures))
 
 
+def target():
+    """Where ``build`` puts the library of these sources and flags."""
+    return BUILD_DIR / f"libhvd_kernels_{_digest()}.so"
+
+
 def build():
     """Compile the sources into ``csrc/build/libhvd_kernels_<hash>.so``
     unless it exists; returns its path."""
-    target = BUILD_DIR / f"libhvd_kernels_{_digest()}.so"
-    if target.exists():
-        return target
+    path = target()
+    if path.exists():
+        return path
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (src.stem + ".o") for src in sources()]
         _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
                   for src, obj in zip(sources(), objs)])
-        partial = Path(tmp) / target.name
+        partial = Path(tmp) / path.name
         _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(partial),
                    *map(str, objs)]])
-        os.replace(partial, target)  # atomic: racing builders agree
-    return target
+        os.replace(partial, path)  # atomic: racing builds agree
+    return path
 
 
 def lib():

@@ -73,6 +73,7 @@ from horovod_tpu_torch.common.compression import (
     Compression, accumulate_int8, all_gather_into, compressor_for,
     int8_chunk, is_quantized, quantize_int8_blocks, quantized_all_gather)
 from horovod_tpu_torch.common.fusion import plan_buckets
+from horovod_tpu_torch.common.objects import broadcast_object
 from horovod_tpu_torch.common.ops_enum import Adasum, Average, ReduceOp
 from horovod_tpu_torch.ops.adasum import adasum_reduce_stacked
 from horovod_tpu_torch.utils import env as env_util
@@ -466,20 +467,22 @@ def broadcast_optimizer_state(optimizer, root_rank=0):
     so that every other rank allocates the tensors to receive into,
     whatever state it held before: none yet, or that of other parameters,
     as when only the root resumed from a checkpoint.  An empty root state
-    leaves every rank at step 0, as an optax state from ``init`` does."""
+    leaves every rank at step 0, as an optax state from ``init`` does.
+
+    The layout travels by the signed :func:`common.objects.broadcast_object`,
+    so a receiver unpickles it only after its digest checks out with the
+    job key."""
     state_dict = optimizer.state_dict()
     is_root = basics.rank() == root_rank
-    layout = [None]
+    layout = None
     if is_root:
-        layout[0] = (
+        layout = (
             {pid: {key: _spec(value) for key, value in state.items()}
              for pid, state in state_dict["state"].items()},
             [{k: v for k, v in g.items() if k != "params"}
              for g in state_dict["param_groups"]])
-    _after_eager_plane()
-    dist.broadcast_object_list(layout, src=root_rank,
-                               device=basics.device())
-    specs, root_groups = layout[0]
+    specs, root_groups = broadcast_object(
+        layout, root_rank=root_rank, name="broadcast_optimizer_state.layout")
 
     state = state_dict["state"] if is_root else {
         pid: {key: _materialise(spec) for key, spec in entry.items()}

@@ -1,11 +1,17 @@
 """Environment-variable surface of the PyTorch port.
 
 The subset of ``horovod_tpu/utils/env.py`` that the port reads: the
-launcher -> worker rank contract, the fusion threshold, the job-wide
-default compression, ZeRO's replicated-update threshold, the cap on
-live process groups, the eager plane's executor and its cycle, cache and
-stall knobs, hierarchical Adasum, and durable checkpointing.
-Kept as a copy so that the port never imports the JAX package.
+launcher -> worker rank contract and the job key, the launcher's own
+knobs (start timeout, termination grace, interface, logging), the fusion
+threshold, the job-wide default compression, ZeRO's replicated-update
+threshold, the cap on live process groups, the eager plane's executor
+and its cycle, cache and stall knobs, hierarchical Adasum, and durable
+checkpointing.  Kept as a copy so that the port never imports the JAX
+package.
+
+Every knob outside ``LAUNCHER_CONTRACT`` has an ``hvdrun-torch`` flag
+and a YAML key in ``run/config_parser.py`` (the reference's
+tri-surface rule, ``bin/hvd-lint``'s config-surface checker).
 """
 
 import logging
@@ -35,6 +41,13 @@ HVD_HIER_LOCAL_SIZE = "HVD_HIER_LOCAL_SIZE"
 # different result from the flat Adasum of every rank's tensor
 HVD_ADASUM_HIERARCHICAL = "HVD_ADASUM_HIERARCHICAL"
 
+HVD_LOG_LEVEL = "HVD_LOG_LEVEL"      # trace|debug|info|warning|error|fatal
+HVD_LOG_HIDE_TIME = "HVD_LOG_HIDE_TIME"
+# the process-mode controller the workers run; the port has one (the
+# eager plane), and its launcher exports the reference's value so that
+# both packages' workers read one contract
+HVD_CONTROLLER = "HVD_CONTROLLER"
+
 # --- durable sharded checkpointing --------------------------------------------
 # checkpoint directory (unset = durable checkpointing off): each rank
 # writes its parameter and optimizer shard there from the commit snapshot
@@ -51,10 +64,29 @@ HVD_LOCAL_RANK = "HVD_LOCAL_RANK"
 HVD_LOCAL_SIZE = "HVD_LOCAL_SIZE"
 HVD_CROSS_RANK = "HVD_CROSS_RANK"
 HVD_CROSS_SIZE = "HVD_CROSS_SIZE"
-# rendezvous for torch.distributed when the launcher contract is used:
-# ``tcp://<addr>:<port>`` of rank 0's store
+HVD_SECRET_KEY = "HVD_SECRET_KEY"              # base64 job secret (HMAC)
+# the launcher's rendezvous KV server (run/http_server.py); rank 0
+# publishes its torch.distributed store's address there
 HVD_RENDEZVOUS_ADDR = "HVD_RENDEZVOUS_ADDR"
 HVD_RENDEZVOUS_PORT = "HVD_RENDEZVOUS_PORT"
+HVD_IFACE = "HVD_IFACE"        # NIC whose address rank 0's store binds
+HVD_HOST_SLOTS = "HVD_HOST_SLOTS"      # "h1:n1,h2:n2" rank-block layout
+HVD_START_TIMEOUT = "HVD_START_TIMEOUT"  # gang-start deadline, s (default 120)
+# explicit rendezvous-reachability override for the launcher host
+HVD_RENDEZVOUS_HOST_ADDR = "HVD_RENDEZVOUS_HOST_ADDR"
+# the launcher's SIGTERM -> SIGKILL escalation window, s (default 5)
+HVD_TPU_TERM_GRACE = "HVD_TPU_TERM_GRACE"
+# folded into run/host_hash.py's identity (containers sharing a hostname)
+HVD_HOSTNAME_HASH_SALT = "HVD_HOSTNAME_HASH_SALT"  # hvd-lint: ignore[config-surface]
+
+# The launcher -> worker contract above is exempt from the tri-surface
+# rule: the launcher writes it, no user sets it by flag.
+LAUNCHER_CONTRACT = frozenset({
+    HVD_RANK, HVD_SIZE, HVD_LOCAL_RANK, HVD_LOCAL_SIZE,
+    HVD_CROSS_RANK, HVD_CROSS_SIZE, HVD_SECRET_KEY,
+    HVD_RENDEZVOUS_ADDR, HVD_RENDEZVOUS_PORT, HVD_HOST_SLOTS,
+    HVD_RENDEZVOUS_HOST_ADDR, HVD_CONTROLLER,
+})
 
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
 DEFAULT_CYCLE_TIME_MS = 1.0
@@ -64,6 +96,7 @@ DEFAULT_ZERO_MIN_SIZE = 1024  # flat params below this stay replicated
 DEFAULT_GROUP_MAX = 64  # live process groups per job
 DEFAULT_CKPT_INTERVAL_STEPS = 10
 DEFAULT_CKPT_KEEP = 2
+DEFAULT_START_TIMEOUT_SECONDS = 120.0
 
 _warned = set()
 _warned_lock = threading.Lock()
@@ -120,3 +153,15 @@ def get_float(name, default=0.0):
     except ValueError:
         _warn_malformed(name, value, default)
         return default
+
+
+def get_required(name):
+    """A launcher-contract variable that must be present (the worker entry
+    points): missing means the process was started outside its
+    launcher."""
+    value = os.environ.get(name)
+    if value in (None, ""):
+        raise RuntimeError(
+            f"{name} is not set: this entry point runs under the launcher "
+            f"(python -m horovod_tpu_torch.run)")
+    return value

@@ -80,6 +80,8 @@ setup(
         "horovod_tpu_torch.ops",
         "horovod_tpu_torch.ops.cuda",
         "horovod_tpu_torch.parallel",
+        "horovod_tpu_torch.run",
+        "horovod_tpu_torch.run.service",
         "horovod_tpu_torch.sharding",
         "horovod_tpu_torch.checkpoint",
         "horovod_tpu_torch.elastic",
@@ -98,6 +100,8 @@ setup(
         "console_scripts": [
             "hvdrun = horovod_tpu.run.runner:main",
             "horovodrun = horovod_tpu.run.runner:main",
+            # the PyTorch/CUDA port's launcher
+            "hvdrun-torch = horovod_tpu_torch.run.runner:main",
         ],
     },
     cmdclass={"build_py": BuildWithNativeCore},

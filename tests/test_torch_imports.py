@@ -1,5 +1,5 @@
-"""The port stands alone: ``horovod_tpu_torch`` and ``chip_smoke.py``
-import neither JAX nor the JAX package, the card is the default device,
+"""The port stands alone: ``horovod_tpu_torch``, ``chip_smoke.py`` and
+``chip_negotiation_ab.py`` import neither JAX nor the JAX package, the card is the default device,
 and no entry point falls back to the CPU when asked for the card."""
 
 import ast
@@ -17,7 +17,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "horovod_tpu", "horovod"}
 
 def _port_files():
     files = sorted((REPO / "horovod_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "chip_negotiation_ab.py"]
 
 
 def _clean_env():
@@ -58,7 +58,18 @@ def test_import_leaves_jax_and_horovod_tpu_out():
         "horovod_tpu_torch.checkpoint.store, "
         "horovod_tpu_torch.checkpoint.manager, "
         "horovod_tpu_torch.utils.checkpoint, horovod_tpu_torch.utils.data, "
-        "horovod_tpu_torch.callbacks\n"
+        "horovod_tpu_torch.callbacks, horovod_tpu_torch.utils.logging, "
+        "horovod_tpu_torch.common.topology, horovod_tpu_torch.common.config, "
+        "horovod_tpu_torch.run, horovod_tpu_torch.run.__main__, "
+        "horovod_tpu_torch.run.runner, horovod_tpu_torch.run.launch, "
+        "horovod_tpu_torch.run.api, horovod_tpu_torch.run.task_runner, "
+        "horovod_tpu_torch.run.allocate, horovod_tpu_torch.run.config_parser, "
+        "horovod_tpu_torch.run.http_server, horovod_tpu_torch.run.http_client, "
+        "horovod_tpu_torch.run.safe_shell_exec, horovod_tpu_torch.run.cache, "
+        "horovod_tpu_torch.run.host_hash, horovod_tpu_torch.run.ssh_check, "
+        "horovod_tpu_torch.run.mpi_run, horovod_tpu_torch.run.js_run, "
+        "horovod_tpu_torch.run.lsf, horovod_tpu_torch.run.service.secret, "
+        "horovod_tpu_torch.run.service.network\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"

@@ -200,36 +200,25 @@ TCP_WORKER = textwrap.dedent("""
 
 
 def test_two_rank_tcp_rendezvous_and_collectives(tmp_path):
-    """The launcher contract: HVD_RANK/HVD_SIZE/HVD_LOCAL_* plus
-    HVD_RENDEZVOUS_ADDR/PORT, where rank 0 hosts the store."""
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    """The launcher contract: the port's launcher (``python -m
+    horovod_tpu_torch.run -np 2``) starts both ranks with
+    HVD_RANK/HVD_SIZE/HVD_LOCAL_*/HVD_CROSS_* and the address of its
+    rendezvous KV server (HVD_RENDEZVOUS_ADDR/PORT), where rank 0
+    publishes the ``TCPStore`` it hosts on a port of its own."""
     script = tmp_path / "tcp_worker.py"
     script.write_text(TCP_WORKER)
-    procs = []
-    try:
-        for r in range(RANKS):
-            env = dict(os.environ, HVD_RANK=str(r), HVD_SIZE=str(RANKS),
-                       HVD_LOCAL_RANK=str(r), HVD_LOCAL_SIZE=str(RANKS),
-                       HVD_CROSS_RANK="0", HVD_CROSS_SIZE="1",
-                       HVD_RENDEZVOUS_ADDR="127.0.0.1",
-                       HVD_RENDEZVOUS_PORT=str(port), OMP_NUM_THREADS="1",
-                       PYTHONPATH=REPO + os.pathsep
-                       + os.environ.get("PYTHONPATH", ""))
-            procs.append(subprocess.Popen(
-                [sys.executable, str(script)], env=env,
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for r, p in enumerate(procs):
-            out, _ = p.communicate(timeout=60)
-            assert p.returncode == 0 and f"ok {r}" in out, out
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+    logs = tmp_path / "logs"
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    out = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.run", "-np", str(RANKS),
+         "--output-filename", str(logs), sys.executable, str(script)],
+        env=env, cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    for r in range(RANKS):
+        assert f"ok {r}" in (logs / f"rank.{r}" / "stdout").read_text(), (
+            out.stdout + out.stderr)
 
 
 RESUME_WORKER = textwrap.dedent("""
