@@ -7,13 +7,16 @@ checkout's launcher, this, other.  Each checkout's own run is its
 ``chip_smoke.eager_phase`` in a process of its own, the checkout first
 on ``sys.path`` and its kernel library built.  The middle run starts
 the other checkout's phase-6 ranks with this checkout's
-``run/launch.py::launch_job`` (rank 0 hosting the store at the
-rendezvous port, as the other's ranks expect), so that a change of the
-negotiation time can be put down either to the ranks' code or to the
-way they are started.  Prints one line a run and rank (negotiation
-median, cycles, HMAC, eager and direct allreduce, the step with the
-plane running and stopped) beside the card's name and power limit, and
-writes every result to ``chiprun_out/negotiation_ab.json``.
+``run/launch.py::launch_job`` and its rendezvous KV server, so that a
+change of the negotiation time can be put down either to the ranks'
+code or to the way they are started.  Prints one line a run and rank (negotiation
+median, and where the checkout reports them its 10th-90th percentiles
+and the control plane's heartbeats; cycles, HMAC, eager and direct
+allreduce, the step with the plane running and stopped) beside the
+card's name and power limit, and writes every result to
+``chiprun_out/negotiation_ab.json``.  The other checkout may negotiate
+another way (a parent before the coordinated control plane exchanges
+over a gloo group): each run is that checkout's own phase 6.
 
     python3 chip_negotiation_ab.py OTHER_DIR
 """
@@ -21,7 +24,6 @@ writes every result to ``chiprun_out/negotiation_ab.json``.
 import argparse
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -53,20 +55,25 @@ def own_run(tree):
 
 
 def launched_run(tree, world, logs):
-    """``tree``'s phase-6 ranks started by this checkout's launcher."""
+    """``tree``'s phase-6 ranks started by this checkout's launcher, with
+    its rendezvous KV server, where the ranks read rank 0's store
+    address."""
     import chip_smoke
     from horovod_tpu_torch.run import allocate
+    from horovod_tpu_torch.run.http_server import RendezvousServer
     from horovod_tpu_torch.run.launch import launch_job
 
     slots = allocate.allocate([allocate.HostInfo("localhost", world)],
                               world)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    server = RendezvousServer()
+    port = server.start()
     command = (f"{sys.executable} {os.path.join(tree, 'chip_smoke.py')} "
                f"--rank-of eager {chip_smoke.LAYERS}")
-    code = launch_job(slots, command, "127.0.0.1", port,
-                      output_filename=logs)
+    try:
+        code = launch_job(slots, command, "127.0.0.1", port,
+                          output_filename=logs)
+    finally:
+        server.stop()
     return chip_smoke._rank_results("eager", logs, world, code)
 
 
@@ -98,10 +105,19 @@ def main(argv=None):
         runs.append({"run": i, "label": label, "results": results})
         for res in results:
             hmac = res.get("hmac_ms_median")
+            # a checkout before the coordinated control plane reports
+            # neither the spread nor heartbeats
+            spread = res.get("negotiation_ms_p10_p90")
+            beats = res.get("heartbeat_ms_median")
             print(f"run {i} ({label}) rank {res['rank']} of {res['world']}: "
                   f"negotiation median {res['negotiation_ms_median']:.4f} "
-                  f"ms over {res['cycles']} cycles, HMAC "
+                  + (f"(10th-90th percentile {spread[0]:.4f}-"
+                     f"{spread[1]:.4f}) " if spread else "")
+                  + f"ms over {res['cycles']} cycles, HMAC "
                   + (f"{hmac * 1e3:.2f} us" if hmac is not None else "none")
+                  + (f", heartbeat round trip {beats:.4f} ms, "
+                     f"{100 * res['heartbeat_share']:.4f}% of the phase"
+                     if beats is not None else "")
                   + f"; grouped_allreduce {res['eager_ms']:.3f} ms, "
                   f"allreduce_gradients {res['direct_ms']:.3f} ms; step "
                   f"{res['step_ms_plane_on']:.2f} ms with the plane "

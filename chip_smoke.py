@@ -132,18 +132,45 @@ Phases, each of which must pass:
    window; (d) the last rank with another ``HVD_SECRET_KEY``:
    ``broadcast_object`` fails on the others with the HMAC error and
    unpickles nothing (at one card two ranks share the card here: the
-   failing exchange is the plane's gloo metadata, no NCCL collective
-   runs).
+   coordinator refuses the last rank's frames, no NCCL collective
+   runs);
+13. the coordinated control plane at ``min(cards, 4)`` ranks, each job
+   through ``python -m horovod_tpu_torch.run`` with heartbeats every
+   0.25 s, liveness 2 s and the abort deadline 10 s: (a) phase 5's main
+   path under ``DistributedOptimizer`` with ``rank{W-1}:allreduce:K:crash``
+   landing in the first gradient bucket of step 8, and an
+   ``elastic.State`` commit after steps 7 on: every survivor's host,
+   waiting in ``loss.item()`` on the NCCL collective the dead rank left
+   hanging, is released by the communicator abort, and its next
+   ``DistributedOptimizer`` call or its commit raises
+   ``HvdAbortedError(origin=W-1)`` within the deadline; step 7's commit
+   is the last one accepted; the launcher exits non-zero naming rank W-1
+   and no rank is alive after it; (b) a plane allreduce
+   that the last rank drops, under a 2 s stall shutdown: every rank, the
+   dropper included, raises the typed error naming it; (c) rank 0's
+   ``hvd.abort()`` while the others wait in a plane allreduce of 2^26
+   fp32: every rank raises naming 0; (d) ROADMAP C.7's order (rank 0 a
+   plane op and then a step, the others the other way round) under the
+   stall shutdown: a typed abort on every rank.  Prints each rank's
+   seconds from the crash, the drop or the abort to its error, the
+   steps before the crash and their median after the first beside phase
+   5's, and the heartbeats' round trip.  At one card NCCL takes no two ranks of a communicator on it:
+   (b) and (c) run at two ranks on the CPU, which the phase says, and
+   (a) and (d) are skipped with a line saying so.
 
 Phases 6 and 8-11 start their ranks above one card through the port's
 launcher (``run/launch.py::launch_job``, a rendezvous KV server and a
-job key of their own; rank logs under ``chiprun_out/ranks/<phase>``).
+job key of their own; rank logs under ``chiprun_out/ranks/<phase>``);
+their eager plane negotiates through rank 0's coordinator, and phase 6
+prints the negotiation's median and 10th-90th percentiles and the
+heartbeats' round trip and share of the phase.
 Each phase's wall seconds are printed on a line of its own.
 
 Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` in
 phase 5's run, and ``launches_by_path``: phase 5's, phase 10's tp, MoE
-and pipeline runs', phase 11's ``op=Adasum`` run's and phase 12's
-launched run's, each of which must be above 0), the
+and pipeline runs', phase 11's ``op=Adasum`` run's, phase 12's
+launched run's and, above one card, phase 13 (a)'s before and at its
+crash, each of which must be above 0), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that last line.  ``--profile`` adds one profiled step of phase 5, one of
@@ -735,6 +762,7 @@ def train(layers, steps, smi, profile=False):
             torch.optim.AdamW(model.parameters(), lr=1e-4,
                               weight_decay=1e-4),
             named_parameters=model.named_parameters())
+        buckets = len(opt._buckets)
         hvd.broadcast_parameters(model.state_dict(), root_rank=0)
         tokens = torch.from_numpy(np.random.RandomState(0).randint(
             0, VOCAB, (batch, seq))).to(hvd.device())
@@ -771,7 +799,8 @@ def train(layers, steps, smi, profile=False):
           f" GiB, launches {counts}", flush=True)
     return counts, {"losses": losses, "step_s": times,
                     "tokens_per_s": batch * seq / steady,
-                    "layers": layers, "params": n_params}
+                    "layers": layers, "params": n_params,
+                    "buckets": buckets}
 
 
 def _timed_steps(model, opt, tokens, steps):
@@ -821,6 +850,7 @@ def eager_checks(layers):
     from horovod_tpu_torch.common.ops_enum import reduce_scatter_split_sizes
     from horovod_tpu_torch.models import Transformer, TransformerConfig
 
+    t_phase = time.perf_counter()
     dev, r, n = hvd.device(), hvd.rank(), hvd.size()
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16,
               "float16": torch.float16, "int32": torch.int32}
@@ -1000,7 +1030,14 @@ def eager_checks(layers):
            "direct_ms": direct_ms, "direct_gb_s": nbytes / direct_ms / 1e6,
            "negotiation_ms_median": 1e3 * statistics.median(
                controller.negotiation_times()),
+           # the spread: 10th and 90th percentiles
+           "negotiation_ms_p10_p90": [1e3 * q for q in _deciles(
+               controller.negotiation_times())],
            "cycles": len(controller.negotiation_times()),
+           # the control plane's heartbeats over the phase: round trips
+           # and the share of the phase's wall time the thread spent in
+           # them (none at one rank)
+           **_heartbeat_stats(time.perf_counter() - t_phase),
            # each exchange's signing and checking (none at one rank)
            "hmac_ms_median": (1e3 * statistics.median(
                controller.hmac_times()) if controller.hmac_times()
@@ -1361,7 +1398,7 @@ def step_with_and_without_plane(layers, steps=6, pairs=3):
                 state, controller=basics._start_eager_plane(
                     state.rank, state.size, state.device,
                     "nccl" if state.device.type == "cuda" else "gloo",
-                    Config.from_env(), state.key))
+                    Config.from_env(), state.key, state.plane))
         controller = basics._get_state().controller
         if controller.is_running() != running:
             raise AssertionError(f"block {block}: the eager plane is "
@@ -1515,6 +1552,25 @@ def _rank_of(phase, layers, profile):
     return 0
 
 
+def _deciles(xs):
+    """(10th, 90th) percentile of ``xs``."""
+    qs = statistics.quantiles(xs, n=10) if len(xs) > 1 else list(xs) * 9
+    return qs[0], qs[-1]
+
+
+def _heartbeat_stats(wall_s):
+    """The control plane's heartbeats on this rank so far: the round
+    trip's median (ms), the beats, and the share of ``wall_s`` spent in
+    them."""
+    from horovod_tpu_torch.common import basics
+
+    beats = basics._get_state().plane.heartbeat_times()
+    return {"heartbeat_ms_median": (1e3 * statistics.median(beats)
+                                    if beats else None),
+            "heartbeats": len(beats),
+            "heartbeat_share": sum(beats) / wall_s if beats else None}
+
+
 def eager_phase(smi, layers):
     """Phase 6: :func:`eager_checks` at ``world = min(cards, 4)`` ranks
     (``in_ranks``)."""
@@ -1522,10 +1578,17 @@ def eager_phase(smi, layers):
     for res in results:
         print(f"eager rank {res['rank']} of {res['world']}: {res['checks']} "
               f"checks passed; negotiation median "
-              f"{res['negotiation_ms_median']:.4f} ms over {res['cycles']} "
-              f"cycles (HMAC "
+              f"{res['negotiation_ms_median']:.4f} ms (10th-90th "
+              f"percentile {res['negotiation_ms_p10_p90'][0]:.4f}-"
+              f"{res['negotiation_ms_p10_p90'][1]:.4f}) over "
+              f"{res['cycles']} cycles through the coordinator (HMAC "
               + (f"{res['hmac_ms_median'] * 1e3:.2f} us a cycle"
                  if res["hmac_ms_median"] is not None else "none: one rank")
+              + ("; heartbeats: none, one rank" if res["heartbeats"] == 0
+                 else f"; {res['heartbeats']} heartbeats, round trip "
+                      f"median {res['heartbeat_ms_median']:.4f} ms, "
+                      f"{100 * res['heartbeat_share']:.4f}% of the phase's "
+                      f"wall time")
               + f"); grouped_allreduce of {res['params']} fp32 gradients "
               f"{res['eager_ms']:.3f} ms ({res['eager_gb_s']:.1f} GB/s), "
               f"allreduce_gradients {res['direct_ms']:.3f} ms "
@@ -2411,6 +2474,10 @@ def groups_on_card():
     mine = next(g for g in made if r in g.ranks)
     base = torch.arange(1 << 22, device=hvd.device(),
                         dtype=torch.float32) % 1000
+    # every rank leaves the barrier in the same cycle, so that both
+    # halves submit at once (the exchange through the coordinator takes
+    # ~1 ms: halves that start a few ms apart never overlap)
+    hvd.barrier()
     handles = [hvd.allreduce_async(base + 7 * r + i, op=hvd.Sum,
                                    name=f"mp.groups.{i}", group=mine)
                for i in range(4)]
@@ -3720,13 +3787,403 @@ def launcher_phase(smi, phase5_step_ms, phase6_negotiation_ms):
             "wall_s": wall}
 
 
+# phase 13: the control plane's windows (the JAX tests' own), the step
+# whose first gradient bucket (a)'s crash lands in (the steps before it,
+# the first one's warm-up aside, give the step's median with heartbeats
+# running), the stall shutdown of (b) and (d), the plane allreduce (c)'s
+# peers block in, and the launcher's grace window, which must outlast
+# the abort's delivery
+FT_HEARTBEAT_S, FT_LIVENESS_S, FT_ABORT_S = 0.25, 2.0, 10.0
+FT_STALL_S, FT_STEPS, FT_CRASH_STEP = 2.0, 10, 8
+FT_USER_ELEMS, FT_USER_DELAY_S, FT_TERM_GRACE_S = 1 << 26, 1.0, 20.0
+
+
+def _ft_flags(spec=None, stall=None, liveness=FT_LIVENESS_S):
+    """The launcher flags of a phase 13 job."""
+    flags = ["--heartbeat-interval", str(FT_HEARTBEAT_S),
+             "--liveness-timeout", str(liveness), "--abort-timeout",
+             str(FT_ABORT_S), "--term-grace", str(FT_TERM_GRACE_S)]
+    if spec:
+        flags += ["--fault-spec", spec]
+    if stall:
+        flags += ["--stall-check-shutdown-time-seconds", str(stall)]
+    return tuple(flags)
+
+
+def _ft_init():
+    """A phase 13 rank: print its pid, keep running through the SIGTERM
+    of the launcher's kill fan-out (the job's abort must reach it
+    first), then ``hvd.init()`` on the card, or on the CPU where the
+    phase asks for it (``P13_DEVICE``).  -> the SIGTERMs' times."""
+    import signal
+
+    import horovod_tpu_torch as hvd
+
+    terms = []
+    signal.signal(signal.SIGTERM, lambda *_: terms.append(time.time()))
+    print(f"PID {os.getpid()}", flush=True)
+    hvd.init(device=os.environ.get("P13_DEVICE"))
+    return terms
+
+
+def _ft_error(exc, start, where):
+    return {"type": type(exc).__name__, "origin": exc.origin_rank,
+            "reason": exc.reason, "at": time.time(),
+            "elapsed_s": time.perf_counter() - start, "where": where}
+
+
+def _ft_done(res, terms):
+    """Shut down (timed: it must return on aborted communicators)."""
+    import horovod_tpu_torch as hvd
+
+    t0 = time.perf_counter()
+    hvd.shutdown()
+    res["shutdown_s"] = time.perf_counter() - t0
+    res["sigterms"] = terms
+    return res
+
+
+def fault_crash(layers):
+    """Phase 13 (a) on one launched rank: phase 5's main path (the
+    full-width transformer, ``DistributedOptimizer(AdamW(1e-4, wd
+    1e-4))``, ``[8, 2048]`` tokens a GPU, each rank its own) until the
+    last rank's crash spec fires at the first gradient bucket of step
+    ``FT_CRASH_STEP``.  From step ``FT_CRASH_STEP - 1`` on, each step
+    ends with an ``elastic.State`` commit, as an elastic loop's does,
+    which must refuse every snapshot taken across the abort.  The last
+    rank writes the wall time at which it starts that step's backward; a
+    survivor records where the typed error came out and when.  -> the
+    rank's numbers."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer, lm_loss
+    from horovod_tpu_torch.ops import cuda as kernels
+
+    terms = _ft_init()
+    r, n = hvd.rank(), hvd.size()
+    model = Transformer(main_config(layers), seed=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    state = hvd.elastic.State(params=model.state_dict(), optimizer_state=opt)
+    tokens = torch.from_numpy(np.random.RandomState(r).randint(
+        0, VOCAB, (MAIN_BATCH, MAIN_SEQ))).to(hvd.device())
+    mark = os.path.join(_out_dir(), "fault", "crash_backward_start")
+    kernels.reset_launch_counts()
+    losses, times, commits, error, where = [], [], [], None, None
+    start = run_start = time.perf_counter()
+    try:
+        for step in range(FT_STEPS):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            where = "forward"
+            opt.zero_grad(set_to_none=True)
+            loss = lm_loss(model(tokens), tokens)
+            if r == n - 1 and step == FT_CRASH_STEP - 1:
+                with open(mark, "w") as f:
+                    f.write(repr(time.time()))
+            where = "backward"
+            loss.backward()
+            where = "opt.step"
+            opt.step()
+            where = "loss.item"
+            losses.append(loss.item())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+            if step + 1 >= FT_CRASH_STEP - 1:
+                where = "commit"
+                state.step = step + 1
+                state.commit()
+                commits.append(state.step)
+    except hvd.HvdAbortedError as exc:
+        error = _ft_error(exc, start, where)
+    return _ft_done({"rank": r, "world": n, "buckets": len(opt._buckets),
+                     "losses": losses, "step_s": times, "commits": commits,
+                     "last_commit": state._committed[2], "error": error,
+                     "counts": kernels.launch_counts(),
+                     **_heartbeat_stats(time.perf_counter() - run_start)},
+                    terms)
+
+
+def fault_stall(layers):
+    """Phase 13 (b) on one rank: an allreduce of 2^20 fp32 on the eager
+    plane, which the last rank's spec drops."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    terms = _ft_init()
+    r, n = hvd.rank(), hvd.size()
+    t = torch.full((1 << 20,), float(r + 1), device=hvd.device())
+    start, res = time.perf_counter(), {"rank": r, "world": n, "error": None}
+    try:
+        hvd.allreduce(t, op=hvd.Sum, name="p13.stall")
+    except hvd.HvdAbortedError as exc:
+        res["error"] = _ft_error(exc, start, "allreduce")
+    return _ft_done(res, terms)
+
+
+def fault_user(layers):
+    """Phase 13 (c) on one rank: rank 0 waits, then calls
+    ``hvd.abort()``, and then submits once more; the others block in an
+    allreduce of ``FT_USER_ELEMS`` fp32 on the eager plane, which rank 0
+    never submits."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    terms = _ft_init()
+    r, n = hvd.rank(), hvd.size()
+    t = torch.ones(FT_USER_ELEMS, device=hvd.device())
+    start, res = time.perf_counter(), {"rank": r, "world": n, "error": None}
+    try:
+        if r == 0:
+            time.sleep(FT_USER_DELAY_S)
+            res["abort_at"] = time.time()
+            hvd.abort()
+        hvd.allreduce(t, op=hvd.Sum, name="p13.user")
+    except hvd.HvdAbortedError as exc:
+        res["error"] = _ft_error(exc, start, "allreduce")
+    return _ft_done(res, terms)
+
+
+def fault_cross(layers):
+    """Phase 13 (d) on one rank, ROADMAP C.7's order: rank 0 submits an
+    allreduce of 2^20 fp32 to the eager plane and then takes a step of
+    phase 5's model under ``DistributedOptimizer``; the other ranks take
+    the step first, read its loss (as a training loop does) and submit
+    the plane's allreduce after it."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer
+
+    terms = _ft_init()
+    r, n = hvd.rank(), hvd.size()
+    model = Transformer(main_config(layers), seed=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    tokens = torch.from_numpy(np.random.RandomState(r).randint(
+        0, VOCAB, (MAIN_BATCH, MAIN_SEQ))).to(hvd.device())
+    t = torch.ones(1 << 20, device=hvd.device())
+    torch.cuda.synchronize()
+    start, res = time.perf_counter(), {"rank": r, "world": n, "error": None}
+    where = None
+    try:
+        if r == 0:
+            handle = hvd.allreduce_async(t, name="p13.cross")
+            where = "step"
+            _lm_step(model, opt, tokens)
+            where = "synchronize"
+            hvd.synchronize(handle)
+        else:
+            where = "step"
+            loss = _lm_step(model, opt, tokens)
+            # the loop reads its loss: the host waits for the step, whose
+            # bucket allreduces wait for rank 0, which waits in its drain
+            where = "loss.item"
+            loss.item()
+            where = "allreduce"
+            hvd.allreduce(t, name="p13.cross")
+    except hvd.HvdAbortedError as exc:
+        res["error"] = _ft_error(exc, start, where)
+    return _ft_done(res, terms)
+
+
+def _ft_job(name, world, phase, layers, flags, env=None):
+    """One phase 13 job through ``python -m horovod_tpu_torch.run`` (rank
+    logs in ``chiprun_out/fault/<name>/``): -> (the launcher's exit code
+    and output, each rank's ``RANK_RESULT`` or None, every rank's pid
+    that is still alive once the launcher has returned)."""
+    logs = os.path.join(_out_dir(), "fault", name)
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        code, text = _launcher_cli(world, logs, phase, layers, flags,
+                                   timeout=600)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    results, pids = [], []
+    for r in range(world):
+        out, _ = _rank_log(logs, r, world)
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith("RANK_RESULT ")]
+        results.append(json.loads(lines[-1].split(" ", 1)[1])
+                       if lines else None)
+        pids += [int(ln.split()[1]) for ln in out.splitlines()
+                 if ln.startswith("PID ")]
+    if len(pids) != world:
+        raise AssertionError(f"phase 13 {name}: {len(pids)} pids of "
+                             f"{world}:\n{text[-4000:]}")
+    return code, text, results, [p for p in pids if _alive(p)]
+
+
+def _ft_expect(name, results, ranks, origin, deadline=FT_ABORT_S):
+    """Every rank in ``ranks`` raised ``HvdAbortedError`` naming
+    ``origin`` within ``deadline`` seconds and shut down."""
+    for r in ranks:
+        res = results[r]
+        err = res and res["error"]
+        if not err or err["type"] != "HvdAbortedError" \
+                or err["origin"] != origin or err["elapsed_s"] >= deadline:
+            raise AssertionError(f"phase 13 {name}: rank {r}: {res}")
+
+
+def fault_phase(smi, phase5_step_ms, buckets):
+    """Phase 13 at ``min(cards, 4)`` ranks, each job started through
+    ``python -m horovod_tpu_torch.run`` with heartbeats every
+    ``FT_HEARTBEAT_S``, liveness ``FT_LIVENESS_S`` and the abort deadline
+    ``FT_ABORT_S``: (a) a crash inside a gradient bucket of the main path
+    (two cards and more); (b) a dropped plane allreduce under the stall
+    shutdown; (c) ``hvd.abort()``; (d) ROADMAP C.7's order under the
+    stall shutdown (two cards and more).  At one card (b) and (c) run at
+    two ranks on the CPU, which the phase asks for and says.  Each job
+    ends with no rank alive.  -> every job's results."""
+    world = _world()
+    env, out = None, {}
+    if world == 1:
+        env, world = {"P13_DEVICE": "cpu"}, 2
+        print("fault: one card, and NCCL puts no two ranks of one "
+              "communicator on it: (b) and (c) run at two ranks on the "
+              "CPU (gloo; the control plane is the same host code), (a) "
+              "and (d) need two cards and are skipped", flush=True)
+    last = world - 1
+    wall = {}
+
+    if env is None:
+        t0 = time.time()
+        # the first bucket of step FT_CRASH_STEP: steps before it done
+        k = buckets * (FT_CRASH_STEP - 1) + 1
+        code, text, res, alive = _ft_job(
+            "crash", world, "fault_crash", LAYERS,
+            _ft_flags(f"rank{last}:allreduce:{k}:crash"))
+        culprit = f"rank {last} failed first (exit code 1)"
+        if code == 0 or culprit not in text or alive:
+            raise AssertionError(f"phase 13 (a): the launcher exited "
+                                 f"{code}, expected it to name "
+                                 f"'{culprit}'; alive {alive}:\n"
+                                 f"{text[-4000:]}")
+        if res[last] is not None:
+            raise AssertionError(f"phase 13 (a): rank {last} did not "
+                                 f"crash: {res[last]}")
+        _ft_expect("(a)", res, range(last), last)
+        with open(os.path.join(_out_dir(), "fault",
+                               "crash_backward_start")) as f:
+            crashed = float(f.read())
+        for r in range(last):
+            e = res[r]
+            before = e["step_s"][:FT_CRASH_STEP - 1]
+            # the error comes out of step FT_CRASH_STEP's DO call or, once
+            # the host's wait in its loss.item() returns, out of the
+            # commit that ends it, which must be refused: no state taken
+            # across the crash is accepted
+            if len(e["losses"]) not in (FT_CRASH_STEP - 1, FT_CRASH_STEP) \
+                    or len(before) < FT_CRASH_STEP - 1:
+                raise AssertionError(f"phase 13 (a): rank {r} finished "
+                                     f"{len(e['losses'])} steps: {e}")
+            if e["commits"] != [FT_CRASH_STEP - 1] \
+                    or e["last_commit"] != FT_CRASH_STEP - 1:
+                raise AssertionError(
+                    f"phase 13 (a): rank {r} committed {e['commits']} "
+                    f"(last {e['last_commit']}), expected only step "
+                    f"{FT_CRASH_STEP - 1}, the last before the crash: {e}")
+            print(f"fault (a) rank {r} of {world}: "
+                  f"{e['error']['type']}(origin={e['error']['origin']}) out "
+                  f"of {e['error']['where']} "
+                  f"{e['error']['at'] - crashed:.3f} s after rank {last} "
+                  f"began the backward it crashed in ('{e['error']['reason']}'"
+                  f"); {len(e['losses'])} steps' losses kept, commits "
+                  f"accepted {e['commits']}, last commit step "
+                  f"{e['last_commit']}; steps before it "
+                  f"{[round(x * 1e3, 2) for x in before]} ms, median after "
+                  f"the first {1e3 * statistics.median(before[1:]):.2f} ms "
+                  f"with heartbeats every {FT_HEARTBEAT_S} s (phase 5: "
+                  f"{phase5_step_ms:.2f} ms); {e['heartbeats']} heartbeats,"
+                  f" round trip {e['heartbeat_ms_median']:.3f} ms; shutdown "
+                  f"{e['shutdown_s']:.3f} s; on {smi}", flush=True)
+        wall["a"] = time.time() - t0
+        print(f"fault (a): the launcher exited {code} naming rank {last}; "
+              f"no rank alive ({wall['a']:.1f} s)", flush=True)
+        out["crash"] = {"code": code, "crashed_at": crashed, "ranks": res}
+
+    t0 = time.time()
+    code, text, res, alive = _ft_job(
+        "stall", world, "fault_stall", 0,
+        _ft_flags(f"rank{last}:allreduce:1:drop", FT_STALL_S, 30.0), env)
+    if code != 0 or alive:
+        raise AssertionError(f"phase 13 (b): exit {code}, alive {alive}:"
+                             f"\n{text[-4000:]}")
+    _ft_expect("(b)", res, range(world), last, FT_STALL_S + FT_ABORT_S)
+    wall["b"] = time.time() - t0
+    for e in res:
+        print(f"fault (b) rank {e['rank']} of {world}: "
+              f"{e['error']['type']}(origin={e['error']['origin']}) after "
+              f"{e['error']['elapsed_s']:.3f} s ('{e['error']['reason']}')"
+              f"; shutdown {e['shutdown_s']:.3f} s"
+              + (" on the CPU" if env else f" on {smi}"), flush=True)
+    out["stall"] = res
+
+    t0 = time.time()
+    code, text, res, alive = _ft_job("user", world, "fault_user", 0,
+                                     _ft_flags(liveness=30.0), env)
+    if code != 0 or alive:
+        raise AssertionError(f"phase 13 (c): exit {code}, alive {alive}:"
+                             f"\n{text[-4000:]}")
+    _ft_expect("(c)", res, range(world), 0, FT_USER_DELAY_S + FT_ABORT_S)
+    wall["c"] = time.time() - t0
+    for e in res:
+        print(f"fault (c) rank {e['rank']} of {world}: "
+              f"{e['error']['type']}(origin={e['error']['origin']}) "
+              f"{e['error']['at'] - res[0]['abort_at']:.3f} s after rank 0's "
+              f"hvd.abort() ('{e['error']['reason']}'); shutdown "
+              f"{e['shutdown_s']:.3f} s"
+              + (" on the CPU" if env else f" on {smi}"), flush=True)
+    out["user"] = res
+
+    if env is None:
+        t0 = time.time()
+        code, text, res, alive = _ft_job(
+            "cross", world, "fault_cross", LAYERS,
+            _ft_flags(stall=FT_STALL_S, liveness=30.0))
+        if code != 0 or alive:
+            raise AssertionError(f"phase 13 (d): exit {code}, alive "
+                                 f"{alive}:\n{text[-4000:]}")
+        _ft_expect("(d)", res, range(world), 1, FT_STALL_S + FT_ABORT_S)
+        wall["d"] = time.time() - t0
+        for e in res:
+            print(f"fault (d) rank {e['rank']} of {world}: C.7's order ended "
+                  f"in {e['error']['type']}(origin={e['error']['origin']}) "
+                  f"out of {e['error']['where']} after "
+                  f"{e['error']['elapsed_s']:.3f} s "
+                  f"('{e['error']['reason']}'); shutdown "
+                  f"{e['shutdown_s']:.3f} s on {smi}", flush=True)
+        out["cross"] = res
+    print(f"fault: wall s { {k: round(v, 2) for k, v in wall.items()} }",
+          flush=True)
+    out["wall_s"] = wall
+    return out
+
+
 RANK_PHASES = {"eager": eager_checks, "zero": zero_checks,
                "sequence": sequence_checks, "model": model_parallel_checks,
                "adasum": adasum_checks, "adasum_hier": adasum_hier_checks,
                "launcher_train": launcher_train,
-               "launcher_fail": launcher_fail, "launcher_key": launcher_key}
+               "launcher_fail": launcher_fail, "launcher_key": launcher_key,
+               "fault_crash": fault_crash, "fault_stall": fault_stall,
+               "fault_user": fault_user, "fault_cross": fault_cross}
 # the ranks of these phases make their own hvd.init() and shutdown
-LAUNCHER_PHASES = ("launcher_train", "launcher_fail", "launcher_key")
+LAUNCHER_PHASES = ("launcher_train", "launcher_fail", "launcher_key",
+                   "fault_crash", "fault_stall", "fault_user", "fault_cross")
 
 
 def _profile_step(model, opt, tokens):
@@ -3994,14 +4451,18 @@ def main(argv=None):
     model = timed(10, model_parallel_phase, smi, args.profile)
     adasum, adasum_hier = timed(11, adasum_phase, smi)
     _release()
-    launcher = timed(12, launcher_phase, smi,
-                     1e3 * statistics.median(run["step_s"][1:]),
+    phase5_ms = 1e3 * statistics.median(run["step_s"][1:])
+    launcher = timed(12, launcher_phase, smi, phase5_ms,
                      eager[0]["negotiation_ms_median"])
+    fault = timed(13, fault_phase, smi, phase5_ms, run["buckets"])
     paths = {"phase10_tp": model[0]["tp_dp2"]["counts"],
              "phase10_moe": model[0]["moe"]["counts"],
              "phase10_pp": model[0]["pipeline"]["counts"],
              "phase11": adasum[0]["training"]["do_adasum"]["counts"],
              "phase12": launcher["ranks"][0]["counts"]}
+    if "crash" in fault:
+        # phase 13 (a): the steps before the crash, and the crash's own
+        paths["phase13"] = fault["crash"]["ranks"][0]["counts"]
     for k in kernels:
         k["launches_by_path"] = {"phase5": k["launches"], **{
             path: c[k["name"]] for path, c in paths.items()}}
@@ -4014,7 +4475,7 @@ def main(argv=None):
                    "eager": eager, "cnn": cnn, "zero": zero,
                    "sequence": sequence, "model": model, "adasum": adasum,
                    "adasum_hierarchical": adasum_hier,
-                   "launcher": launcher}, f, indent=1)
+                   "launcher": launcher, "fault": fault}, f, indent=1)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -26,6 +26,7 @@ Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from horovod_tpu_torch.common.basics import (  # noqa: F401
+    abort,
     cross_rank,
     cross_size,
     device,
@@ -38,7 +39,10 @@ from horovod_tpu_torch.common.basics import (  # noqa: F401
     size,
 )
 from horovod_tpu_torch.common.compression import Compression  # noqa: F401
-from horovod_tpu_torch.common.handles import HvdError  # noqa: F401
+from horovod_tpu_torch.common.handles import (  # noqa: F401
+    HvdAbortedError,
+    HvdError,
+)
 from horovod_tpu_torch.common.objects import broadcast_object  # noqa: F401
 from horovod_tpu_torch.groups import (  # noqa: F401
     Grid,

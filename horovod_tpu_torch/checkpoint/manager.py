@@ -4,10 +4,12 @@
 Layered on :class:`horovod_tpu_torch.elastic.State`: ``State.commit()``
 already takes a snapshot on the host (``_committed``: copies of the
 parameters and of the optimizer's ``state_dict()``, the full gathered
-state under eager ZeRO).  ``maybe_save`` hands that snapshot to a writer
-thread, so training overlaps the checkpoint's I/O; its queue is depth-1
-latest-wins: under a slow disk intermediate snapshots are skipped
-rather than queued.
+state under eager ZeRO), which it refuses once the job has aborted, so
+that a snapshot taken across the abort, whose update may hold a partly
+reduced gradient, never reaches the disk.  ``maybe_save`` hands that
+snapshot to a writer thread, so training overlaps the checkpoint's I/O;
+its queue is depth-1 latest-wins: under a slow disk intermediate
+snapshots are skipped rather than queued.
 
 Per (step, epoch, world) checkpoint:
 

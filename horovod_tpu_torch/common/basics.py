@@ -37,11 +37,32 @@ here: the compression of every reduction whose ``compression`` is
 which ``ZeroDistributedOptimizer`` keeps the update replicated; a
 negative value raises.
 
-``init`` also starts the eager collective plane (``ops/controller.py``):
-two process groups of its own, made in the same order on every rank (a
-gloo group for the negotiation's metadata and a data group, NCCL on the
-card), and its cycle thread.  ``DistributedOptimizer`` keeps the default
-group, used from the caller's thread: two threads sharing one NCCL
+``init`` arms the fault injector (``common/faults.py``,
+``HVD_TPU_FAULT_SPEC``) before anything else runs, then starts the
+control plane (``ops/tcp_controller.py``): above one rank, rank 0 hosts
+the coordinator, bound on the address the others are told
+(``_my_address``) and published in ``torch.distributed``'s store; every
+rank registers with it and runs a heartbeat thread.  Then the eager
+collective plane (``ops/controller.py``): a data group of its own (NCCL
+on the card), made in the same order on every rank, and its cycle
+thread, which negotiates through the coordinator.  ``init`` returns
+once every rank has reached its end (a barrier through the coordinator,
+within ``HVD_START_TIMEOUT``): a rank that fails right after it cannot
+break a peer that is still making its groups.
+
+An abort of the job (a rank dead or silent past
+``HVD_TPU_LIVENESS_TIMEOUT``, the stall shutdown, a lost coordinator,
+``abort()``) first aborts every ``torch.distributed`` communicator of
+this process (``_abort_communicators``: the default group, the plane's,
+every process group's two, the sequence, tp, ep and pp groups), so that
+a collective that a dead peer left hanging on the card returns, then
+fails the eager plane's handles; from then on the plane, the optimizer
+and the model-parallel collectives raise the typed
+:class:`~horovod_tpu_torch.common.handles.HvdAbortedError`
+(:func:`raise_if_aborted`, :func:`collective_error`), and ``shutdown``
+returns without touching the aborted communicators.
+``DistributedOptimizer`` keeps the default group, used from the
+caller's thread: two threads sharing one NCCL
 communicator could issue their collectives in different orders on
 different ranks and deadlock.  Two communicators need the same order of
 launches on every rank too: the optimizer waits for the plane to issue
@@ -89,6 +110,7 @@ under ``DistributedOptimizer(group=dp)`` on four cards (see
 
 import base64
 import binascii
+import contextlib
 import dataclasses
 import hashlib
 import logging
@@ -100,10 +122,12 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch import groups
-from horovod_tpu_torch.common import topology
+from horovod_tpu_torch.common import faults, topology
 from horovod_tpu_torch.common.config import Config
+from horovod_tpu_torch.common.handles import HvdError, make_abort_error
 from horovod_tpu_torch.ops.controller import Controller
 from horovod_tpu_torch.ops.nccl_executor import Executor
+from horovod_tpu_torch.ops.tcp_controller import ControlPlane
 from horovod_tpu_torch.utils import env as env_util
 
 _state = None
@@ -111,6 +135,8 @@ _state_lock = threading.Lock()
 # inits this process has made: each publishes rank 0's store under its
 # own key, so that a later init never reads an earlier one's address
 _generation = 0
+# the same for the coordinator's address in the store (every init)
+_inits = 0
 
 STORE_SCOPE = "torchdist"
 LOOPBACK = ("localhost", "127.0.0.1", "::1")
@@ -126,6 +152,7 @@ class _State:
     cross_size: int
     device: torch.device
     controller: object   # ops.controller.Controller, the eager plane
+    plane: object        # ops.tcp_controller.ControlPlane
     compression: str     # the job's default (HVD_TPU_COMPRESSION)
     zero_min_size: int   # HVD_TPU_ZERO_MIN_SIZE
     key: bytes           # the job key (HVD_SECRET_KEY or derived)
@@ -148,7 +175,7 @@ def resolve_device(device=None):
 
 def init(device=None, store_path=None, timeout=timedelta(seconds=300)):
     """Join the job.  ``device`` is ``"cuda"`` (default) or ``"cpu"``."""
-    global _state, _generation
+    global _state, _generation, _inits
     with _state_lock:
         if _state is not None:
             return
@@ -164,6 +191,8 @@ def init(device=None, store_path=None, timeout=timedelta(seconds=300)):
         if not 0 <= rank < size:
             raise ValueError(f"HVD_RANK={rank} outside HVD_SIZE={size}")
         config = Config.from_env()
+        # arm the injector before any controller or transport code runs
+        faults.configure(config.fault_spec, rank=rank)
         key = job_key(store_path, size)
         if device.type == "cuda":
             if device.index is None:
@@ -191,11 +220,13 @@ def init(device=None, store_path=None, timeout=timedelta(seconds=300)):
             dist.init_process_group(backend, store=store, rank=rank,
                                     world_size=size, timeout=timeout)
         groups.reset()
+        _inits += 1
+        plane = _start_control_plane(rank, size, config, key)
         controller = _start_eager_plane(rank, size, device, backend,
-                                        config, key)
+                                        config, key, plane)
         _state = _State(rank, size, local_rank, local_size, cross_rank,
-                        cross_size, device, controller, config.compression,
-                        config.zero_min_size, key)
+                        cross_size, device, controller, plane,
+                        config.compression, config.zero_min_size, key)
         local = _adasum_local_size(size, local_size, config)
         if local is not None:
             hier = groups.grid(cross=size // local, local=local)
@@ -204,6 +235,7 @@ def init(device=None, store_path=None, timeout=timedelta(seconds=300)):
                 for axis in ("local", "cross"))
         _state = dataclasses.replace(
             _state, sequence_group=groups.grid(sp=size).group("sp"))
+        plane.barrier(config.start_timeout_seconds)
 
 
 def job_key(store_path=None, size=1):
@@ -320,16 +352,57 @@ def _adasum_local_size(size, local_size, config):
     return None
 
 
-def _start_eager_plane(rank, size, device, backend, config, key):
-    meta = dist.new_group(backend="gloo")
+def _start_control_plane(rank, size, config, key):
+    """The control plane (``ops/tcp_controller.py``); above one rank,
+    rank 0's coordinator first, its address through the store."""
+    plane = ControlPlane(rank, size, key, config)
+    plane.add_listener(_abort_communicators)
+    if size == 1:
+        return plane
+    store = dist.distributed_c10d._get_default_store()
+    where = f"hvd_torch/coordinator.{_inits}"
+
+    def client_key(r):
+        return f"hvd_torch/client.{_inits}.{r}"
+
+    def rank_of_client(address):
+        """The rank whose exchange connection comes from ``address``."""
+        wanted = f"{address[0]}:{address[1]}"
+        for r in range(size):
+            try:
+                if store.check([client_key(r)]) and store.get(
+                        client_key(r)).decode() == wanted:
+                    return r
+            except Exception:  # noqa: BLE001 — a name, best effort
+                return None
+        return None
+
+    if rank == 0:
+        host = _my_address()
+        store.set(where, f"{host}:{plane.serve(host, rank_of_client)}")
+    host, _, port = store.get(where).decode().rpartition(":")
+    plane.start((host, int(port)), lambda a: store.set(client_key(rank), a))
+    return plane
+
+
+def _abort_communicators(origin_rank, reason):
+    """Abort every ``torch.distributed`` communicator of this process
+    (NCCL's ends the collectives a dead peer left hanging on the card)
+    and forget them, so that ``shutdown`` does not wait on them."""
+    if dist.is_initialized():
+        dist.distributed_c10d._abort_process_group()
+
+
+def _start_eager_plane(rank, size, device, backend, config, key, plane):
     data = dist.new_group(backend=backend)
     if config.executor == "mesh":
         from horovod_tpu_torch.sharding.mesh_executor import MeshExecutor
         cls = MeshExecutor
     else:
         cls = Executor
-    controller = Controller(rank, size, meta, cls(data, rank, size, device),
+    controller = Controller(rank, size, plane, cls(data, rank, size, device),
                             key, config)
+    plane.add_listener(controller.abort)
     controller.start()
     return controller
 
@@ -340,10 +413,64 @@ def shutdown():
         if _state is None:
             return
         _state.controller.shutdown()
+        _state.plane.shutdown()
         groups.reset()
         if dist.is_initialized():
             dist.destroy_process_group()
         _state = None
+
+
+def abort(reason="aborted by user"):
+    """Abort the job (reference: ``horovod_tpu/common/basics.py:363``):
+    every rank, ranks blocked inside a collective included, raises
+    :class:`~horovod_tpu_torch.common.handles.HvdAbortedError` naming
+    this rank within ``HVD_TPU_ABORT_TIMEOUT``.  For a rank that detects
+    an unrecoverable condition and wants the whole job to unwind
+    together rather than leave its peers hanging."""
+    state = _get_state()
+    state.plane.abort(state.rank, reason)
+
+
+def raise_if_aborted():
+    """Raise the typed abort error once the job has aborted."""
+    state = _state
+    abort = None if state is None else state.plane.abort_state()
+    if abort is not None:
+        raise make_abort_error(*abort)
+
+
+def wait_for_abort():
+    """Block until the job aborts, then raise its typed error (the
+    caller's part of a collective was dropped by a fault spec)."""
+    _get_state().plane.await_abort()
+    raise_if_aborted()
+
+
+@contextlib.contextmanager
+def abortable():
+    """Around a ``torch.distributed`` call of the caller's thread: a
+    failure once the job has aborted, or a broken communication that the
+    coordinator's verdict turns into an abort, raises the typed abort
+    error; anything else the backend's own error, at once."""
+    try:
+        yield
+    except HvdError:
+        raise
+    except Exception as exc:
+        err = collective_error(exc)
+        if err is exc:
+            raise
+        raise err from exc
+
+
+def collective_error(exc):
+    """The error to raise for ``exc``, which a collective of this rank
+    raised: the job's abort, waiting for the coordinator's verdict first
+    when ``exc`` is a broken communication (a survivor names the rank
+    that died, not itself), else ``exc``."""
+    state = _state
+    verdict = None if state is None else state.plane.verdict(exc)
+    return exc if verdict is None else make_abort_error(*verdict)
 
 
 def _new_torch_groups(ranks):

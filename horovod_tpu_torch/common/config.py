@@ -3,10 +3,12 @@
 ``horovod/common/operations.cc:404-500``).
 
 Only the fields of the knobs the port reads at ``init`` are here: the
-eager plane's fusion threshold, cycle time, cache capacity and stall
-warning, the job's default compression, the plane's executor, ZeRO's
-replicated-update threshold, hierarchical Adasum with its local size,
-and the gang-start deadline of the rendezvous.  Field names, defaults
+eager plane's fusion threshold, cycle time, cache capacity, stall
+warning and stall shutdown, the control plane's abort, heartbeat and
+liveness windows and the fault spec, the job's default compression, the
+plane's executor, ZeRO's replicated-update threshold, hierarchical
+Adasum with its local size, and the gang-start deadline of the
+rendezvous.  Field names, defaults
 and validation texts are the reference's; ``hier_local_size`` and
 ``start_timeout_seconds`` have no reference field (the reference reads
 those two variables where it uses them).  The reference's other fields
@@ -25,6 +27,7 @@ class Config:
     cache_capacity: int = env_util.DEFAULT_CACHE_CAPACITY
     stall_check_disable: bool = False
     stall_warning_seconds: float = env_util.DEFAULT_STALL_WARNING_SECONDS
+    stall_shutdown_seconds: float = 0.0
     # Opt-in: hierarchical Adasum changes the result (Adasum of the
     # local groups' averages), it is not a schedule-only switch.
     adasum_hierarchical: bool = False
@@ -42,6 +45,15 @@ class Config:
     zero_min_size: int = env_util.DEFAULT_ZERO_MIN_SIZE
     # how long a rank waits for rank 0's store address at the rendezvous
     start_timeout_seconds: float = env_util.DEFAULT_START_TIMEOUT_SECONDS
+    # Fault-tolerant runtime knobs (ops/tcp_controller.py): bound on
+    # abort propagation, heartbeat period, missed-heartbeat window
+    # (0 disables liveness tracking), and the deterministic fault spec.
+    abort_timeout_seconds: float = env_util.DEFAULT_ABORT_TIMEOUT_SECONDS
+    heartbeat_interval_seconds: float = \
+        env_util.DEFAULT_HEARTBEAT_INTERVAL_SECONDS
+    liveness_timeout_seconds: float = \
+        env_util.DEFAULT_LIVENESS_TIMEOUT_SECONDS
+    fault_spec: str | None = None
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -58,6 +70,8 @@ class Config:
             stall_warning_seconds=env_util.get_float(
                 env_util.HVD_STALL_CHECK_TIME_SECONDS,
                 env_util.DEFAULT_STALL_WARNING_SECONDS),
+            stall_shutdown_seconds=env_util.get_float(
+                env_util.HVD_STALL_SHUTDOWN_TIME_SECONDS, 0.0),
             adasum_hierarchical=env_util.get_bool(
                 env_util.HVD_ADASUM_HIERARCHICAL),
             hier_local_size=env_util.get_int(
@@ -72,7 +86,30 @@ class Config:
             start_timeout_seconds=env_util.get_float(
                 env_util.HVD_START_TIMEOUT,
                 env_util.DEFAULT_START_TIMEOUT_SECONDS),
+            abort_timeout_seconds=env_util.get_float(
+                env_util.HVD_TPU_ABORT_TIMEOUT,
+                env_util.DEFAULT_ABORT_TIMEOUT_SECONDS),
+            heartbeat_interval_seconds=env_util.get_float(
+                env_util.HVD_TPU_HEARTBEAT_INTERVAL,
+                env_util.DEFAULT_HEARTBEAT_INTERVAL_SECONDS),
+            liveness_timeout_seconds=env_util.get_float(
+                env_util.HVD_TPU_LIVENESS_TIMEOUT,
+                env_util.DEFAULT_LIVENESS_TIMEOUT_SECONDS),
+            fault_spec=_validated_fault_spec(env_util.get_str(
+                env_util.HVD_TPU_FAULT_SPEC)),
         )
+
+
+def effective_heartbeat_interval(config) -> float:
+    """The heartbeat period the control plane actually runs: the
+    configured interval clamped to at most a quarter of the abort
+    deadline (so abort propagation meets it); 0 only when the interval
+    AND the abort timeout are both disabled."""
+    interval = config.heartbeat_interval_seconds
+    if config.abort_timeout_seconds > 0:
+        interval = min(interval or 1e9,
+                       config.abort_timeout_seconds / 4.0)
+    return interval
 
 
 def _validated_nonneg(name, default):
@@ -82,6 +119,17 @@ def _validated_nonneg(name, default):
     if value < 0:
         raise ValueError(f"{name} must be >= 0, got {value}")
     return value
+
+
+def _validated_fault_spec(text):
+    """Same fail-at-init rule as compression: a fault spec with a typo
+    would otherwise silently never fire and the chaos run would prove
+    nothing."""
+    if text:
+        from horovod_tpu_torch.common.faults import parse_fault_spec
+
+        parse_fault_spec(text)
+    return text
 
 
 def _validated_executor(name: str) -> str:

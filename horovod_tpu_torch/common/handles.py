@@ -1,5 +1,7 @@
 """Async-op handles (copy of ``horovod_tpu/common/handles.py``'s
-``HvdError``, ``Handle`` and ``HandleManager``).
+``HvdError``, ``HvdAbortedError``, ``make_abort_error``, ``Handle`` and
+``HandleManager``; the elastic subtypes and the reconfiguration marker
+come with elastic membership, ROADMAP A.13c).
 
 The reference exposes integer handles managed by a poll/wait map
 (``horovod/torch/handle_manager.{h,cc}``).  The eager plane returns
@@ -16,6 +18,27 @@ import threading
 
 class HvdError(RuntimeError):
     """Raised when a collective fails (reference: Response::ERROR path)."""
+
+
+class HvdAbortedError(HvdError):
+    """Raised on every rank when the job performs a coordinated abort: a
+    rank crashed or went silent past the liveness window, the stall
+    check promoted a stalled tensor into a shutdown, or a rank called
+    ``hvd.abort()``.  Every survivor raises this one typed error, naming
+    the origin rank, within ``HVD_TPU_ABORT_TIMEOUT``
+    (``ops/tcp_controller.py``)."""
+
+    def __init__(self, origin_rank, reason):
+        super().__init__(
+            f"collective runtime aborted (origin rank {origin_rank}): "
+            f"{reason}")
+        self.origin_rank = origin_rank
+        self.reason = reason
+
+
+def make_abort_error(origin_rank, reason):
+    """The typed error of a learned ``(origin, reason)`` abort."""
+    return HvdAbortedError(origin_rank, reason)
 
 
 class Handle:

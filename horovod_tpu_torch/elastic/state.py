@@ -14,12 +14,13 @@ them and moves their state in place:
   the state;
 - ``step`` and ``epoch``: integer counters.
 
-``commit()`` copies all of it onto the host; ``restore()`` copies the
-last commit back into the live tensors and ``load_state_dict``s the
-optimizer; ``sync(root_rank)`` replays ``root_rank``'s state to every
-rank (``broadcast_parameters``, the layout-first
-``broadcast_optimizer_state`` and ``broadcast_object`` for the counters,
-under fixed names) and commits.
+``commit()`` copies all of it onto the host and refuses the copy, with
+the typed ``HvdAbortedError``, once the job has aborted; ``restore()``
+copies the last commit back into the live tensors and
+``load_state_dict``s the optimizer; ``sync(root_rank)`` replays
+``root_rank``'s state to every rank (``broadcast_parameters``, the
+layout-first ``broadcast_optimizer_state`` and ``broadcast_object`` for
+the counters, under fixed names) and commits.
 
 With ``zero_n_params`` set the optimizer's live state is this rank's
 block of the flat state (``ZeroDistributedOptimizer``), so ``commit``
@@ -34,6 +35,8 @@ followed here (ROADMAP C.8).
 import copy
 
 import torch
+
+from horovod_tpu_torch.common import basics
 
 
 def _host_copy(tree):
@@ -74,7 +77,8 @@ class State:
     def commit(self, _local=False):
         """Snapshot the state onto the host.  With ``zero_n_params`` set
         this is a collective (the optimizer's blocks are gathered), so
-        every rank commits at the same step."""
+        every rank commits at the same step.  Raises ``HvdAbortedError``,
+        keeping the last snapshot, once the job has aborted."""
         params = _host_copy(self.params)
         opt, full = None, False
         if self.optimizer_state is not None:
@@ -86,6 +90,12 @@ class State:
                                          name_prefix="elastic.zero.gather")
                 full = True
             opt = _host_copy(live)
+        # on the card a step's update waits on the stream for its
+        # gradient allreduces; one that a dead peer left hanging returns
+        # only when the abort aborts the communicator, after the abort is
+        # recorded, and the update it releases may be partly reduced.
+        # The host copy above waited for that update: refuse it
+        basics.raise_if_aborted()
         self._committed = (params, opt, self.step, self.epoch)
         self._opt_full = full
         # durable checkpointing writes the same snapshot from its own

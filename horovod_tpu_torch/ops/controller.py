@@ -10,13 +10,12 @@ rank's cycle thread
    name, dtype, shape, op, root, scales, splits, compression; for a name
    the response cache holds with the same signature, the entry's id in
    their place), its join flag and its shutdown flag: pickled, signed
-   with the job key (HMAC-SHA256, ``run/service/secret.py``) and put
-   into a fixed slot of bytes, one ``all_gather`` on a gloo group of the
-   plane's own (a second one when a message outgrows its slot); each
-   rank checks every message's digest before it unpickles any, and a
-   digest that does not verify fails the cycle with an error naming the
-   sender (gloo carries no authentication; the reference unpickles only
-   HMAC-verified frames, ``horovod_tpu/run/service/network.py``);
+   with the job key (HMAC-SHA256, ``run/service/secret.py``) and sent to
+   rank 0's coordinator over the HMAC-framed TCP control plane
+   (``ops/tcp_controller.py``), which answers with every rank's message
+   for the cycle, in rank order; each rank checks every message's
+   digest before it unpickles any, and a digest that does not verify
+   fails the cycle with an error naming the sender;
 2. adds them to a table of names that every rank holds identically (the
    same gathered data, absorbed in the same order), and takes, in the
    table's order, the names that every rank that has not joined has
@@ -49,12 +48,13 @@ of its own, so that disjoint groups' collectives are in flight at once.
 Each cycle records the number of distinct groups with entries open
 (``groups.note_inflight``).
 
-Since every rank computes the same responses from the same data, no rank
-coordinates the others.  A rank that has joined contributes zeros to the
-allreduces of the others; ``join`` completes, with the last rank to join,
-when every rank has joined and no name is pending.  Shutdown is a flag in
-the cycle too: every rank leaves the loop in the cycle in which all of
-them have asked for it.
+Since every rank computes the same responses from the same data, the
+coordinator only relays: it decides nothing about the collectives.  A
+rank that has joined contributes zeros to the allreduces of the others;
+``join`` completes, with the last rank to join, when every rank has
+joined and no name is pending.  Shutdown is a flag in the cycle too:
+every rank leaves the loop in the cycle in which all of them have asked
+for it.
 
 At one rank the cycle needs no communication: the thread sleeps on a
 condition variable while nothing is queued, and runs a cycle as soon as
@@ -65,6 +65,21 @@ waits twice as long as the last, up to ``_IDLE_WAIT_S``.  A rank with new
 work starts its cycle at once and waits in the exchange for the others,
 so the first op after a long idle spell waits up to that long; ops a few
 cycles apart, such as ``SyncBatchNorm``'s, never meet the backoff.
+
+Faults (``ops/tcp_controller.py``).  A coordinated abort, whatever its
+origin (a dead rank, the stall shutdown, ``hvd.abort()``, a lost
+coordinator), reaches :meth:`Controller.abort`: the queue, every
+outstanding handle, the requests a fault spec dropped and a pending
+``join`` fail with the typed :class:`HvdAbortedError`, a blocked
+``drain`` raises it, and so does every later submission.  The stall
+check promotes an entry older than ``HVD_STALL_SHUTDOWN_TIME_SECONDS``
+(when set) into such an abort, naming the first lagging member (the
+reference's rule, ``python_controller.py:730-746``).  A collective whose
+communication breaks waits for the coordinator's verdict before its
+handles fail, so that a survivor names the rank that died, not itself.  Fault
+sites: each request's type at submit (``ops/eager.py``), and ``ring``
+just before :meth:`Executor.run <horovod_tpu_torch.ops.nccl_executor.
+Executor.run>` issues a negotiated collective.
 
 Ordering against ``DistributedOptimizer``: the optimizer's collectives
 run on the default process group from the caller's thread, the plane's
@@ -89,19 +104,17 @@ import typing
 import torch
 
 from horovod_tpu_torch import groups
+from horovod_tpu_torch.common import faults
 from horovod_tpu_torch.common.fusion import plan_buckets
-from horovod_tpu_torch.common.handles import Handle
+from horovod_tpu_torch.common.handles import (Handle, HvdAbortedError,
+                                              make_abort_error)
 from horovod_tpu_torch.common.ops_enum import ReduceOp, RequestType
 from horovod_tpu_torch.common.response_cache import SignatureCache
-from horovod_tpu_torch.ops.nccl_executor import Executor, all_gather_into
+from horovod_tpu_torch.ops.nccl_executor import Executor
 from horovod_tpu_torch.run.service import secret
 
 _log = logging.getLogger("horovod_tpu_torch")
 SHUT_DOWN = "horovod_tpu_torch has been shut down"
-# bytes of a rank's cycle message that need no second exchange: an idle
-# cycle's message takes about 30, a request's signature about 200, a
-# cache id a few
-_SLOT = 8192
 # an idle plane above one rank backs off after this many idle cycles in
 # a row (about 50 ms at four ranks), to one cycle per _IDLE_WAIT_S
 _IDLE_CYCLES = 16
@@ -226,18 +239,22 @@ class _Entry:
 class Controller:
     """One rank's side of the negotiation; see the module docstring."""
 
-    def __init__(self, rank, size, meta_group, executor, key, config):
-        """``key``: the job key the cycle messages are signed with;
-        ``config``: the knobs (``common/config.py::Config``)."""
+    def __init__(self, rank, size, plane, executor, key, config):
+        """``plane``: the control plane
+        (``ops/tcp_controller.py::ControlPlane``) the cycle messages are
+        exchanged over and the job's abort comes from; ``key``: the job
+        key they are signed with; ``config``: the knobs
+        (``common/config.py::Config``)."""
         self.rank = rank
         self.size = size
-        self._meta = meta_group
+        self._plane = plane
         self._executor = executor
         self._key = key
         self._cycle_s = config.cycle_time_ms / 1e3
         self._threshold = config.fusion_threshold_bytes
         self._stall_s = (None if config.stall_check_disable
                          else config.stall_warning_seconds)
+        self._stall_shutdown_s = config.stall_shutdown_seconds
         self._cache = SignatureCache(config.cache_capacity)
         lock = threading.Lock()
         self._cond = threading.Condition(lock)      # work for the cycle
@@ -247,6 +264,7 @@ class Controller:
         self._in_flight = 0     # this rank's requests not yet issued
         self._issued = set()    # streams issued on since the last drain
         self._join_handle = None
+        self._held = []         # handles of requests a fault spec dropped
         self._stopping = False
         self._running = False
         self._error = None
@@ -269,7 +287,8 @@ class Controller:
 
     def negotiation_times(self):
         """Seconds of the last (up to 1000) cycles' negotiation: the
-        metadata exchange and the decision, without the collectives."""
+        exchange through the coordinator and the decision, without the
+        collectives."""
         return list(self._negotiation_s)
 
     def hmac_times(self):
@@ -284,18 +303,36 @@ class Controller:
                                         name="hvd-torch-cycle")
         self._thread.start()
 
+    def _failure_locked(self):  # holds: self._cond
+        """Why a new request cannot be taken (a message, or the job's
+        abort as ``(origin, reason)``), or None."""
+        state = self._plane.abort_state()
+        if state is not None:
+            return state
+        if not self._running or self._stopping:
+            return SHUT_DOWN
+        return self._error
+
     def enqueue(self, requests):
         """Queue requests together: one cycle takes all of them."""
         with self._cond:
-            failure = (SHUT_DOWN if not self._running or self._stopping
-                       else self._error)
+            failure = self._failure_locked()
             if failure is None:
                 self._queue.extend(requests)
                 self._in_flight += len(requests)
                 self._cond.notify()
         if failure is not None:
             for req in requests:
-                req.handle.set_error(failure)
+                req.handle.set_error(_error(failure))
+
+    def hold(self, req):
+        """A request that a fault spec dropped: it never reaches the
+        negotiation, and its handle fails with the job's abort."""
+        with self._cond:
+            self._held.append(req.handle)
+            state = self._plane.abort_state()
+        if state is not None:
+            req.handle.set_error(make_abort_error(*state))
 
     def drain(self):
         """Block until every request this rank queued has been issued on
@@ -305,23 +342,26 @@ class Controller:
         with self._cond:
             self._drained.wait_for(lambda: self._in_flight == 0)
             issued, self._issued = self._issued, set()
+        state = self._plane.abort_state()
+        if state is not None:
+            raise make_abort_error(*state)
         for stream in issued:
             torch.cuda.current_stream(self._executor.device).wait_stream(
                 stream)
 
     def join(self, handle):
         with self._cond:
-            failure = (SHUT_DOWN if not self._running or self._stopping
-                       else self._error)
+            failure = self._failure_locked()
             if failure is None:
                 self._join_handle = handle
                 self._cond.notify()
         if failure is not None:
-            handle.set_error(failure)
+            handle.set_error(_error(failure))
 
     def shutdown(self, timeout=None):
         """Ask for the negotiated shutdown and wait for the cycle thread:
-        it leaves when every rank has asked."""
+        it leaves when every rank has asked, or at once after an
+        abort."""
         with self._cond:
             if not self._running:
                 return
@@ -330,6 +370,16 @@ class Controller:
         self._thread.join(timeout)
         with self._cond:
             self._running = False
+
+    def abort(self, origin_rank, reason):
+        """The job has aborted (``ControlPlane`` listener): fail the
+        queue, the outstanding handles, the dropped requests and a
+        pending ``join`` with the typed error, wake a blocked ``drain``
+        and the cycle thread."""
+        with self._cond:
+            self._stopping = True
+            self._cond.notify()
+        self._fail_outstanding((origin_rank, reason))
 
     # -------------------------------------------------------- cycle thread
     def _take(self, wait_s):
@@ -346,7 +396,8 @@ class Controller:
         """``n`` of this rank's requests were issued (or failed), on
         ``streams``."""
         with self._cond:
-            self._in_flight -= n
+            # an abort may have zeroed the count under the cycle's feet
+            self._in_flight = max(0, self._in_flight - n)
             self._issued.update(s for s in streams if s is not None)
             if self._in_flight == 0:
                 self._drained.notify_all()
@@ -378,14 +429,21 @@ class Controller:
                     new.append((req.name, req.sig) if cache_id is None
                                else cache_id)
                 mine = (new, joining, stopping)
+                state = self._plane.abort_state()
+                if state is not None:
+                    raise make_abort_error(*state)
                 msgs = [mine] if self.size == 1 else self._exchange(mine)
                 if all(m[2] for m in msgs):
                     break
-                self._cycle(msgs, t0)
+                if not self._cycle(msgs, t0):
+                    break
                 self.cycles += 1
                 busy = self._table or any(any(m) for m in msgs)
                 idle = 0 if busy else min(idle + 1, _IDLE_CYCLES + 16)
-            self._fail_outstanding(SHUT_DOWN)
+            state = self._plane.abort_state()
+            self._fail_outstanding(SHUT_DOWN if state is None else state)
+        except HvdAbortedError as exc:
+            self._fail_outstanding((exc.origin_rank, exc.reason))
         except Exception as exc:  # noqa: BLE001 — the cycle cannot go on
             _log.exception("horovod_tpu_torch: eager cycle failed")
             message = f"horovod_tpu_torch eager cycle failed: {exc!r}"
@@ -394,33 +452,13 @@ class Controller:
             self._fail_outstanding(message)
 
     def _exchange(self, mine):
-        """Every rank's cycle message, in rank order.  Each rank sends a
-        fixed slot: its message's length, then the message if it fits; a
-        message that does not travels in a second all_gather, sized to
-        the longest one."""
+        """Every rank's cycle message, in rank order, through the
+        coordinator; each verified before the first is unpickled."""
         data = pickle.dumps(mine, protocol=pickle.HIGHEST_PROTOCOL)
         t0 = time.perf_counter()
         data = secret.sign(self._key, data) + data
         signing = time.perf_counter() - t0
-        slot = torch.zeros(_SLOT, dtype=torch.uint8)
-        slot[:8] = torch.tensor([len(data)], dtype=torch.int64).view(
-            torch.uint8)
-        payload = torch.frombuffer(bytearray(data), dtype=torch.uint8)
-        if len(data) <= _SLOT - 8:
-            slot[8:8 + len(data)] = payload
-        rows = torch.empty(self.size, _SLOT, dtype=torch.uint8)
-        all_gather_into(rows.view(-1), slot, group=self._meta)
-        lengths = rows[:, :8].contiguous().view(torch.int64).view(-1)
-        lengths = lengths.tolist()
-        offset, top = 8, max(lengths)
-        if top > _SLOT - 8:
-            buf = torch.zeros(top, dtype=torch.uint8)
-            buf[:len(data)] = payload
-            rows = torch.empty(self.size, top, dtype=torch.uint8)
-            all_gather_into(rows.view(-1), buf, group=self._meta)
-            offset = 0
-        blobs = [rows[r, offset:offset + n].numpy().tobytes()
-                 for r, n in enumerate(lengths)]
+        blobs = self._plane.exchange(data)
         t0 = time.perf_counter()
         payloads = []
         for r, blob in enumerate(blobs):
@@ -436,19 +474,29 @@ class Controller:
         # every payload verified before the first is unpickled
         return [pickle.loads(payload) for payload in payloads]
 
-    def _fail_outstanding(self, message):
+    def _fail_outstanding(self, failure):
+        """Fail what is queued, outstanding, held and joining with
+        ``failure``: a message, or an abort's ``(origin, reason)``, each
+        handle then with an error of its own.  Also runs on an abort
+        listener's thread while the cycle thread may be blocked: the
+        snapshot of ``_local`` below is taken in one step."""
         with self._cond:
             queued, self._queue = self._queue, []
             join, self._join_handle = self._join_handle, None
-        for req in queued + list(self._local.values()):
-            req.handle.set_error(message)
-        self._local.clear()
-        self._table.clear()
+            held, self._held = self._held, []
+        outstanding = tuple(self._local.values())
+        for req in queued + list(outstanding):
+            req.handle.set_error(_error(failure))
+        for handle in held:
+            handle.set_error(_error(failure))
+        if threading.current_thread() is self._thread:
+            self._local.clear()
+            self._table.clear()
         with self._cond:
             self._in_flight = 0
             self._drained.notify_all()
         if join is not None:
-            join.set_error(message)
+            join.set_error(_error(failure))
 
     def _cycle(self, msgs, t0):
         for r, (new, joining, _) in enumerate(msgs):
@@ -468,8 +516,8 @@ class Controller:
                 entry.sigs[r] = sig
         if self._table:
             groups.note_inflight(gid for gid, _ in self._table)
-        if self._stall_s is not None:
-            self._check_stalls()
+        if self._stall_s is not None and self._check_stalls():
+            return False
         joined = set(self._joined)
         world = set(range(self.size)) - joined
         ready = [key for key, e in self._table.items()
@@ -497,6 +545,7 @@ class Controller:
                 handle, self._join_handle = self._join_handle, None
             if handle is not None:
                 handle.set_result(last)
+        return True
 
     @staticmethod
     def _needed(entry, world):
@@ -520,20 +569,37 @@ class Controller:
         return error
 
     def _check_stalls(self):
+        """Warn of an entry older than the stall warning; abort the job
+        for one older than the stall shutdown.  -> True if it aborted."""
         now = time.monotonic()
         world = set(range(self.size)) - set(self._joined)
+        shutdown = self._stall_shutdown_s
         for (_, name), entry in self._table.items():
-            if entry.stall_warned or now - entry.first_ts <= self._stall_s:
-                continue
-            ready = sorted(entry.sigs)
-            missing = sorted(self._needed(entry, world) - set(ready))
-            _log.warning(
-                "One or more tensors were submitted to be reduced, gathered "
-                "or broadcasted by subset of ranks and are waiting for "
-                "remainder of ranks for more than %ds. Stalled tensor: %s "
-                "ready ranks: %s, waiting on: %s", int(self._stall_s), name,
-                ready, missing)
-            entry.stall_warned = True
+            age = now - entry.first_ts
+            if age > self._stall_s and not entry.stall_warned:
+                ready = sorted(entry.sigs)
+                missing = sorted(self._needed(entry, world) - set(ready))
+                _log.warning(
+                    "One or more tensors were submitted to be reduced, "
+                    "gathered or broadcasted by subset of ranks and are "
+                    "waiting for remainder of ranks for more than %ds. "
+                    "Stalled tensor: %s ready ranks: %s, waiting on: %s",
+                    int(self._stall_s), name, ready, missing)
+                entry.stall_warned = True
+            if shutdown > 0 and age > shutdown:
+                # promoted from a log line into a coordinated abort: one
+                # typed error on every rank, naming the first lagging
+                # rank; a group's entry names its lagging member, and
+                # the abort still fails the whole job
+                missing = sorted(self._needed(entry, world)
+                                 - set(entry.sigs))
+                origin = missing[0] if missing else -1
+                self._plane.abort(
+                    origin, f"stalled tensor '{name}' exceeded shutdown "
+                            f"threshold of {shutdown}s (waiting on ranks "
+                            f"{missing})")
+                return True
+        return False
 
     # ----------------------------------------------------------- execution
     def _dispatch(self, responses, joined):
@@ -564,11 +630,16 @@ class Controller:
             try:
                 done += self._execute(ex, bucket, reqs)
             except Exception as exc:  # noqa: BLE001 — surfaced on handles
-                _log.exception("horovod_tpu_torch: collective failed")
+                # a peer that died mid-collective breaks it here too:
+                # wait for the coordinator to name the origin
+                state = self._plane.verdict(exc)
+                if state is None:
+                    _log.exception("horovod_tpu_torch: collective failed")
                 for req in reqs:
                     if req is not None:
                         req.handle.set_error(
-                            f"collective execution failed: {exc!r}")
+                            make_abort_error(*state) if state is not None
+                            else f"collective execution failed: {exc!r}")
         for req, out, event in done:
             req.handle.set_result(out, event)
         if mine:
@@ -592,6 +663,13 @@ class Controller:
         event) of each of this rank's requests in it."""
         sig = _agreed(bucket[0][1])
         order = sig.group_ranks or range(self.size)
+        # "ring": after the go-ahead, the peers already inside the
+        # collective; a drop leaves this rank's part out
+        if faults.check("ring"):
+            for req in reqs:
+                if req is not None:
+                    self.hold(req)
+            return []
         with ex.run(reqs) as run:
             if sig.req_type == RequestType.ALLREDUCE:
                 shapes = [_agreed(sigs).shape for _, sigs in bucket]
@@ -623,6 +701,14 @@ class Controller:
                                       else out])] if req is not None else []
         return [(req, out, run.done) for req, out in results
                 if req is not None]
+
+
+def _error(failure):
+    """A handle's error for ``failure``: a message, or an abort's
+    ``(origin, reason)`` (a fresh typed error for each handle)."""
+    if isinstance(failure, tuple):
+        return make_abort_error(*failure)
+    return failure
 
 
 def _agreed(sigs):

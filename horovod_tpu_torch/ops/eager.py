@@ -27,6 +27,12 @@ tensor at a time (never fused: Adasum's coefficients belong to one
 tensor) and always on the exact wire, since Adasum combines full-precision
 vectors (reference: ``horovod_tpu/ops/eager.py:78-82,131-132``);
 ``reduce_scatter`` refuses it.
+
+Each submitted request is a hit of the fault point named after its type
+(``allreduce``, ``adasum``, ``allgather``, ``broadcast``, ``alltoall``,
+``reduce_scatter``; ``common/faults.py``), before negotiation, as the
+reference's submit path is: a ``drop`` leaves the request out of the
+negotiation, and its handle fails with the job's abort.
 """
 
 import threading
@@ -34,7 +40,7 @@ import threading
 import torch
 
 from horovod_tpu_torch import groups
-from horovod_tpu_torch.common import basics
+from horovod_tpu_torch.common import basics, faults
 from horovod_tpu_torch.common.compression import resolve_compression
 from horovod_tpu_torch.common.handles import Handle
 from horovod_tpu_torch.common.ops_enum import (Adasum, Average, ReduceOp,
@@ -126,7 +132,14 @@ def _request(req_type, tensor, name, *, op=Sum, root_rank=-1,
 
 
 def _submit(requests):
-    basics._get_state().controller.enqueue(requests)
+    controller = basics._get_state().controller
+    live = []
+    for req in requests:
+        if faults.check(req.sig.req_type.name.lower()):
+            controller.hold(req)   # silently never contributes
+        else:
+            live.append(req)
+    controller.enqueue(live)
     return [r.handle for r in requests]
 
 

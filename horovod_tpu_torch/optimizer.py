@@ -42,6 +42,22 @@ rank submitted to it (:meth:`ops.controller.Controller.drain`): the two
 use different communicators, and NCCL can deadlock when ranks launch the
 operations of two communicators in different orders.
 
+Faults: each bucket's start is a hit of the fault point ``allreduce``
+(``common/faults.py``), as the reference's buckets, which its plane
+negotiates, are.  Once the job has aborted (``common/basics.py``), every
+collective here, a bucket's start and its ``wait()`` included, raises
+the typed ``HvdAbortedError`` with the coordinator's origin and reason
+in place of the backend's own error.  The buckets stay asynchronous on
+the card, as before, so a step that the abort lands in can return and
+queue an update behind a collective that a dead peer left hanging; the
+abort releases that collective, partly reduced, and the update applies
+it.  Such parameters never leave the device as a good state:
+``elastic.State.commit()`` checks for the abort after its host copy,
+which waits for the update, and refuses the snapshot (and with it the
+durable checkpoint); the next call here raises.  A host wait in
+``synchronize()``, the reference's place for it, cost about 2 ms of a
+45 ms step at four H100s (PERF.md), so it is not made.
+
 Adasum (``op=Adasum``, ``ops/adasum.py``) takes two forms, the
 reference's:
 
@@ -68,7 +84,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from horovod_tpu_torch import groups, mpi_ops
-from horovod_tpu_torch.common import basics
+from horovod_tpu_torch.common import basics, faults
 from horovod_tpu_torch.common.compression import (
     Compression, accumulate_int8, all_gather_into, compressor_for,
     int8_chunk, is_quantized, quantize_int8_blocks, quantized_all_gather)
@@ -112,8 +128,12 @@ class _Bucket:
         self.work = None
         self.flat = None
         self.ctxs = None
+        self.dropped = False
 
     def start(self):
+        if faults.check("allreduce"):
+            self.dropped = True   # this rank silently never contributes
+            return
         compressed = []
         self.ctxs = []
         for t in self.tensors:
@@ -122,12 +142,17 @@ class _Bucket:
             self.ctxs.append(ctx)
         self.flat = torch.cat(compressed)
         _after_eager_plane()
-        self.work = dist.all_reduce(self.flat, op=dist.ReduceOp.SUM,
-                                    group=self.group, async_op=True)
+        with basics.abortable():
+            self.work = dist.all_reduce(self.flat, op=dist.ReduceOp.SUM,
+                                        group=self.group, async_op=True)
 
     def wait(self):
         """-> the reduced tensors, in the order and shapes given."""
-        self.work.wait()
+        if self.dropped:
+            basics.wait_for_abort()
+        with basics.abortable():
+            self.work.wait()
+        basics.raise_if_aborted()
         if self.op == Average:
             self.flat.div_(dist.get_world_size(self.group))
         out, offset = [], 0
@@ -152,23 +177,32 @@ class _QuantizedBucket:
         self.n = dist.get_world_size(group)
         self.chunks = [int8_chunk(t.numel(), self.n) for t in tensors]
         self.works = self.recv = None
+        self.dropped = False
 
     def start(self):
+        if faults.check("allreduce"):
+            self.dropped = True
+            return
         rows = [F.pad(t.reshape(-1).float(), (0, self.n * c - t.numel()))
                 .view(self.n, c) for t, c in zip(self.tensors, self.chunks)]
         q, s = quantize_int8_blocks(torch.cat(rows, dim=1))
         self.recv = (torch.empty_like(q), torch.empty_like(s))
         _after_eager_plane()
-        self.works = [dist.all_to_all_single(out, src, group=self.group,
-                                             async_op=True)
-                      for out, src in zip(self.recv, (q, s))]
+        with basics.abortable():
+            self.works = [dist.all_to_all_single(out, src, group=self.group,
+                                                 async_op=True)
+                          for out, src in zip(self.recv, (q, s))]
 
     def wait(self):
-        for work in self.works:
-            work.wait()
+        if self.dropped:
+            basics.wait_for_abort()
+        with basics.abortable():
+            for work in self.works:
+                work.wait()
         red = accumulate_int8(*self.recv)
         _after_eager_plane()
-        full = quantized_all_gather(red, self.group).view(self.n, -1)
+        with basics.abortable():
+            full = quantized_all_gather(red, self.group).view(self.n, -1)
         out, offset = [], 0
         for t, c in zip(self.tensors, self.chunks):
             red = full[:, offset:offset + c].reshape(-1)[:t.numel()]
@@ -231,7 +265,8 @@ def _adasum_gradient(tensor, compression, group):
     stacked = torch.empty((dist.get_world_size(group), flat.numel()),
                           dtype=flat.dtype, device=flat.device)
     _after_eager_plane()
-    all_gather_into(stacked.view(-1), flat, group=group)
+    with basics.abortable():
+        all_gather_into(stacked.view(-1), flat, group=group)
     reduced = adasum_reduce_stacked(stacked).view(compressed.shape)
     return compression.decompress(reduced, ctx)
 

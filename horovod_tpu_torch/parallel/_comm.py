@@ -40,6 +40,11 @@ result so that every rank runs each backward permutation, also where
 its own queries attended none of the blocks it carried.  Each transfer
 first waits for the eager plane to issue what this rank submitted to it
 (``Controller.drain``, ROADMAP C.7).
+
+After a coordinated abort, whose communicator abort ends a transfer that
+a dead peer left hanging, every transfer here raises the typed
+``HvdAbortedError`` (``basics.abortable``) in place of the backend's
+own error.
 """
 
 import torch
@@ -87,8 +92,9 @@ def _permute(tensors, group, shift):
         ops.append(dist.P2POp(dist.isend, t, dst, group))
         ops.append(dist.P2POp(dist.irecv, out, src, group))
     _after_eager_plane()
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    with basics.abortable():
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
     return outs
 
 
@@ -137,7 +143,8 @@ def _all_to_all(x, group, split_axis, concat_axis):
     send = torch.stack(x.chunk(n, dim=split_axis)).contiguous()
     recv = torch.empty_like(send)
     _after_eager_plane()
-    dist.all_to_all_single(recv, send, group=group)
+    with basics.abortable():
+        dist.all_to_all_single(recv, send, group=group)
     return torch.cat(recv.unbind(0), dim=concat_axis)
 
 

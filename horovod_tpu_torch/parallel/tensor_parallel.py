@@ -31,6 +31,7 @@ import typing
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common.compression import all_gather_into
 from horovod_tpu_torch.parallel.mesh import as_mesh
 
@@ -164,7 +165,8 @@ def _after_eager_plane():
 def _all_reduce(x, group):
     out = x.contiguous().clone()
     _after_eager_plane()
-    dist.all_reduce(out, group=group)
+    with basics.abortable():
+        dist.all_reduce(out, group=group)
     return out
 
 
@@ -174,7 +176,8 @@ def _all_gather(x, group, dim):
     src = x.contiguous()
     out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
     _after_eager_plane()
-    all_gather_into(out, src, group=group)
+    with basics.abortable():
+        all_gather_into(out, src, group=group)
     return torch.cat(out.chunk(n), dim=dim)
 
 

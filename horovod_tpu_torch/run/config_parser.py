@@ -27,11 +27,23 @@ _PARAMS = {
     "stall_check_warning_time_seconds": (
         env_util.HVD_STALL_CHECK_TIME_SECONDS,
         "stall_check.warning_time_seconds"),
+    "stall_check_shutdown_time_seconds": (
+        env_util.HVD_STALL_SHUTDOWN_TIME_SECONDS,
+        "stall_check.shutdown_time_seconds"),
     "log_level": (env_util.HVD_LOG_LEVEL, "logging.level"),
     "log_hide_timestamp": (env_util.HVD_LOG_HIDE_TIME,
                            "logging.hide_timestamp"),
     "start_timeout": (env_util.HVD_START_TIMEOUT, "timeouts.start_timeout"),
     "network_interface": (env_util.HVD_IFACE, "network.interface"),
+    "abort_timeout": (env_util.HVD_TPU_ABORT_TIMEOUT,
+                      "fault_tolerance.abort_timeout"),
+    "heartbeat_interval": (env_util.HVD_TPU_HEARTBEAT_INTERVAL,
+                           "fault_tolerance.heartbeat_interval"),
+    "liveness_timeout": (env_util.HVD_TPU_LIVENESS_TIMEOUT,
+                         "fault_tolerance.liveness_timeout"),
+    "connect_retry_seconds": (env_util.HVD_TPU_CONNECT_RETRY_SECONDS,
+                              "fault_tolerance.connect_retry_seconds"),
+    "fault_spec": (env_util.HVD_TPU_FAULT_SPEC, "fault_tolerance.spec"),
     "term_grace": (env_util.HVD_TPU_TERM_GRACE,
                    "fault_tolerance.term_grace"),
     "ckpt_dir": (env_util.HVD_TPU_CKPT_DIR, "checkpoint.dir"),

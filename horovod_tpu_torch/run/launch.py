@@ -8,9 +8,9 @@ other rank.
 
 The reference's elastic supervision (``elastic=True``, with
 ``coord_failover``) needs elastic membership (ROADMAP A.13c); here it
-raises ``NotImplementedError`` naming that item.  Its fault-spec culprit
-attribution (``fault_crash_ranks``) comes with ``common/faults.py``
-(A.13b).
+raises ``NotImplementedError`` naming that item.  The job's own fault
+spec feeds culprit attribution (``fault_crash_ranks``): a rank it arms
+with a crash is blamed even when its peers exit first.
 """
 
 import os
@@ -87,6 +87,25 @@ def slot_env(slot, rendezvous_addr, rendezvous_port, extra_env=None):
 
 
 SECRET_ENV_VARS = (env_util.HVD_SECRET_KEY,)
+
+
+def fault_crash_ranks(extra_env):
+    """Ranks the job's own fault spec arms with a ``crash``: when the
+    launcher injected the failure itself, the culprit is known by
+    construction and no timing evidence can outvote it."""
+    spec_text = (extra_env or {}).get(env_util.HVD_TPU_FAULT_SPEC)
+    if not spec_text:
+        return frozenset()
+    from horovod_tpu_torch.common.faults import parse_fault_spec
+
+    try:
+        specs = parse_fault_spec(spec_text)
+    except ValueError:
+        return frozenset()  # the workers will fail loudly at init
+    # preempt counts: it kills the rank just like a crash
+    return frozenset(s.rank for s in specs
+                     if s.action in ("crash", "preempt")
+                     and s.rank is not None)
 
 
 def pick_culprit(failures, crash_ranks=frozenset()):
@@ -275,7 +294,7 @@ def launch_job(slots, command, rendezvous_addr, rendezvous_port,
         # name the culprit: the first rank that failed on its own, not a
         # victim the fan-out terminated, ranked by when each child was
         # observed dead (see pick_culprit)
-        rank, code = pick_culprit(failures)
+        rank, code = pick_culprit(failures, fault_crash_ranks(extra_env))
         log.error("rank %d failed first (%s); %d other rank(s) were "
                   "terminated", rank, describe_exit(code),
                   len(failures) - 1)

@@ -13,9 +13,9 @@ reads (``utils/env.py``).  Not ported: ``--tpu`` and ``--global-mesh``
 (the JAX package's one-process-per-host device-rank mode; a torch process
 drives one card), the race, protocol, fuzz and soak flags (the
 ``tools/`` analysers and the soak rig, which run on the JAX package),
-the fault-tolerance and elastic flags (ROADMAP A.13b-c), and the flags of
-the reference's TCP data plane, controllers, autotune and timeline
-(A.13e, A.14); ROADMAP lists each.
+the elastic, straggler, drain and fail-over flags (ROADMAP A.13c), and
+the flags of the reference's TCP data plane and session layer,
+controllers, autotune and timeline (A.13e, A.14); ROADMAP lists each.
 """
 
 import argparse
@@ -115,6 +115,32 @@ def make_parser():
                             "(HVD_TPU_GROUP_MAX, default 64).")
 
     fault = parser.add_argument_group("fault tolerance")
+    fault.add_argument("--abort-timeout", type=float, default=None,
+                       help="Bound (seconds) on 'abort initiated -> "
+                            "every rank raises HvdAbortedError' "
+                            "(HVD_TPU_ABORT_TIMEOUT, default 30).")
+    fault.add_argument("--heartbeat-interval", type=float, default=None,
+                       help="Coordinator heartbeat period in seconds "
+                            "(HVD_TPU_HEARTBEAT_INTERVAL, default 2).")
+    fault.add_argument("--liveness-timeout", type=float, default=None,
+                       help="Missed-heartbeat window in seconds before a "
+                            "silent rank is declared dead and the job "
+                            "is aborted (HVD_TPU_LIVENESS_TIMEOUT, "
+                            "default 15; 0 disables).")
+    fault.add_argument("--connect-retry-seconds", type=float,
+                       default=None,
+                       help="Deadline budget in seconds for "
+                            "connection-establishment retries with "
+                            "backoff + jitter "
+                            "(HVD_TPU_CONNECT_RETRY_SECONDS, default "
+                            "30).")
+    fault.add_argument("--fault-spec", default=None,
+                       help="Deterministic fault injection spec "
+                            "(HVD_TPU_FAULT_SPEC), e.g. "
+                            "'rank1:allreduce:2:crash'; see "
+                            "common/faults.py for the grammar.  python "
+                            "-m horovod_tpu_torch.run.chaos generates "
+                            "seeded random specs.")
     fault.add_argument("--term-grace", type=float, default=None,
                        help="Grace window in seconds between the "
                             "SIGTERM the launcher forwards to a worker "
@@ -144,6 +170,12 @@ def make_parser():
                             "env/config.")
     stall.add_argument("--stall-check-warning-time-seconds", type=float,
                        default=None)
+    stall.add_argument("--stall-check-shutdown-time-seconds", type=float,
+                       default=None,
+                       help="Seconds after which a stalled tensor turns "
+                            "into a coordinated abort naming the first "
+                            "lagging rank (HVD_STALL_SHUTDOWN_TIME_"
+                            "SECONDS; 0, the default, only warns).")
 
     logg = parser.add_argument_group("logging")
     logg.add_argument("--log-level", default=None,

@@ -1,2 +1,3 @@
-"""The launcher's services: the job key (``secret``) and the transport
-helpers the rendezvous uses (``network``)."""
+"""The launcher's services: the job key (``secret``) and the HMAC-framed
+TCP transport of the control plane, with the helpers the rendezvous
+uses (``network``)."""

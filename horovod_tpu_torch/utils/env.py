@@ -5,8 +5,9 @@ launcher -> worker rank contract and the job key, the launcher's own
 knobs (start timeout, termination grace, interface, logging), the fusion
 threshold, the job-wide default compression, ZeRO's replicated-update
 threshold, the cap on live process groups, the eager plane's executor
-and its cycle, cache and stall knobs, hierarchical Adasum, and durable
-checkpointing.  Kept as a copy so that the port never imports the JAX
+and its cycle, cache and stall knobs, the control plane's abort,
+heartbeat, liveness and connect-retry windows and the fault spec,
+hierarchical Adasum, and durable checkpointing.  Kept as a copy so that the port never imports the JAX
 package.
 
 Every knob outside ``LAUNCHER_CONTRACT`` has an ``hvdrun-torch`` flag
@@ -23,6 +24,7 @@ HVD_CYCLE_TIME = "HVD_CYCLE_TIME"                      # ms, default 1.0
 HVD_CACHE_CAPACITY = "HVD_CACHE_CAPACITY"              # default 1024
 HVD_STALL_CHECK_DISABLE = "HVD_STALL_CHECK_DISABLE"
 HVD_STALL_CHECK_TIME_SECONDS = "HVD_STALL_CHECK_TIME_SECONDS"  # default 60
+HVD_STALL_SHUTDOWN_TIME_SECONDS = "HVD_STALL_SHUTDOWN_TIME_SECONDS"
 # default on-the-wire allreduce compression: none | bf16 | fp16 | int8
 HVD_TPU_COMPRESSION = "HVD_TPU_COMPRESSION"
 # flat parameter count below which ZeroDistributedOptimizer keeps the
@@ -40,6 +42,19 @@ HVD_HIER_LOCAL_SIZE = "HVD_HIER_LOCAL_SIZE"
 # opt-in hierarchical Adasum: Adasum of the local groups' averages, a
 # different result from the flat Adasum of every rank's tensor
 HVD_ADASUM_HIERARCHICAL = "HVD_ADASUM_HIERARCHICAL"
+
+# --- the coordinated control plane (ops/tcp_controller.py) -------------------
+# bound on "abort initiated anywhere -> every rank raises HvdAbortedError"
+HVD_TPU_ABORT_TIMEOUT = "HVD_TPU_ABORT_TIMEOUT"
+# coordinator heartbeat period, seconds
+HVD_TPU_HEARTBEAT_INTERVAL = "HVD_TPU_HEARTBEAT_INTERVAL"
+# missed-heartbeat window: a rank silent for longer is declared dead and
+# the coordinator converts the silence into a coordinated abort (0 = off)
+HVD_TPU_LIVENESS_TIMEOUT = "HVD_TPU_LIVENESS_TIMEOUT"
+# deadline budget for connection-establishment retry (backoff + jitter)
+HVD_TPU_CONNECT_RETRY_SECONDS = "HVD_TPU_CONNECT_RETRY_SECONDS"
+# deterministic fault injection spec (common/faults.py grammar)
+HVD_TPU_FAULT_SPEC = "HVD_TPU_FAULT_SPEC"
 
 HVD_LOG_LEVEL = "HVD_LOG_LEVEL"      # trace|debug|info|warning|error|fatal
 HVD_LOG_HIDE_TIME = "HVD_LOG_HIDE_TIME"
@@ -92,6 +107,10 @@ DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
 DEFAULT_CYCLE_TIME_MS = 1.0
 DEFAULT_CACHE_CAPACITY = 1024
 DEFAULT_STALL_WARNING_SECONDS = 60
+DEFAULT_ABORT_TIMEOUT_SECONDS = 30.0
+DEFAULT_HEARTBEAT_INTERVAL_SECONDS = 2.0
+DEFAULT_LIVENESS_TIMEOUT_SECONDS = 15.0
+DEFAULT_CONNECT_RETRY_SECONDS = 30.0
 DEFAULT_ZERO_MIN_SIZE = 1024  # flat params below this stay replicated
 DEFAULT_GROUP_MAX = 64  # live process groups per job
 DEFAULT_CKPT_INTERVAL_STEPS = 10

@@ -103,7 +103,12 @@ PORT_ARGV = [
     "--zero-min-size", "99", "--executor", "mesh", "--group-max", "12",
     "--term-grace", "7.5", "--ckpt-dir", "/ckpt", "--ckpt-interval", "4",
     "--ckpt-keep", "3", "--no-stall-check", "--stall-check",
-    "--stall-check-warning-time-seconds", "11", "--log-level", "debug",
+    "--stall-check-warning-time-seconds", "11",
+    "--stall-check-shutdown-time-seconds", "13", "--abort-timeout", "12",
+    "--heartbeat-interval", "0.5", "--liveness-timeout", "6",
+    "--connect-retry-seconds", "8",
+    "--fault-spec", "rank1:allreduce:2:crash,*:connect:1:refuse",
+    "--log-level", "debug",
     "--log-hide-timestamp", "python", "train.py", "--lr", "0.1"]
 
 CONFIG_YAML = """\
@@ -117,6 +122,7 @@ params:
 stall_check:
   disabled: false
   warning_time_seconds: 30
+  shutdown_time_seconds: 40
 logging:
   level: debug
   hide_timestamp: yes
@@ -126,6 +132,11 @@ network:
   interface: 'eth0'
 fault_tolerance:
   term_grace: 9
+  abort_timeout: 20
+  heartbeat_interval: 1.5
+  liveness_timeout: 10
+  connect_retry_seconds: 12
+  spec: "rank0:link:1:delay:5:2"
 checkpoint:
   dir: /tmp/run#3/ckpt
   interval: 5
@@ -150,8 +161,8 @@ def test_port_flags_are_the_references():
                  for opt in action.option_strings}
     assert _port_flags() <= jax_flags
     for absent in ("--tpu", "--global-mesh", "--race", "--proto-depth",
-                   "--fuzz-seed", "--soak-ranks", "--fault-spec",
-                   "--elastic", "--coord-failover", "--abort-timeout",
+                   "--fuzz-seed", "--soak-ranks", "--reconnect-budget",
+                   "--elastic", "--coord-failover", "--straggler-factor",
                    "--controller", "--autotune", "--timeline-filename"):
         assert absent not in _port_flags()
 

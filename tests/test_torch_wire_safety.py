@@ -4,9 +4,11 @@ reference's rule, ``horovod_tpu/run/service/network.py``;
 ``bin/hvd-lint``'s wire-safety checker).
 
 - ``bin/hvd-lint horovod_tpu_torch/``, unmodified, reports no finding;
-- a rank whose ``HVD_SECRET_KEY`` differs fails the eager plane's cycle,
-  and with it ``broadcast_object``, on every rank, with the HMAC error
-  naming the sender, and nothing is unpickled;
+- a rank whose ``HVD_SECRET_KEY`` differs has its frames refused by the
+  coordinator, which fails the eager plane's cycle, and with it
+  ``broadcast_object``, on its peers with the HMAC error naming it; the
+  rank itself fails to verify the coordinator's frames and names rank
+  0; nothing is unpickled;
 - ``broadcast_object`` signed with another key fails on the receivers,
   and so does ``broadcast_optimizer_state``, whose layout it carries;
 - ``hvd.init`` refuses a non-loopback rendezvous without a key."""
@@ -108,14 +110,17 @@ def _run(tmp_path, case, keys):
 
 
 def test_a_rank_with_another_key_fails_the_cycle_on_its_peers(tmp_path):
-    """Rank 1's ``HVD_SECRET_KEY`` differs: the first cycle fails on both
-    ranks, each naming the other, before anything is unpickled; so does
-    the ``broadcast_object`` that waited on it."""
+    """Rank 1's ``HVD_SECRET_KEY`` differs: the coordinator (rank 0)
+    refuses its frames, and the first cycle fails on both ranks, each
+    naming the other, before anything is unpickled; so does the
+    ``broadcast_object`` that waited on it."""
     results = _run(tmp_path, "cycle", [_key(1), _key(2)])
-    for r, res in enumerate(results):
+    for res in results:
         assert "error" in res, res
-        assert (f"the cycle message of rank {1 - r} failed HMAC "
-                f"verification" in res["error"]), res
+    assert ("the frames of rank 1 failed HMAC verification at the "
+            "coordinator (rank 0)" in results[0]["error"]), results
+    assert ("the frames of the coordinator (rank 0) failed HMAC "
+            "verification on rank 1" in results[1]["error"]), results
     assert not list(tmp_path.glob("tripped.*"))
 
 
