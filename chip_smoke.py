@@ -156,9 +156,30 @@ Phases, each of which must pass:
    steps before the crash and their median after the first beside phase
    5's, and the heartbeats' round trip.  At one card NCCL takes no two ranks of a communicator on it:
    (b) and (c) run at two ranks on the CPU, which the phase says, and
-   (a) and (d) are skipped with a line saying so.
+   (a) and (d) are skipped with a line saying so;
+14. elastic membership at ``min(cards, 4)`` ranks, each job through
+   ``python -m horovod_tpu_torch.run --elastic`` with phase 13's
+   windows, every rank running ``elastic.run`` over an ``elastic.State``
+   committed every step (phase 5's model, every rank the same batch a
+   step, and the JAX elastic test's integer schedule on the eager
+   plane): (a) the last rank crashes in the first gradient bucket of
+   step 4; the survivors re-form at W-1, roll back and finish, bitwise
+   equal to each other and with the integer schedule exact, against an
+   uninterrupted run at W-1 on their cards (the largest gap printed);
+   each survivor's seconds from the crash to its directive, of teardown,
+   rendezvous, restore and sync, and its first and steady steps; (b)-(d)
+   at 2 layers: (b) a late joiner on the last card takes the place of
+   the crashed worker W-2, its synced parameters bitwise the
+   incumbents'; (c) a drain (the ``preempt`` action's SIGTERM): that
+   rank's ``run`` returns ``DRAINED``, its checkpoint writer flushed, no
+   ``HvdAbortedError`` anywhere; (d) rank 0's crash under
+   ``--coord-failover``: worker 1 becomes rank 0 with the coordinator,
+   the launcher exits 0; without it, a typed abort everywhere and exit
+   1 naming rank 0.  At one card the four jobs run at four ranks on the
+   CPU (gloo), the integer schedule only, which the phase says.
 
-Phases 6 and 8-11 start their ranks above one card through the port's
+Phases 6 and 8-11 (12-14 through its CLI) start their ranks above one
+card through the port's
 launcher (``run/launch.py::launch_job``, a rendezvous KV server and a
 job key of their own; rank logs under ``chiprun_out/ranks/<phase>``);
 their eager plane negotiates through rank 0's coordinator, and phase 6
@@ -170,7 +191,8 @@ Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` in
 phase 5's run, and ``launches_by_path``: phase 5's, phase 10's tp, MoE
 and pipeline runs', phase 11's ``op=Adasum`` run's, phase 12's
 launched run's and, above one card, phase 13 (a)'s before and at its
-crash, each of which must be above 0), the
+crash and phase 14 (a)'s over both epochs, each of which must be above
+0), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that last line.  ``--profile`` adds one profiled step of phase 5, one of
@@ -4174,16 +4196,452 @@ def fault_phase(smi, phase5_step_ms, buckets):
     return out
 
 
+# phase 14: elastic membership.  The control plane's windows are phase
+# 13's; the jobs take EL_STEPS steps, the last rank's (or rank 0's)
+# crash lands in the first gradient bucket of step EL_CRASH_STEP, after
+# which the survivors roll back to the commit of the step before it and
+# take the rest again; the integer schedule (the JAX elastic test's: each
+# step allreduces a vector of step + 1 and subtracts the average) rides
+# every step on the eager plane
+EL_STEPS, EL_CRASH_STEP, EL_INT_ELEMS = 8, 4, 1000
+EL_RECONFIG_S = 120.0
+# (b)-(d) run the main path's model cut to this depth: what they show is
+# membership, and (a) has the full depth
+EL_SMALL_LAYERS = 2
+
+
+def _do_buckets(layers):
+    """``DistributedOptimizer``'s buckets a step of the main path's model
+    at ``layers`` (the plan depends only on the parameters' sizes)."""
+    from horovod_tpu_torch.common.compression import Compression
+    from horovod_tpu_torch.models import Transformer
+    from horovod_tpu_torch.optimizer import _fusion_threshold, _plan
+
+    params = list(Transformer(main_config(layers), device="cpu")
+                  .parameters())[::-1]
+    return len(_plan(params, Compression.none, _fusion_threshold()))
+
+
+def _el_crash_hit(buckets):
+    """The fault spec's hit of the first gradient bucket of step
+    ``EL_CRASH_STEP`` (of its integer allreduce without buckets): one
+    eager allreduce and ``buckets`` buckets a step."""
+    return EL_CRASH_STEP * (1 + buckets) + (2 if buckets else 1)
+
+
+def _el_flags(spec=None, extra=()):
+    """The launcher flags of a phase 14 job."""
+    flags = ["--elastic", "--heartbeat-interval", str(FT_HEARTBEAT_S),
+             "--liveness-timeout", str(FT_LIVENESS_S), "--abort-timeout",
+             str(FT_ABORT_S), "--term-grace", str(FT_TERM_GRACE_S),
+             "--reconfig-timeout", str(EL_RECONFIG_S)]
+    if spec:
+        flags += ["--fault-spec", spec]
+    return tuple(flags) + tuple(extra)
+
+
+def _el_digest(tensors):
+    """sha1 of the tensors' bytes on the host, in order."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def elastic_rank(layers):
+    """Phase 14 on one launched rank: ``hvd.init()`` (a late joiner,
+    ``P14_JOINER``, ``elastic.wait_for_membership()`` instead), then
+    ``elastic.run`` over an ``elastic.State`` committed every step: the
+    integer schedule on the eager plane and, on the card, a step of phase
+    5's main path (the full-width transformer at ``layers``,
+    ``DistributedOptimizer(AdamW(1e-4, wd 1e-4))``, ``[8, 2048]`` tokens,
+    the same on every rank at a step, so that the step computes the same
+    at any world size).  The crash's rank writes when its crash step's
+    backward (on the CPU: its integer allreduce) starts.  -> the rank's
+    numbers: each step's epoch and
+    seconds, the parameters' digests after each (re-)sync and at the
+    end, the reconfiguration's parts, the launches."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.ops import cuda as kernels
+
+    wid = int(os.environ["HVD_RANK"])
+    dev = os.environ.get("P14_DEVICE")
+    on_card = dev != "cpu"
+    terms = []
+    if os.environ.get("P14_KEEP_RUNNING"):
+        # the launcher's kill fan-out must not end this rank before it
+        # has shown its typed abort (the drain handler is then not set)
+        signal.signal(signal.SIGTERM, lambda *_: terms.append(time.time()))
+    print(f"PID {os.getpid()}", flush=True)
+    joiner = os.environ.get("P14_JOINER")
+    t0 = time.time()
+    if joiner is not None and wid == int(joiner):
+        hvd.elastic.wait_for_membership(timeout=600, device=dev)
+    else:
+        if joiner is not None:
+            # the joiner is past the initial gang
+            os.environ["HVD_SIZE"] = str(int(os.environ["HVD_SIZE"]) - 1)
+        hvd.init(device=dev)
+    init_s = time.time() - t0
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    w = torch.zeros(EL_INT_ELEMS, device=hvd.device())
+    params, model, opt = {"int.w": w}, None, None
+    if on_card:
+        from horovod_tpu_torch.models import Transformer, lm_loss
+
+        model = Transformer(main_config(layers), seed=0)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4,
+                              weight_decay=1e-4),
+            named_parameters=model.named_parameters())
+        params.update(model.state_dict())
+    state = hvd.elastic.State(params=params, optimizer_state=opt)
+    crash = os.environ.get("P14_CRASH_WID")
+    mark = os.path.join(_out_dir(), "elastic", "crash_backward_start")
+    out = {"wid": wid, "init_s": init_s, "steps": [], "losses": [],
+           "synced": [], "reconfig": None, "ckpt": None}
+    kernels.reset_launch_counts()
+
+    def epoch():
+        return basics._get_state().epoch
+
+    def train(state):
+        if state._ckpt is not None:
+            out["ckpt_manager"] = state._ckpt
+        # the state was just synced from rank 0: its digest
+        out["synced"].append({"epoch": epoch(), "step": state.step,
+                              "digest": _el_digest(params.values())})
+        while state.step < EL_STEPS:
+            s = state.step
+            sync()
+            start = time.perf_counter()
+            if crash is not None and wid == int(crash) \
+                    and s == EL_CRASH_STEP and model is None:
+                with open(mark, "w") as f:
+                    f.write(repr(time.time()))
+            avg = hvd.allreduce(torch.full_like(w, float(s + 1)),
+                                op=hvd.Average, name=f"p14.int.{s}")
+            w.sub_(avg)
+            if model is not None:
+                tokens = torch.from_numpy(np.random.RandomState(
+                    1000 + s).randint(0, VOCAB, (MAIN_BATCH, MAIN_SEQ))
+                ).to(hvd.device())
+                opt.zero_grad(set_to_none=True)
+                loss = lm_loss(model(tokens), tokens)
+                if crash is not None and wid == int(crash) \
+                        and s == EL_CRASH_STEP:
+                    with open(mark, "w") as f:
+                        f.write(repr(time.time()))
+                loss.backward()
+                opt.step()
+                out["losses"].append((epoch(), s, loss.item()))
+            sync()
+            out["steps"].append((epoch(), s,
+                                 time.perf_counter() - start))
+            state.step = s + 1
+            state.commit()
+
+    run_start = time.perf_counter()
+    try:
+        result = hvd.elastic.run(train, state)
+    except hvd.HvdAbortedError as exc:
+        out["error"] = {"type": type(exc).__name__,
+                        "origin": exc.origin_rank, "reason": exc.reason,
+                        "at": time.time()}
+        out["sigterms"] = terms
+        hvd.shutdown()
+        return out
+    mgr = out.pop("ckpt_manager", None)
+    if mgr is not None:
+        out["ckpt"] = {"writes": len(mgr.writes), "errors": mgr.errors,
+                       "flushed": mgr._snapshot is None
+                       and not mgr._writing}
+    if result is hvd.elastic.DRAINED:
+        out["drained"] = True
+        return out
+    out["reconfig"] = dict(hvd.elastic.last_reconfig) or None
+    st = basics._get_state()
+    out.update(rank=st.rank, size=st.size, epoch=st.epoch,
+               members=list(st.members), device=str(st.device),
+               coordinator=st.plane._coordinator is not None,
+               int_w=float(w[0]), int_exact=bool(torch.equal(
+                   w.cpu(), torch.full((EL_INT_ELEMS,), -float(
+                       sum(range(1, EL_STEPS + 1)))))),
+               digest=_el_digest(params.values()),
+               counts=kernels.launch_counts() if on_card else None,
+               **_heartbeat_stats(time.perf_counter() - run_start))
+    save = os.environ.get("P14_SAVE")
+    if save and st.rank == 0 and model is not None:
+        torch.save({k: v.detach().cpu() for k, v in
+                    model.state_dict().items()}, save)
+    t1 = time.perf_counter()
+    hvd.shutdown()
+    out["shutdown_s"] = time.perf_counter() - t1
+    return out
+
+
+def _el_job(name, world, layers, flags, env=None):
+    """One phase 14 job through ``python -m horovod_tpu_torch.run``
+    (rank logs in ``chiprun_out/elastic/<name>/``): -> (the launcher's
+    exit code and output, each rank's result or None, the pids still
+    alive)."""
+    logs = os.path.join(_out_dir(), "elastic", name)
+    env = dict(env or {})
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        code, text = _launcher_cli(world, logs, "elastic_rank", layers,
+                                   flags, timeout=600)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    results, pids = [], []
+    for r in range(world):
+        out, _ = _rank_log(logs, r, world)
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith("RANK_RESULT ")]
+        results.append(json.loads(lines[-1].split(" ", 1)[1])
+                       if lines else None)
+        pids += [int(ln.split()[1]) for ln in out.splitlines()
+                 if ln.startswith("PID ")]
+    return code, text, results, [p for p in pids if _alive(p)]
+
+
+def _el_fail(what, code, text, res):
+    raise AssertionError(f"phase 14 {what}: launcher exit {code}; "
+                         f"results {json.dumps(res)[-3000:]}\n"
+                         f"{text[-3000:]}")
+
+
+def _el_reformed(what, res, survivors, members, code, text):
+    """Every survivor finished at the next epoch with ``members`` and
+    the same parameters; -> the survivors' results."""
+    got = [res[w] for w in survivors]
+    for w, e in zip(survivors, got):
+        if (code != 0 or e is None or e.get("error")
+                or e.get("epoch") != 1 or e.get("members") != members
+                or not e.get("int_exact")):
+            _el_fail(f"{what}: worker {w}", code, text, res)
+    if len({e["digest"] for e in got}) != 1:
+        _el_fail(f"{what}: the survivors' parameters differ", code, text,
+                 res)
+    return got
+
+
+def _el_epoch_steps(e, epoch):
+    return [sec for ep, _, sec in e["steps"] if ep == epoch]
+
+
+def elastic_phase(smi, buckets):
+    """Phase 14 at ``min(cards, 4)`` ranks, each job started through
+    ``python -m horovod_tpu_torch.run --elastic`` with phase 13's
+    windows: (a) the last rank crashes in the first gradient bucket of
+    step ``EL_CRASH_STEP``; the survivors re-form, roll back and finish,
+    against an uninterrupted run at one rank fewer on the survivors'
+    cards; (b)-(d) at ``EL_SMALL_LAYERS``: (b) a late joiner on the last card takes the crashed rank's
+    place; (c) a drain (the ``preempt`` action's SIGTERM); (d) rank 0's
+    crash under ``--coord-failover``, and without it.  At one card the
+    phase runs at four ranks on the CPU (gloo), the integer schedule
+    only: NCCL takes no two ranks of a communicator on one card.
+    ``buckets``: ``DistributedOptimizer``'s buckets of the model a step.
+    -> every job's results."""
+    world = _world()
+    env, layers, small, out, wall = {}, LAYERS, EL_SMALL_LAYERS, {}, {}
+    if world == 1:
+        env, world, layers, small = {"P14_DEVICE": "cpu"}, 4, 0, 0
+        buckets = 0
+        print("elastic: one card, and NCCL puts no two ranks of one "
+              "communicator on it: (a)-(d) run at four ranks on the CPU "
+              "(gloo; the integer schedule on the eager plane, no "
+              "transformer)", flush=True)
+    where = "on the CPU" if env else f"on {smi}"
+    if world < 3:
+        print(f"elastic: {world} cards: phase 14 needs three ranks or "
+              f"more; skipped", flush=True)
+        return out
+    last = world - 1
+    scratch = os.path.join(_scratch_dir(), "p14")
+    os.makedirs(scratch, exist_ok=True)
+    os.makedirs(os.path.join(_out_dir(), "elastic"), exist_ok=True)
+    k = _el_crash_hit(buckets)
+    k_small = _el_crash_hit(_do_buckets(small) if small else 0)
+    survivors = list(range(last))
+
+    # (a) rank loss, against the uninterrupted run on the same cards
+    t0 = time.time()
+    saved = os.path.join(scratch, "a_params.pt")
+    code, text, res, alive = _el_job(
+        "loss", world, layers, _el_flags(f"rank{last}:allreduce:{k}:crash"),
+        {**env, "P14_CRASH_WID": str(last), "P14_SAVE": saved})
+    if res[last] is not None or alive:
+        _el_fail("(a): the crash", code, text, res)
+    got = _el_reformed("(a)", res, survivors, survivors, code, text)
+    cards = ",".join(str(c) for c in survivors)
+    ref_saved = os.path.join(scratch, "a_ref_params.pt")
+    code_u, text_u, ref, alive_u = _el_job(
+        "uninterrupted", world - 1, layers, _el_flags(),
+        {**env, "CUDA_VISIBLE_DEVICES": cards, "P14_SAVE": ref_saved})
+    if code_u != 0 or alive_u or any(e is None or e.get("error")
+                                     for e in ref):
+        _el_fail("(a): the uninterrupted run", code_u, text_u, ref)
+    gap = None
+    if layers:
+        import torch
+
+        a = torch.load(saved)
+        b = torch.load(ref_saved)
+        gap = max(float((a[n].double() - b[n].double()).abs().max())
+                  for n in a)
+    crashed = None
+    if os.path.exists(os.path.join(_out_dir(), "elastic",
+                                   "crash_backward_start")):
+        with open(os.path.join(_out_dir(), "elastic",
+                               "crash_backward_start")) as f:
+            crashed = float(f.read())
+    ref_steady = [x for e in ref for x in _el_epoch_steps(e, 0)[1:]]
+    for e in got:
+        rc = e["reconfig"]
+        new = _el_epoch_steps(e, 1)
+        detect = (rc["caught_at"] - crashed) if crashed else None
+        print(f"elastic (a) worker {e['wid']} -> rank {e['rank']} of "
+              f"{e['size']} at epoch {e['epoch']} on {e['device']}: crash "
+              f"to its typed error "
+              + (f"{detect:.3f} s" if detect is not None else "n/a")
+              + f" (from worker {last}'s crash step), teardown "
+              f"{rc['teardown_s']:.3f} s, rendezvous + groups + planes "
+              f"{rc['rendezvous_s']:.3f} s, restore + sync (its "
+              f"collectives open the new communicators) "
+              f"{rc['restore_sync_s']:.3f} s, first step at epoch 1 "
+              f"{1e3 * new[0]:.2f} ms, steady {e['size']}-rank steps "
+              f"median {1e3 * statistics.median(new[1:]):.2f} ms against "
+              f"the uninterrupted run's "
+              f"{1e3 * statistics.median(ref_steady):.2f} ms; integer "
+              f"schedule exact ({e['int_w']}); {where}", flush=True)
+    print(f"elastic (a): the survivors agree bitwise "
+          f"({got[0]['digest'][:12]}); largest gap to the uninterrupted "
+          f"run on the same "
+          f"cards {gap}; launcher exit {code}, no rank alive", flush=True)
+    wall["a"] = time.time() - t0
+    out["loss"] = {"ranks": res, "uninterrupted": ref, "gap": gap,
+                   "crashed_at": crashed, "code": code}
+
+    # (b) a late joiner on the last card takes the crashed rank's place
+    t0 = time.time()
+    victim = last - 1
+    code, text, res, alive = _el_job(
+        "joiner", world, small,
+        _el_flags(f"rank{victim}:allreduce:{k_small}:crash"),
+        {**env, "P14_JOINER": str(last)})
+    members = [w for w in range(world) if w != victim]
+    got = _el_reformed("(b)", res, members, members, code, text)
+    joiner = res[last]
+    synced = {tuple((s["epoch"], s["digest"]) for s in e["synced"]
+                    if s["epoch"] == 1) for e in got}
+    if len(synced) != 1 or alive:
+        _el_fail("(b): the joiner's synced parameters", code, text, res)
+    print(f"elastic (b): worker {last} joined at epoch 1 as rank "
+          f"{joiner['rank']} on {joiner['device']}, after "
+          f"{joiner['init_s']:.1f} s of waiting; members {members}, its "
+          f"parameters after the sync bitwise the incumbents' "
+          f"({joiner['synced'][0]['digest'][:12]}); {where}", flush=True)
+    wall["b"] = time.time() - t0
+    out["joiner"] = res
+
+    # (c) a drain: the preempt action's SIGTERM to one rank
+    t0 = time.time()
+    ckpt = os.path.join(scratch, "drain_ckpt")
+    code, text, res, alive = _el_job(
+        "drain", world, small,
+        _el_flags(f"rank{last}:allreduce:{k_small}:preempt",
+                  ("--ckpt-dir", ckpt, "--ckpt-interval", "2")), env)
+    drained = res[last]
+    if not (drained and drained.get("drained") and drained["ckpt"]
+            and drained["ckpt"]["flushed"]) or alive:
+        _el_fail("(c): the drained rank", code, text, res)
+    got = _el_reformed("(c)", res, survivors, survivors, code, text)
+    logs = os.path.join(_out_dir(), "elastic", "drain")
+    for r in range(world):
+        if "HvdAbortedError" in "".join(_rank_log(logs, r, world)):
+            _el_fail(f"(c): an abort on rank {r}", code, text, res)
+    print(f"elastic (c): worker {last}'s run returned DRAINED, exit 0, "
+          f"its checkpoint writer flushed ({drained['ckpt']['writes']} "
+          f"writes); the others re-formed at {got[0]['size']} with no "
+          f"HvdAbortedError anywhere; {where}", flush=True)
+    wall["c"] = time.time() - t0
+    out["drain"] = res
+    import shutil
+
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    # (d) rank 0's crash: fail-over armed, then not
+    t0 = time.time()
+    code, text, res, alive = _el_job(
+        "failover", world, small,
+        _el_flags(f"rank0:allreduce:{k_small}:crash",
+                  ("--coord-failover",)),
+        {**env, "P14_CRASH_WID": "0"})
+    if res[0] is not None or alive:
+        _el_fail("(d): rank 0's crash", code, text, res)
+    got = _el_reformed("(d)", res, list(range(1, world)),
+                       list(range(1, world)), code, text)
+    if got[0]["rank"] != 0 or not got[0]["coordinator"]:
+        _el_fail("(d): worker 1 is not rank 0 with the coordinator", code,
+                 text, res)
+    won = [r for r in range(1, world) if "won the epoch-0 election"
+           in _rank_log(os.path.join(_out_dir(), "elastic", "failover"),
+                        r, world)[1]]
+    print(f"elastic (d): rank 0 lost; worker(s) {won} won the election; "
+          f"worker 1 is rank 0 and hosts the coordinator and the store; "
+          f"the survivors finished at epoch 1, launcher exit {code}; "
+          f"{where}", flush=True)
+    out["failover"] = res
+    code, text, res, alive = _el_job(
+        "no_failover", world, small,
+        _el_flags(f"rank0:allreduce:{k_small}:crash"),
+        {**env, "P14_CRASH_WID": "0", "P14_KEEP_RUNNING": "1"})
+    for r in range(1, world):
+        e = res[r]
+        if not (e and e.get("error")
+                and e["error"]["type"] == "HvdAbortedError"
+                and e["error"]["origin"] == 0):
+            _el_fail(f"(d) without fail-over: rank {r}", code, text, res)
+    if code == 0 or "rank 0 failed first" not in text or alive:
+        _el_fail("(d) without fail-over: the launcher", code, text, res)
+    print(f"elastic (d): without --coord-failover the same crash is a "
+          f"typed HvdAbortedError(origin=0) on every survivor, launcher "
+          f"exit {code} naming rank 0; {where}", flush=True)
+    wall["d"] = time.time() - t0
+    out["no_failover"] = res
+    shutil.rmtree(scratch, ignore_errors=True)
+    print(f"elastic: wall s { {k: round(v, 2) for k, v in wall.items()} }",
+          flush=True)
+    out["wall_s"] = wall
+    return out
+
+
 RANK_PHASES = {"eager": eager_checks, "zero": zero_checks,
                "sequence": sequence_checks, "model": model_parallel_checks,
                "adasum": adasum_checks, "adasum_hier": adasum_hier_checks,
                "launcher_train": launcher_train,
                "launcher_fail": launcher_fail, "launcher_key": launcher_key,
                "fault_crash": fault_crash, "fault_stall": fault_stall,
-               "fault_user": fault_user, "fault_cross": fault_cross}
+               "fault_user": fault_user, "fault_cross": fault_cross,
+               "elastic_rank": elastic_rank}
 # the ranks of these phases make their own hvd.init() and shutdown
 LAUNCHER_PHASES = ("launcher_train", "launcher_fail", "launcher_key",
-                   "fault_crash", "fault_stall", "fault_user", "fault_cross")
+                   "fault_crash", "fault_stall", "fault_user", "fault_cross",
+                   "elastic_rank")
 
 
 def _profile_step(model, opt, tokens):
@@ -4455,6 +4913,7 @@ def main(argv=None):
     launcher = timed(12, launcher_phase, smi, phase5_ms,
                      eager[0]["negotiation_ms_median"])
     fault = timed(13, fault_phase, smi, phase5_ms, run["buckets"])
+    elastic = timed(14, elastic_phase, smi, run["buckets"])
     paths = {"phase10_tp": model[0]["tp_dp2"]["counts"],
              "phase10_moe": model[0]["moe"]["counts"],
              "phase10_pp": model[0]["pipeline"]["counts"],
@@ -4463,6 +4922,9 @@ def main(argv=None):
     if "crash" in fault:
         # phase 13 (a): the steps before the crash, and the crash's own
         paths["phase13"] = fault["crash"]["ranks"][0]["counts"]
+    if elastic.get("loss") and elastic["loss"]["ranks"][0]["counts"]:
+        # phase 14 (a): a survivor's steps at both epochs
+        paths["phase14"] = elastic["loss"]["ranks"][0]["counts"]
     for k in kernels:
         k["launches_by_path"] = {"phase5": k["launches"], **{
             path: c[k["name"]] for path, c in paths.items()}}
@@ -4475,7 +4937,8 @@ def main(argv=None):
                    "eager": eager, "cnn": cnn, "zero": zero,
                    "sequence": sequence, "model": model, "adasum": adasum,
                    "adasum_hierarchical": adasum_hier,
-                   "launcher": launcher, "fault": fault}, f, indent=1)
+                   "launcher": launcher, "fault": fault,
+                   "elastic": elastic}, f, indent=1)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

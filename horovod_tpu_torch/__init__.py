@@ -11,9 +11,11 @@ parallelism (``parallel``: the mesh, ring, zigzag and Ulysses attention,
 tensor parallelism, the pipeline and the switch MoE); Adasum
 (``op=hvd.Adasum``); elastic state with durable checkpoints
 (``elastic``, ``checkpoint``), the input pipeline (``utils.data``),
-the training-loop helpers (``callbacks``) and the launcher (``run``:
+the training-loop helpers (``callbacks``), the launcher (``run``:
 ``hvdrun-torch`` / ``python -m horovod_tpu_torch.run``, and
-``run.run(fn)``).
+``run.run(fn)``) and elastic membership (``elastic.run`` re-forms the
+world around a lost or drained rank, ``elastic.wait_for_membership``
+admits a late joiner).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 
     import horovod_tpu_torch as hvd
@@ -41,7 +43,9 @@ from horovod_tpu_torch.common.basics import (  # noqa: F401
 from horovod_tpu_torch.common.compression import Compression  # noqa: F401
 from horovod_tpu_torch.common.handles import (  # noqa: F401
     HvdAbortedError,
+    HvdDrainedError,
     HvdError,
+    HvdReconfigureError,
 )
 from horovod_tpu_torch.common.objects import broadcast_object  # noqa: F401
 from horovod_tpu_torch.groups import (  # noqa: F401

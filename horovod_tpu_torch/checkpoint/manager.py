@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from horovod_tpu_torch.checkpoint import store
+from horovod_tpu_torch.common import busy
 from horovod_tpu_torch.sharding.zero import flat_shard
 
 _log = logging.getLogger("horovod_tpu_torch")
@@ -142,11 +143,12 @@ class CheckpointManager:
         params, opt, step, epoch = state._committed
         if step == self._last_step:
             return False   # commit() runs again at a retried boundary
-        rank, world = self._topology()
+        rank, world, wid = self._topology()
         self._last_step = step
         snap = {"params": params, "opt": opt,
                 "opt_full": bool(state._opt_full), "step": int(step),
-                "epoch": int(epoch), "rank": rank, "world": world}
+                "epoch": int(epoch), "rank": rank, "world": world,
+                "wid": wid}
         with self._cond:
             self._snapshot = snap   # latest wins
             self._cond.notify()
@@ -154,12 +156,14 @@ class CheckpointManager:
 
     @staticmethod
     def _topology():
-        """(rank, world) at save time; a worker id is its rank."""
+        """(rank, world, worker id) at save time, read at every snapshot:
+        after a reconfiguration (a coordinator fail-over included) the
+        new rank 0 writes the manifests."""
         from horovod_tpu_torch.common import basics
 
         if basics.is_initialized():
-            return basics.rank(), basics.size()
-        return 0, 1
+            return basics.rank(), basics.size(), basics.worker_id()
+        return 0, 1, 0
 
     def wait(self, timeout=30.0) -> bool:
         """Block until the writer has drained the queue."""
@@ -191,7 +195,10 @@ class CheckpointManager:
                 self._writing = True
             try:
                 t0 = time.perf_counter()
-                nbytes = self._write(snap)
+                # a slow disk here must read as "slow, not dead" to the
+                # coordinator's liveness scan
+                with busy.window():
+                    nbytes = self._write(snap)
                 self.writes.append((snap["step"], nbytes,
                                     time.perf_counter() - t0))
             except Exception:  # noqa: BLE001 — a failed checkpoint
@@ -238,7 +245,8 @@ class CheckpointManager:
             store.write_manifest(
                 self._dir, step, epoch, world,
                 extra={"n_params": n_params, "opt_kind": opt_kind,
-                       "opt_num_leaves": opt_num, "root_wid": 0})
+                       "opt_num_leaves": opt_num,
+                       "root_wid": snap.get("wid", 0)})
         self._prune(rank)
         return os.path.getsize(os.path.join(
             self._dir, store.shard_name(step, epoch, world, rank)))

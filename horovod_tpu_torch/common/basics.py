@@ -37,6 +37,28 @@ here: the compression of every reduction whose ``compression`` is
 which ``ZeroDistributedOptimizer`` keeps the update replicated; a
 negative value raises.
 
+Elastic membership (``HVD_TPU_ELASTIC``, ``elastic/``): each process has
+a stable worker id (its launch rank, :func:`worker_id`) and the world is
+a membership epoch: the worker ids in rank order (:func:`members`).  A
+survivable loss reaches every survivor as ``HvdReconfigureError``, and
+:func:`_elastic_reinit` moves the process to the directive's epoch: it
+waits for the abort's listeners, synchronises the card (the work a hung
+collective held back has been released by the communicator abort), stops
+the old epoch's cycle thread and control plane, leaves the aborted
+``torch.distributed`` world, rendezvous again under keys of the new
+epoch (``store.e<epoch>`` at the KV, ``<store_path>.e<epoch>`` as a
+``FileStore``, ``hvd_torch/coordinator.e<epoch>`` in the store), and
+makes the default group, the control plane with the coordinator at the
+new rank 0, the eager plane's group and executor, the process groups
+(``groups.reform``) and the hierarchy and sequence grids, in one order
+on every member.  The process keeps its card: a survivor's tensors stay
+where they are, and a late joiner (:func:`_elastic_join_init`, through
+``elastic.wait_for_membership``) takes its card from its launch-assigned
+``HVD_LOCAL_RANK``, not from its admitted rank.  ``_State`` is replaced
+whole, under ``_state_lock``.  Above one rank ``init`` also installs the
+graceful drain's SIGTERM handler (``common/drain.py``, ``HVD_TPU_DRAIN``)
+unless the program installed a handler of its own.
+
 ``init`` arms the fault injector (``common/faults.py``,
 ``HVD_TPU_FAULT_SPEC``) before anything else runs, then starts the
 control plane (``ops/tcp_controller.py``): above one rank, rank 0 hosts
@@ -114,8 +136,10 @@ import contextlib
 import dataclasses
 import hashlib
 import logging
+import signal
 import socket
 import threading
+import time
 from datetime import timedelta
 
 import torch
@@ -159,6 +183,18 @@ class _State:
     # the default sequence axis (parallel/_comm.py): the ``sp`` group of
     # a one-axis grid over the world, a groups.ProcessGroup
     sequence_group: object = None
+    # elastic membership: the epoch, this process's worker id and the
+    # worker ids in rank order
+    epoch: int = 0
+    worker_id: int = 0
+    members: tuple = ()
+    # what a reconfiguration makes the next epoch's world from
+    config: object = None
+    store_path: object = None
+    timeout: timedelta = timedelta(seconds=300)
+    # the runtime's own grids (the hierarchy, the sequence axis), made
+    # afresh at each epoch
+    grids: tuple = ()
 
 
 def resolve_device(device=None):
@@ -175,7 +211,7 @@ def resolve_device(device=None):
 
 def init(device=None, store_path=None, timeout=timedelta(seconds=300)):
     """Join the job.  ``device`` is ``"cuda"`` (default) or ``"cpu"``."""
-    global _state, _generation, _inits
+    global _state
     with _state_lock:
         if _state is not None:
             return
@@ -194,48 +230,111 @@ def init(device=None, store_path=None, timeout=timedelta(seconds=300)):
         # arm the injector before any controller or transport code runs
         faults.configure(config.fault_spec, rank=rank)
         key = job_key(store_path, size)
-        if device.type == "cuda":
-            if device.index is None:
-                device = torch.device("cuda", local_rank
-                                      % torch.cuda.device_count())
-            torch.cuda.set_device(device)
-        backend = "nccl" if device.type == "cuda" else "gloo"
-
-        if not dist.is_initialized():
-            addr = env_util.get_str(env_util.HVD_RENDEZVOUS_ADDR)
-            if store_path is not None:
-                store = dist.FileStore(str(store_path), size)
-            elif addr is not None and size > 1:
-                _generation += 1
-                store = _kv_rendezvous(
-                    addr, env_util.get_int(env_util.HVD_RENDEZVOUS_PORT),
-                    rank, size, config.start_timeout_seconds, timeout)
-            elif size == 1:
-                store = dist.HashStore()
-            else:
-                raise RuntimeError(
-                    f"HVD_SIZE={size} needs a rendezvous: pass store_path= "
-                    f"or start the ranks with the launcher "
-                    f"(python -m horovod_tpu_torch.run)")
-            dist.init_process_group(backend, store=store, rank=rank,
-                                    world_size=size, timeout=timeout)
+        device = _card(device, local_rank)
         groups.reset()
+        _form_world(
+            _State(rank, size, local_rank, local_size, cross_rank,
+                   cross_size, device, None, None, config.compression,
+                   config.zero_min_size, key, worker_id=rank,
+                   members=tuple(range(size)), config=config,
+                   store_path=store_path, timeout=timeout),
+            config.start_timeout_seconds)
+        _maybe_install_drain(config)
+
+
+def _card(device, local_rank):
+    """The card of this process: ``device``, else ``cuda:<local_rank %
+    cards>``, made current."""
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", local_rank
+                                  % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    return device
+
+
+def _form_world(state, start_timeout):
+    """Make the world of ``state`` (its rank, size, epoch and members):
+    the store, the default group, the control plane, the eager plane,
+    the hierarchy and sequence grids; then wait for every rank at the
+    coordinator (``start_timeout`` seconds).  Sets ``_state``; the
+    caller holds ``_state_lock``."""
+    global _state, _inits
+    rank, size, config = state.rank, state.size, state.config
+    backend = "nccl" if state.device.type == "cuda" else "gloo"
+    if not dist.is_initialized():
+        store = _store(state, start_timeout)
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=size, timeout=state.timeout)
+    if state.epoch == 0:
         _inits += 1
-        plane = _start_control_plane(rank, size, config, key)
-        controller = _start_eager_plane(rank, size, device, backend,
-                                        config, key, plane)
-        _state = _State(rank, size, local_rank, local_size, cross_rank,
-                        cross_size, device, controller, plane,
-                        config.compression, config.zero_min_size, key)
-        local = _adasum_local_size(size, local_size, config)
-        if local is not None:
-            hier = groups.grid(cross=size // local, local=local)
-            controller._executor.hierarchy = tuple(
-                groups.plane_group(hier.group(axis).gid)
-                for axis in ("local", "cross"))
-        _state = dataclasses.replace(
-            _state, sequence_group=groups.grid(sp=size).group("sp"))
-        plane.barrier(config.start_timeout_seconds)
+    plane = _start_control_plane(rank, size, config, state.key,
+                                 state.epoch, state.members)
+    controller = _start_eager_plane(rank, size, state.device, backend,
+                                    config, state.key, plane)
+    _state = dataclasses.replace(state, controller=controller, plane=plane)
+    if state.epoch > 0:
+        # the process groups before the runtime's own grids: a joiner
+        # has none, and makes only the latter
+        groups.reform(state.members)
+    grids = []
+    local = _adasum_local_size(size, state.local_size, config)
+    if local is not None:
+        hier = groups.grid(cross=size // local, local=local)
+        grids.append(hier)
+        controller._executor.hierarchy = tuple(
+            groups.plane_group(hier.group(axis).gid)
+            for axis in ("local", "cross"))
+    seq = groups.grid(sp=size)
+    grids.append(seq)
+    _state = dataclasses.replace(_state, sequence_group=seq.group("sp"),
+                                 grids=tuple(grids))
+    plane.barrier(start_timeout)
+
+
+def _store(state, start_timeout):
+    """``torch.distributed``'s store for ``state``'s world: a
+    ``FileStore`` at ``store_path`` (``<store_path>.e<epoch>`` after
+    epoch 0), the launcher's KV rendezvous, or one rank's
+    ``HashStore``."""
+    global _generation
+    size = state.size
+    addr = env_util.get_str(env_util.HVD_RENDEZVOUS_ADDR)
+    if state.store_path is not None:
+        path = str(state.store_path)
+        return dist.FileStore(
+            path if state.epoch == 0 else f"{path}.e{state.epoch}", size)
+    if addr is not None and size > 1:
+        if state.epoch == 0:
+            _generation += 1
+            name = f"store.{_generation}"
+        else:
+            # keyed by the epoch, which a joiner shares with the
+            # survivors; a process's own count of inits it does not
+            name = f"store.e{state.epoch}"
+        return _kv_rendezvous(
+            addr, env_util.get_int(env_util.HVD_RENDEZVOUS_PORT),
+            state.rank, size, start_timeout, state.timeout, name)
+    if size == 1:
+        return dist.HashStore()
+    raise RuntimeError(
+        f"HVD_SIZE={size} needs a rendezvous: pass store_path= "
+        f"or start the ranks with the launcher "
+        f"(python -m horovod_tpu_torch.run)")
+
+
+def _maybe_install_drain(config):
+    """The SIGTERM -> graceful drain handler (``common/drain.py``) above
+    one rank with ``HVD_TPU_DRAIN`` on, unless the program has a SIGTERM
+    handler of its own, which is kept."""
+    if not (config.drain and _state is not None and _state.size > 1
+            and signal.getsignal(signal.SIGTERM) is signal.SIG_DFL):
+        return
+    from horovod_tpu_torch.common import drain as drain_mod
+
+    # resolved when the signal comes: a reconfiguration replaces the
+    # control plane
+    drain_mod.install(lambda: _state.plane if _state is not None else None)
 
 
 def job_key(store_path=None, size=1):
@@ -295,14 +394,13 @@ def _my_address():
         return "127.0.0.1"
 
 
-def _kv_rendezvous(addr, port, rank, size, start_timeout, timeout):
+def _kv_rendezvous(addr, port, rank, size, start_timeout, timeout, name):
     """``torch.distributed``'s store through the launcher's KV: rank 0
     hosts a ``TCPStore`` on a port it reserved and publishes its address
-    under ``STORE_SCOPE``; the others read it (waiting up to
+    under ``STORE_SCOPE``/``name``; the others read it (waiting up to
     ``start_timeout`` seconds) and connect."""
     from horovod_tpu_torch.run import http_client
 
-    name = f"store.{_generation}"
     if rank == 0:
         reserved, store_port = _reserve_port()
         host = _my_address()
@@ -352,18 +450,21 @@ def _adasum_local_size(size, local_size, config):
     return None
 
 
-def _start_control_plane(rank, size, config, key):
+def _start_control_plane(rank, size, config, key, epoch=0, members=None):
     """The control plane (``ops/tcp_controller.py``); above one rank,
-    rank 0's coordinator first, its address through the store."""
-    plane = ControlPlane(rank, size, key, config)
+    rank 0's coordinator first, its address through the store (keys of
+    the process's init count at epoch 0, of the epoch after it)."""
+    plane = ControlPlane(rank, size, key, config, epoch=epoch,
+                         members=members)
     plane.add_listener(_abort_communicators)
     if size == 1:
         return plane
     store = dist.distributed_c10d._get_default_store()
-    where = f"hvd_torch/coordinator.{_inits}"
+    tag = _inits if epoch == 0 else f"e{epoch}"
+    where = f"hvd_torch/coordinator.{tag}"
 
     def client_key(r):
-        return f"hvd_torch/client.{_inits}.{r}"
+        return f"hvd_torch/client.{tag}.{r}"
 
     def rank_of_client(address):
         """The rank whose exchange connection comes from ``address``."""
@@ -379,18 +480,62 @@ def _start_control_plane(rank, size, config, key):
 
     if rank == 0:
         host = _my_address()
-        store.set(where, f"{host}:{plane.serve(host, rank_of_client)}")
+        addr = env_util.get_str(env_util.HVD_RENDEZVOUS_ADDR)
+        rendezvous = (None if addr is None else
+                      (addr, env_util.get_int(env_util.HVD_RENDEZVOUS_PORT)))
+        port = plane.serve(host, rank_of_client, rendezvous)
+        store.set(where, f"{host}:{port}")
     host, _, port = store.get(where).decode().rpartition(":")
     plane.start((host, int(port)), lambda a: store.set(client_key(rank), a))
     return plane
 
 
+# aborted gloo process groups and the works a wait left behind, kept
+# alive: destroying one joins its worker thread, which a collective that
+# a live peer will never finish holds (gloo's abort closes no connection)
+_aborted_groups = []
+# the communicator abort (an abort listener's thread) and shutdown's
+# destroy of the same groups (the caller's, woken by the abort) exclude
+# each other: an NCCL abort takes a while, and a destroy under it
+# crashes the process
+_comm_lock = threading.Lock()
+
+
 def _abort_communicators(origin_rank, reason):
     """Abort every ``torch.distributed`` communicator of this process
     (NCCL's ends the collectives a dead peer left hanging on the card)
-    and forget them, so that ``shutdown`` does not wait on them."""
-    if dist.is_initialized():
-        dist.distributed_c10d._abort_process_group()
+    and forget them, so that ``shutdown`` does not wait on them.  The
+    default group's first: aborting an NCCL communicator frees its
+    memory, which waits for the card, and the gradient allreduce a dead
+    peer left hanging there holds it until its own communicator is
+    aborted (``torch.distributed``'s order, the last group made first,
+    deadlocks on it: ROADMAP C.14)."""
+    with _comm_lock:
+        if not dist.is_initialized():
+            return
+        c10d = dist.distributed_c10d
+        if dist.get_backend() == "gloo":
+            _aborted_groups.extend(c10d._world.pg_names)
+        else:
+            c10d._get_default_group().abort()
+        c10d._abort_process_group()
+
+
+def wait_work(work):
+    """``work.wait()`` for a collective of the caller's thread.  On the
+    card the host does not block (the caller's stream waits).  On the CPU
+    the wait is polled, so that the job's abort ends it with the typed
+    error: a gloo collective waiting for a live peer that has left it
+    does not return when the communicators are aborted."""
+    state = _state
+    if state is None or state.device.type == "cuda":
+        work.wait()
+        return
+    while not work.is_completed():
+        if state.plane.await_abort(0.002) is not None:
+            _aborted_groups.append(work)
+            raise make_abort_error(*state.plane.abort_state())
+    work.wait()
 
 
 def _start_eager_plane(rank, size, device, backend, config, key, plane):
@@ -415,8 +560,124 @@ def shutdown():
         _state.controller.shutdown()
         _state.plane.shutdown()
         groups.reset()
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        with _comm_lock:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        _state = None
+
+
+def worker_id():
+    """This process's stable elastic identity: its launch rank,
+    unchanged by reconfiguration (``rank()`` is re-keyed at every
+    membership epoch)."""
+    return _get_state().worker_id
+
+
+def members():
+    """The worker ids in rank order at this membership epoch: position r
+    holds the worker serving rank r (the identity before any
+    reconfiguration).  Process groups record these ids."""
+    state = _get_state()
+    return list(state.members) or list(range(state.size))
+
+
+def _leave_epoch(state):
+    """Tear down ``state``'s world so that the next epoch's can be made:
+    wait for the abort's listeners (the communicator abort releases what
+    a dead peer left hanging), synchronise the card, stop the cycle
+    thread, close the control plane without job-end messages, and leave
+    the aborted ``torch.distributed`` world."""
+    budget = max(state.config.abort_timeout_seconds, 5.0)
+    state.plane.await_abort(budget)
+    if state.device.type == "cuda":
+        torch.cuda.synchronize(state.device)
+    state.controller.shutdown(timeout=budget)
+    state.plane.close_for_reconfig()
+    _abort_communicators(None, None)
+
+
+def _elastic_reinit(epoch, members):
+    """Move this surviving process to membership epoch ``epoch`` with
+    ``members`` (worker ids in new-rank order); a stale directive
+    (``epoch`` not past this process's) is ignored.  -> the seconds of
+    the teardown and of the rendezvous (with the groups and the planes),
+    or None."""
+    global _state
+    with _state_lock:
+        state = _get_state()
+        wid = state.worker_id
+        if wid not in members:
+            raise ValueError(
+                f"worker {wid} is not part of membership {members}")
+        if epoch <= state.epoch:
+            return None
+        t0 = time.perf_counter()
+        _leave_epoch(state)
+        for grid_ in state.grids:
+            groups._discard(grid_)
+        t1 = time.perf_counter()
+        new_rank, new_size = members.index(wid), len(members)
+        # the global and local axes are re-keyed densely, the cross
+        # axis keeps its launch value (one host); the card stays
+        _state = None
+        _form_world(
+            dataclasses.replace(
+                state, rank=new_rank, size=new_size, local_rank=new_rank,
+                local_size=new_size, controller=None, plane=None,
+                sequence_group=None, grids=(), epoch=epoch,
+                members=tuple(members)),
+            state.config.reconfig_timeout_seconds)
+        logging.getLogger("horovod_tpu_torch").warning(
+            "elastic: worker %d re-formed at epoch %d as rank %d/%d",
+            wid, epoch, new_rank, new_size)
+        return {"teardown_s": t1 - t0,
+                "rendezvous_s": time.perf_counter() - t1}
+
+
+def _elastic_join_init(epoch, members, device=None):
+    """``init`` of a late joiner, straight at the admitted epoch (it
+    never belonged to epoch 0).  ``device`` as ``init``'s; its card comes
+    from its launch-assigned ``HVD_LOCAL_RANK``, its worker id from
+    ``HVD_RANK``."""
+    with _state_lock:
+        if _state is not None:
+            raise RuntimeError(
+                "horovod_tpu_torch is already initialized; joiners call "
+                "hvd.elastic.wait_for_membership() instead of hvd.init()")
+        config = Config.from_env()
+        wid = env_util.get_int(env_util.HVD_RANK, 0)
+        faults.configure(config.fault_spec, rank=wid)
+        rank, size = members.index(wid), len(members)
+        device = _card(resolve_device(device),
+                       env_util.get_int(env_util.HVD_LOCAL_RANK, 0))
+        key = job_key(None, size)
+        groups.reset()
+        _form_world(
+            _State(rank, size, rank, size, 0, 1, device, None, None,
+                   config.compression, config.zero_min_size, key,
+                   epoch=epoch, worker_id=wid, members=tuple(members),
+                   config=config),
+            config.reconfig_timeout_seconds)
+        _maybe_install_drain(config)
+        logging.getLogger("horovod_tpu_torch").warning(
+            "elastic: worker %d joined at epoch %d as rank %d/%d",
+            wid, epoch, rank, size)
+
+
+def _drained_teardown():
+    """Take this process out of the runtime after a granted drain: it
+    has left the membership, so there is no job-end negotiation."""
+    global _state
+    with _state_lock:
+        if _state is None:
+            return
+        try:
+            _leave_epoch(_state)
+        except Exception:  # noqa: BLE001 — leaving a world that has
+            # already re-formed without this rank
+            logging.getLogger("horovod_tpu_torch").debug(
+                "drain teardown error", exc_info=True)
+        groups.reset()
         _state = None
 
 

@@ -5,14 +5,16 @@
 Only the fields of the knobs the port reads at ``init`` are here: the
 eager plane's fusion threshold, cycle time, cache capacity, stall
 warning and stall shutdown, the control plane's abort, heartbeat and
-liveness windows and the fault spec, the job's default compression, the
-plane's executor, ZeRO's replicated-update threshold, hierarchical
+liveness windows and the fault spec, the degraded-network windows
+(RTT smoothing, the straggler verdict), elastic membership with the
+coordinator's fail-over and the drain, the job's default compression,
+the plane's executor, ZeRO's replicated-update threshold, hierarchical
 Adasum with its local size, and the gang-start deadline of the
-rendezvous.  Field names, defaults
-and validation texts are the reference's; ``hier_local_size`` and
-``start_timeout_seconds`` have no reference field (the reference reads
-those two variables where it uses them).  The reference's other fields
-join with the module that reads them (ROADMAP A.13-A.14).
+rendezvous.  Field names, defaults and validation texts are the
+reference's; ``hier_local_size`` and ``start_timeout_seconds`` have no
+reference field (the reference reads those two variables where it uses
+them).  The reference's other fields join with the module that reads
+them (ROADMAP A.13e-A.14).
 """
 
 import dataclasses
@@ -54,6 +56,28 @@ class Config:
     liveness_timeout_seconds: float = \
         env_util.DEFAULT_LIVENESS_TIMEOUT_SECONDS
     fault_spec: str | None = None
+    # Degraded-network tolerance: RTT EWMA smoothing, the k x median
+    # straggler verdict (k = factor, m = windows), and whether a
+    # confirmed straggler is proposed for a drain-style exclusion under
+    # elastic.
+    rtt_alpha: float = env_util.DEFAULT_RTT_ALPHA
+    straggler_factor: float = env_util.DEFAULT_STRAGGLER_FACTOR
+    straggler_windows: int = env_util.DEFAULT_STRAGGLER_WINDOWS
+    straggler_exclude: bool = False
+    # Elastic membership: survive rank loss by re-forming the world;
+    # bounds on the reconfiguration window and on the membership's size.
+    elastic: bool = False
+    reconfig_timeout_seconds: float = \
+        env_util.DEFAULT_RECONFIG_TIMEOUT_SECONDS
+    min_ranks: int = env_util.DEFAULT_MIN_RANKS
+    max_ranks: int = env_util.DEFAULT_MAX_RANKS
+    # Coordinator fail-over: the survivors of a rank-0 loss race a CAS
+    # election at the launcher's KV and re-form under a new coordinator.
+    coord_failover: bool = False
+    election_timeout_seconds: float = \
+        env_util.DEFAULT_ELECTION_TIMEOUT_SECONDS
+    # the graceful drain: a worker's SIGTERM becomes a planned departure
+    drain: bool = True
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -97,6 +121,30 @@ class Config:
                 env_util.DEFAULT_LIVENESS_TIMEOUT_SECONDS),
             fault_spec=_validated_fault_spec(env_util.get_str(
                 env_util.HVD_TPU_FAULT_SPEC)),
+            rtt_alpha=env_util.get_float(
+                env_util.HVD_TPU_RTT_ALPHA, env_util.DEFAULT_RTT_ALPHA),
+            straggler_factor=env_util.get_float(
+                env_util.HVD_TPU_STRAGGLER_FACTOR,
+                env_util.DEFAULT_STRAGGLER_FACTOR),
+            straggler_windows=max(1, env_util.get_int(
+                env_util.HVD_TPU_STRAGGLER_WINDOWS,
+                env_util.DEFAULT_STRAGGLER_WINDOWS)),
+            straggler_exclude=env_util.get_bool(
+                env_util.HVD_TPU_STRAGGLER_EXCLUDE),
+            elastic=env_util.get_bool(env_util.HVD_TPU_ELASTIC),
+            reconfig_timeout_seconds=env_util.get_float(
+                env_util.HVD_TPU_RECONFIG_TIMEOUT,
+                env_util.DEFAULT_RECONFIG_TIMEOUT_SECONDS),
+            min_ranks=max(1, env_util.get_int(
+                env_util.HVD_TPU_MIN_RANKS, env_util.DEFAULT_MIN_RANKS)),
+            max_ranks=_validated_nonneg(
+                env_util.HVD_TPU_MAX_RANKS, env_util.DEFAULT_MAX_RANKS),
+            coord_failover=env_util.get_bool(
+                env_util.HVD_TPU_COORD_FAILOVER),
+            election_timeout_seconds=env_util.get_float(
+                env_util.HVD_TPU_ELECTION_TIMEOUT,
+                env_util.DEFAULT_ELECTION_TIMEOUT_SECONDS),
+            drain=env_util.get_bool(env_util.HVD_TPU_DRAIN, True),
         )
 
 

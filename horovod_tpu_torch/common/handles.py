@@ -1,7 +1,6 @@
-"""Async-op handles (copy of ``horovod_tpu/common/handles.py``'s
-``HvdError``, ``HvdAbortedError``, ``make_abort_error``, ``Handle`` and
-``HandleManager``; the elastic subtypes and the reconfiguration marker
-come with elastic membership, ROADMAP A.13c).
+"""Async-op handles (copy of ``horovod_tpu/common/handles.py``: the
+errors, the elastic reconfiguration directive, ``Handle`` and
+``HandleManager``).
 
 The reference exposes integer handles managed by a poll/wait map
 (``horovod/torch/handle_manager.{h,cc}``).  The eager plane returns
@@ -13,6 +12,7 @@ event its result is complete at on the plane's stream (the reference's
 stream wait on it.
 """
 
+import json
 import threading
 
 
@@ -36,8 +36,78 @@ class HvdAbortedError(HvdError):
         self.reason = reason
 
 
+class HvdReconfigureError(HvdAbortedError):
+    """An abort carrying an elastic membership directive: the coordinator
+    decided the job survives the failure.  A subclass of
+    :class:`HvdAbortedError`, so every ``except HvdAbortedError`` keeps
+    working; ``elastic.run`` catches it, re-forms the world at
+    ``epoch`` and retries the step."""
+
+    def __init__(self, origin_rank, reason, *, epoch, members, dead,
+                 cause="", drain=False):
+        super().__init__(origin_rank, reason)
+        self.epoch = epoch          # the membership epoch to move to
+        self.members = list(members)  # worker ids, in new-rank order
+        self.dead = list(dead)      # worker ids removed at this epoch
+        self.cause = cause          # the reason before the rewrite
+        self.drain = drain          # a planned departure, not a failure
+
+
+class HvdDrainedError(HvdError):
+    """Raised on the draining rank only, once it has left the membership
+    after its preemption notice (SIGTERM).  Not an
+    :class:`HvdAbortedError`: a drain is a success path, and
+    ``elastic.run`` returns ``DRAINED`` on it."""
+
+    def __init__(self, worker_id):
+        super().__init__(
+            f"worker {worker_id} drained after preemption notice")
+        self.worker_id = worker_id
+
+
+# A reconfiguration directive rides the abort's delivery (exchange
+# replies, heartbeat replies) as a marked reason, so no message gains a
+# field for it.
+RECONFIG_MARKER = "__hvd_elastic_reconfig__:"
+
+
+def encode_reconfig_reason(epoch, members, dead, cause, drain=False):
+    """A membership directive as an abort ``reason``.  ``drain=True``
+    marks a planned departure: the departing worker leaves with
+    :class:`HvdDrainedError` instead of an abort."""
+    payload = {"epoch": epoch, "members": list(members),
+               "dead": list(dead), "cause": str(cause)}
+    if drain:
+        payload["drain"] = True
+    return RECONFIG_MARKER + json.dumps(payload)
+
+
+def is_drain_reason(reason) -> bool:
+    """Whether ``reason`` is a drain-marked membership directive."""
+    if not (isinstance(reason, str)
+            and reason.startswith(RECONFIG_MARKER)):
+        return False
+    try:
+        return bool(json.loads(
+            reason[len(RECONFIG_MARKER):]).get("drain"))
+    except (ValueError, AttributeError):
+        return False
+
+
 def make_abort_error(origin_rank, reason):
-    """The typed error of a learned ``(origin, reason)`` abort."""
+    """The typed error of a learned ``(origin, reason)`` abort: an
+    :class:`HvdReconfigureError` when the reason carries a membership
+    directive, else an :class:`HvdAbortedError`."""
+    if isinstance(reason, str) and reason.startswith(RECONFIG_MARKER):
+        try:
+            d = json.loads(reason[len(RECONFIG_MARKER):])
+            return HvdReconfigureError(
+                origin_rank, reason, epoch=d["epoch"],
+                members=d["members"], dead=d.get("dead", ()),
+                cause=d.get("cause", ""),
+                drain=bool(d.get("drain", False)))
+        except (ValueError, KeyError, TypeError):
+            pass  # a malformed directive is a plain abort
     return HvdAbortedError(origin_rank, reason)
 
 

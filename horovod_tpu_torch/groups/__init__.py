@@ -22,19 +22,31 @@ a communicator.
 ``torch.distributed.new_group`` requires it, non-members included, so
 ``new_group`` and ``grid`` are collective calls here: every rank runs
 them at the same point of its program.  The reference's registry needs
-no such agreement (its groups are a pure function of the membership and
-need no communication).  The group ids are the reference's: a hash of
-the name and the member ids, the same on every rank.
+no such agreement (its groups need no communication).  The group ids are
+the reference's: a hash of the name and the member worker ids, the same
+on every rank.
 
-Not ported: ``reform`` and the sticky unsatisfiable state it creates,
-which belong to elastic reconfiguration (ROADMAP A.13); the port's
-membership is the world of ``hvd.init()``, and a worker id is its rank.
+Groups are a pure function of their spec and the membership, as in the
+reference: the registry records each group's member **worker ids** (the
+launcher-assigned initial ranks, ``basics.members()``), and an elastic
+reconfiguration re-forms every group at the new epoch (:func:`reform`):
+an explicit rank list keeps its workers at their new ranks, or becomes
+the sticky typed :class:`GroupUnsatisfiableError` when one of them
+left; a grid re-plans its shape over the survivors in C order, or turns
+unsatisfiable when the shape no longer fits.  Each surviving group's
+two ``torch.distributed`` groups are made again over its new ranks, in
+the registry's order, on every rank.  A handle reads the current
+incarnation, so one made before a reconfiguration works after it, or
+fails typed.  A late joiner (``elastic.wait_for_membership``) starts
+with an empty registry: a job that admits joiners makes its process
+groups again after the admission.
 """
 
 import hashlib
 import threading
 
 import numpy as np
+import torch.distributed as dist
 
 from horovod_tpu_torch.common.handles import HvdError
 from horovod_tpu_torch.utils import env as env_util
@@ -93,9 +105,29 @@ class ProcessGroup:
                 f"ranks={list(live_ranks(self.gid, strict=False) or ())})")
 
 
+class _Spec:
+    """What a group is, whatever the membership: the worker ids (or the
+    grid shape) it was made from.  ``reform`` derives the live
+    incarnation from (spec, members) and nothing else."""
+
+    __slots__ = ("gid", "name", "kind", "wids", "sizes", "axis",
+                 "coords")
+
+    def __init__(self, gid, name, kind, wids=None, sizes=None,
+                 axis=None, coords=None):
+        self.gid = gid
+        self.name = name
+        self.kind = kind          # "ranks" | "grid"
+        self.wids = wids          # tuple of worker ids ("ranks")
+        self.sizes = sizes        # ordered (axis, size) tuple ("grid")
+        self.axis = axis          # the grid axis this group runs along
+        self.coords = coords      # its coords on the other axes
+
+
 # ------------------------------------------------------------- registry
 _lock = threading.RLock()
-_live = {}           # gid -> tuple(ranks)
+_specs = {}          # gid -> _Spec
+_live = {}           # gid -> tuple(ranks) | GroupUnsatisfiableError
 _torch = {}          # gid -> (caller's torch group, eager plane's)
 _tl = threading.local()   # per-thread auto-name counters
 _stats_lock = threading.Lock()
@@ -119,22 +151,32 @@ def _gid(name, wids):
     ).hexdigest()[:12]
 
 
+def _members():
+    """The worker ids in rank order (the identity before any elastic
+    reconfiguration)."""
+    from horovod_tpu_torch.common import basics
+
+    return basics.members()
+
+
 def _max_groups():
     return env_util.get_int(env_util.HVD_TPU_GROUP_MAX,
                             env_util.DEFAULT_GROUP_MAX)
 
 
-def _register(gid, ranks):
+def _register(spec, ranks):
     """Record a new group and make its two ``torch.distributed`` groups
     (every rank, in the same order)."""
     from horovod_tpu_torch.common import basics
 
-    _live[gid] = ranks
-    _torch[gid] = basics._new_torch_groups(list(ranks))
+    _specs[spec.gid] = spec
+    _live[spec.gid] = ranks
+    _torch[spec.gid] = basics._new_torch_groups(list(ranks))
 
 
 def new_group(ranks, name=None):
-    """Create (or return) the process group over ``ranks``.  Every rank
+    """Create (or return) the process group over ``ranks``, the current
+    global ranks; the registry records their worker ids.  Every rank
     calls it, members or not, in the same order (see the module
     docstring)."""
     from horovod_tpu_torch.common import basics
@@ -147,19 +189,20 @@ def new_group(ranks, name=None):
         raise HvdError(
             f"new_group: ranks {list(rank_list)} out of range for "
             f"world size {world}")
-    wids = rank_list   # a worker id is its rank until A.13
+    members = _members()
+    wids = tuple(members[r] for r in rank_list)
     if name is None:
         name = f"group.{rank_list[0]}-{rank_list[-1]}" \
                f".{_auto_seq(('ranks', rank_list))}"
     gid = _gid(name, wids)
     with _lock:
-        if gid not in _live:
-            if len(_live) >= _max_groups():
+        if gid not in _specs:
+            if len(_specs) >= _max_groups():
                 raise HvdError(
                     f"new_group: more than {_max_groups()} live "
                     f"process groups (HVD_TPU_GROUP_MAX); groups leak "
                     f"— create them once, not per step")
-            _register(gid, rank_list)
+            _register(_Spec(gid, name, "ranks", wids=wids), rank_list)
     return ProcessGroup(gid, name)
 
 
@@ -209,7 +252,8 @@ def grid(**axes):
     """``hvd.grid(dp=..., tp=..., pp=...)``: partition the world into one
     group per line of each named axis.  Axis order follows the kwargs
     (C-order, as ``make_mesh``); the sizes must multiply to the world
-    size.  Every rank calls it, in the same order."""
+    size.  Every rank calls it, in the same order.  A grid re-plans at
+    an elastic reconfiguration (:func:`reform`)."""
     from horovod_tpu_torch.common import basics
 
     world = basics.size()
@@ -227,12 +271,13 @@ def grid(**axes):
             f"the world has {world} ranks")
     gname = f"grid.{'x'.join(f'{a}{s}' for a, s in sizes)}" \
             f".{_auto_seq(('grid', sizes))}"
-    return Grid(gname, sizes, _plan_grid(gname, sizes))
+    return Grid(gname, sizes, _plan_grid(gname, sizes, _members()))
 
 
-def _plan_grid(gname, sizes):
-    """Form every axis group of a grid, axis by axis, line by line: the
-    same order on every rank."""
+def _plan_grid(gname, sizes, members):
+    """Form every axis group of a grid over ``members`` (rank i is
+    worker ``members[i]``), axis by axis, line by line: the same order
+    on every rank."""
     shape = tuple(s for _, s in sizes)
     arr = np.arange(int(np.prod(shape))).reshape(shape)
     groups = {}
@@ -249,23 +294,32 @@ def _plan_grid(gname, sizes):
                 ranks = tuple(int(r) for r in flat[j])
                 name = f"{gname}.{axis}." \
                        f"{'-'.join(str(c) for c in coords) or '0'}"
-                gid = _gid(name, ranks)
-                if gid not in _live:
-                    _register(gid, ranks)
+                wids = tuple(members[r] for r in ranks)
+                gid = _gid(name, wids)
+                if gid not in _specs:
+                    _register(_Spec(gid, name, "grid", wids=wids,
+                                    sizes=sizes, axis=axis,
+                                    coords=coords), ranks)
                 per_axis[coords] = ProcessGroup(gid, name)
             groups[axis] = per_axis
     return groups
 
 
 def live_ranks(gid, strict=True):
-    """Current global ranks of group ``gid`` (``strict=False``: None for
-    an unknown id instead of raising)."""
+    """Current global ranks of group ``gid``.  Raises the group's sticky
+    :class:`GroupUnsatisfiableError` when a reconfiguration made it
+    unsatisfiable (``strict=False``: None for that and for an unknown
+    id, instead of raising)."""
     with _lock:
         cur = _live.get(gid)
     if cur is None:
         if strict:
             raise HvdError(f"unknown process group id {gid!r} (created "
                            f"before the last hvd.init()?)")
+        return None
+    if isinstance(cur, GroupUnsatisfiableError):
+        if strict:
+            raise cur
         return None
     return list(cur)
 
@@ -306,11 +360,92 @@ def plane_group(gid):
 
 
 def reform(members):
-    """Re-forming groups for a new membership belongs to elastic
-    reconfiguration, which is not ported yet."""
-    raise NotImplementedError(
-        "groups.reform: elastic reconfiguration is not ported yet "
-        "(ROADMAP A.13)")
+    """Re-form every registered group for the membership ``members``
+    (worker ids in new-rank order; the elastic reconfiguration calls it
+    under the state lock, once the new world is up).  A group is a pure
+    function of (spec, members): an explicit rank list keeps exactly its
+    recorded workers (a missing one makes it the sticky typed
+    :class:`GroupUnsatisfiableError`); a grid re-plans the same shape
+    over the survivors when it still fits.  Then, when a
+    ``torch.distributed`` world is up, each satisfiable group's two
+    ``torch.distributed`` groups are made again over its new ranks, in
+    the registry's order (every rank, the same order)."""
+    members = list(members)
+    pos = {w: r for r, w in enumerate(members)}
+    with _lock:
+        grids_replanned = set()
+        for gid, spec in list(_specs.items()):
+            if spec.kind == "ranks":
+                missing = [w for w in spec.wids if w not in pos]
+                if missing:
+                    _live[gid] = GroupUnsatisfiableError(spec.name,
+                                                         missing)
+                else:
+                    _live[gid] = tuple(sorted(pos[w]
+                                              for w in spec.wids))
+            else:    # grid: re-plan the shape over the new membership
+                base = spec.name.rsplit(f".{spec.axis}.", 1)[0]
+                shape_total = 1
+                for _, s in spec.sizes:
+                    shape_total *= s
+                if (base, spec.sizes) in grids_replanned:
+                    continue
+                grids_replanned.add((base, spec.sizes))
+                if shape_total != len(members):
+                    err = GroupUnsatisfiableError(
+                        base, [w for w in spec.wids if w not in pos])
+                    for g2, s2 in _specs.items():
+                        if s2.kind == "grid" and s2.sizes == spec.sizes \
+                                and s2.name.startswith(base + "."):
+                            _live[g2] = err
+                    continue
+                # the same shape over the survivors, C order: each gid
+                # keeps its (axis, coords) slot with the new ranks
+                shape = tuple(s for _, s in spec.sizes)
+                arr = np.arange(shape_total).reshape(shape)
+                for g2, s2 in _specs.items():
+                    if s2.kind != "grid" or s2.sizes != spec.sizes \
+                            or not s2.name.startswith(base + "."):
+                        continue
+                    i = [a for a, _ in s2.sizes].index(s2.axis)
+                    moved = np.moveaxis(arr, i, -1)
+                    other_shape = moved.shape[:-1]
+                    j = int(np.ravel_multi_index(s2.coords,
+                                                 other_shape)) \
+                        if other_shape else 0
+                    ranks = tuple(
+                        int(r) for r in moved.reshape(-1, shape[i])[j])
+                    _live[g2] = ranks
+                    _specs[g2] = _Spec(
+                        g2, s2.name, "grid",
+                        wids=tuple(members[r] for r in ranks),
+                        sizes=s2.sizes, axis=s2.axis, coords=s2.coords)
+        if dist.is_available() and dist.is_initialized():
+            from horovod_tpu_torch.common import basics
+
+            for gid in _specs:
+                cur = _live[gid]
+                if isinstance(cur, GroupUnsatisfiableError):
+                    _torch.pop(gid, None)
+                else:
+                    _torch[gid] = basics._new_torch_groups(list(cur))
+
+
+def _discard(grid_):
+    """Drop ``grid_``'s groups from the registry and give its auto-name
+    back to the calling thread: the elastic reconfiguration makes the
+    runtime's own grids (the hierarchy, the sequence axis) afresh, named
+    as a joiner's first ``init`` names them."""
+    with _lock:
+        for per_axis in grid_._groups.values():
+            for g in per_axis.values():
+                _specs.pop(g.gid, None)
+                _live.pop(g.gid, None)
+                _torch.pop(g.gid, None)
+    counters = getattr(_tl, "counters", None) or {}
+    key = ("grid", grid_.sizes)
+    if counters.get(key, 0) > 0:
+        counters[key] -= 1
 
 
 def reset():
@@ -319,6 +454,7 @@ def reset():
     default group)."""
     global _max_inflight
     with _lock:
+        _specs.clear()
         _live.clear()
         _torch.clear()
     _tl.counters = {}

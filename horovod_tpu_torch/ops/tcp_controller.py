@@ -29,8 +29,9 @@ health, not tensors:
   counterpart of the reference's re-push.  A rank that cannot reach the
   coordinator for ``HVD_TPU_ABORT_TIMEOUT`` (its exchange connection
   breaking, in ``hvd.init()``'s barrier too, counts at once) aborts
-  itself naming rank 0.  The coordinator's fail-over waits for elastic
-  membership (ROADMAP A.13c).
+  itself naming rank 0, or, with ``HVD_TPU_COORD_FAILOVER``, first races
+  the fail-over election (``elastic/election.py``) and takes its
+  directive.
 - **A rank's own failed collective**, when the backend reports a broken
   communication (:func:`is_comm_error`: a peer gone, a communicator
   aborted), waits for the coordinator's verdict
@@ -38,6 +39,25 @@ health, not tensors:
   is reported: a survivor whose collective broke because a peer died
   names that peer, never itself.  The caller's own errors (a shape, a
   dtype, a group, memory) are raised at once.
+
+- **Elastic membership** (``HVD_TPU_ELASTIC``).  Rank 0's coordinator
+  carries an :class:`~horovod_tpu_torch.elastic.membership.ElasticContext`:
+  ``_initiate_abort`` asks it first, and a survivable loss goes out as a
+  marked reconfiguration directive through the same delivery.  Every
+  cycle message carries its sender's membership epoch, and a coordinator
+  refuses one from another epoch.  A rank that got its preemption notice
+  sends :class:`DrainMsg` (``common/drain.py``): it leaves the liveness
+  table's blame, and a drain-marked directive goes out at the next
+  boundary of the eager plane's cycles, pulled by every rank (no abort
+  is pushed on rank 0).  :meth:`ControlPlane.close_for_reconfig` takes a
+  plane down without the job-end messages.
+- **Adaptive liveness** (reference :486-610).  Each heartbeat carries the
+  rank's busy flag (``common/busy.py``: a checkpoint write, a drain) and
+  its round trips' EWMA (``common/rtt.py``); a busy rank's window
+  doubles, and an RTT slack (capped at ``straggler_factor`` windows) is
+  added.  A rank whose RTT stays above ``straggler_factor`` x the median
+  for ``straggler_windows`` scans gets a straggler verdict, and under
+  ``HVD_TPU_STRAGGLER_EXCLUDE`` (with elastic) a drain-style exclusion.
 
 Where the coordinator is found: rank 0 binds on the address the other
 ranks are told (``common/basics.py``) and publishes ``host:port`` in
@@ -59,8 +79,13 @@ import time
 
 import torch.distributed as dist
 
-from horovod_tpu_torch.common.handles import make_abort_error
+from horovod_tpu_torch.common import busy
+from horovod_tpu_torch.common import rtt as rtt_mod
+from horovod_tpu_torch.common.handles import (RECONFIG_MARKER,
+                                              is_drain_reason,
+                                              make_abort_error)
 from horovod_tpu_torch.run.service import network
+from horovod_tpu_torch.utils import env as env_util
 
 _log = logging.getLogger("horovod_tpu_torch")
 
@@ -89,16 +114,15 @@ def is_comm_error(exc):
 
 
 # ------------------------------------------------------------------ messages
-# epoch-exempt: the port has no membership epochs before elastic
-# membership (ROADMAP A.13c): one world per hvd.init, and each init's
-# coordinator has an address of its own in that init's store
 class CycleMsg:
-    """One rank's signed cycle message for cycle ``seq``."""
+    """One rank's signed cycle message for cycle ``seq`` of membership
+    epoch ``epoch``."""
 
-    def __init__(self, rank, seq, data):
+    def __init__(self, rank, seq, data, epoch=0):
         self.rank = rank
         self.seq = seq
         self.data = data        # bytes: digest + pickled message
+        self.epoch = epoch      # the sender's membership epoch
 
 
 class CycleReply:
@@ -117,6 +141,22 @@ class ShutdownMsg:
 
     def __init__(self, rank):
         self.rank = rank
+
+
+# epoch-exempt: a drain names the current coordinator's own rank; each
+# epoch's coordinator has an address of its own, so a drain announced at
+# epoch N cannot reach epoch N+1's
+class DrainMsg:
+    """A rank announces its planned departure (its preemption notice)."""
+
+    def __init__(self, rank):
+        self.rank = rank
+
+
+class DrainAck:
+    def __init__(self, ok, reason=""):
+        self.ok = ok            # True: a reconfiguration without the
+        self.reason = reason    # rank is on its way
 
 
 class RefusedReply:
@@ -149,11 +189,28 @@ class CoordinatorService(network.MuxService):
     NAME = "horovod_tpu_torch coordinator"
 
     def __init__(self, size, key, host="0.0.0.0", liveness_timeout_sec=0.0,
-                 rank_of_client=None, on_abort=None):
+                 rank_of_client=None, on_abort=None, epoch=0, elastic=None,
+                 straggler_factor=None, straggler_windows=None,
+                 straggler_exclude=False):
         self._size = size
         self._liveness = liveness_timeout_sec
         self._rank_of_client = rank_of_client
         self._on_abort = on_abort
+        # the membership epoch served: a cycle message of another epoch
+        # is refused
+        self._epoch = epoch
+        # ElasticContext (HVD_TPU_ELASTIC) or None: _initiate_abort asks
+        # it to rewrite a survivable failure into a directive
+        self._elastic = elastic
+        self._straggler_factor = (
+            env_util.get_float(env_util.HVD_TPU_STRAGGLER_FACTOR,
+                               env_util.DEFAULT_STRAGGLER_FACTOR)
+            if straggler_factor is None else straggler_factor)
+        self._straggler_windows = (
+            env_util.get_int(env_util.HVD_TPU_STRAGGLER_WINDOWS,
+                             env_util.DEFAULT_STRAGGLER_WINDOWS)
+            if straggler_windows is None else straggler_windows)
+        self._straggler_exclude = straggler_exclude
         self._cv = threading.Condition()
         # seq -> {rank: (data, responder)}; guarded by self._cv
         self._cycles = {}
@@ -168,6 +225,17 @@ class CoordinatorService(network.MuxService):
         self._dead = set()          # guarded by self._cv
         self._told = set()          # ranks handed the abort; self._cv
         self._refused = None        # sticky verdict; guarded by self._cv
+        # ranks whose last heartbeat was busy (a checkpoint write, a
+        # drain): their window doubles; guarded by self._cv
+        self._busy_ranks = set()
+        # ranks that announced a drain: never blamed by liveness, their
+        # silence is the planned departure; guarded by self._cv
+        self._draining = set()
+        self._peer_rtt = {}         # rank -> seconds; guarded by self._cv
+        # rank -> consecutive scans over the straggler threshold, and
+        # rank -> its sticky verdict; guarded by self._cv
+        self._straggler_hits = {}
+        self._straggler_verdicts = {}
         super().__init__(self.NAME, key, host)
 
     def _valid_rank(self, rank):
@@ -180,6 +248,14 @@ class CoordinatorService(network.MuxService):
         if self._valid_rank(rank):
             with self._cv:
                 self._last_seen[rank] = time.monotonic()
+                if isinstance(req, network.HeartbeatMsg):
+                    if getattr(req, "busy", False):
+                        self._busy_ranks.add(rank)
+                    else:
+                        self._busy_ranks.discard(rank)
+                    rtt = getattr(req, "rtt", None)
+                    if isinstance(rtt, (int, float)):
+                        self._peer_rtt[rank] = float(rtt)
         return rank
 
     def _handle(self, req, client_address):
@@ -195,12 +271,20 @@ class CoordinatorService(network.MuxService):
         if isinstance(req, network.AbortMsg):
             self._initiate_abort(req.origin_rank, str(req.reason))
             return network.AckResponse()
+        if isinstance(req, DrainMsg):
+            if not self._valid_rank(rank):
+                return DrainAck(False, "malformed drain announcement")
+            return self._handle_drain(rank)
         if isinstance(req, ShutdownMsg):
             # a cleanly departing rank stops heartbeating by design: it
             # must leave the table, or a survivor doing slow work after
             # training would trip a spurious "presumed dead" abort
             with self._cv:
                 self._last_seen.pop(rank, None)
+                self._busy_ranks.discard(rank)
+                self._draining.discard(rank)
+                self._peer_rtt.pop(rank, None)
+                self._straggler_hits.pop(rank, None)
                 self._cv.notify_all()
             return network.AckResponse()
         return super()._handle(req, client_address)
@@ -215,6 +299,14 @@ class CoordinatorService(network.MuxService):
         if not (self._valid_rank(req.rank) and isinstance(req.seq, int)
                 and isinstance(req.data, bytes)):
             respond(CycleReply(error="malformed cycle message"))
+            return True
+        if getattr(req, "epoch", 0) != self._epoch:
+            # a straggler from a torn-down membership must not take part
+            # in this epoch's cycles
+            respond(CycleReply(error=(
+                f"stale membership epoch {getattr(req, 'epoch', 0)} of "
+                f"rank {req.rank}'s cycle message (coordinator is at "
+                f"epoch {self._epoch})")))
             return True
         answers, aborted = [], None
         with self._cv:
@@ -276,7 +368,19 @@ class CoordinatorService(network.MuxService):
     def _initiate_abort(self, origin_rank, reason, dead=False):
         """Coordinated abort: every rank pending in an exchange is
         answered now; the others learn it from their next exchange or
-        heartbeat reply.  Sticky."""
+        heartbeat reply.  Sticky.  With an ElasticContext attached, a
+        survivable failure is first rewritten into a reconfiguration
+        directive, which the same delivery hands out; a drain-marked one
+        is only pulled (rank 0 is not pushed the abort)."""
+        # plan() talks to the rendezvous, so it runs outside the lock;
+        # the plan is sticky and the abort re-checked under the lock.  A
+        # reason that already is a directive (a drain) passes unchanged
+        if (self._elastic is not None and self._abort is None  # hvd-lint: ignore[lock-discipline]
+                and not (isinstance(reason, str)
+                         and reason.startswith(RECONFIG_MARKER))):
+            planned = self._elastic.plan(origin_rank, reason)
+            if planned is not None:
+                reason = planned
         with self._cv:
             if self._abort is not None:
                 return
@@ -292,7 +396,7 @@ class CoordinatorService(network.MuxService):
             self._cv.notify_all()
         _log.error("coordinated abort (origin rank %s): %s", origin_rank,
                    reason)
-        if self._on_abort is not None:
+        if self._on_abort is not None and not is_drain_reason(reason):
             # lifecycle: daemon, one-shot; rank 0's local abort waits for
             # the peers to be told, never on a request thread
             threading.Thread(target=self._on_abort,
@@ -312,10 +416,57 @@ class CoordinatorService(network.MuxService):
                 lambda: not (set(self._last_seen) - self._told
                              - self._dead - {me}), timeout)
 
+    def _handle_drain(self, rank):
+        """A graceful drain (``common/drain.py``): exempt the rank from
+        liveness blame, plan a reconfiguration without it, wait for a
+        boundary of the eager plane's cycles (no cycle half exchanged,
+        at most 5 s), then hand out the drain-marked directive.  Runs on
+        this request's own reader thread."""
+        with self._cv:
+            if self._abort is not None:
+                # a failure (or another drain) beat this announcement
+                return DrainAck(False, "abort already in flight")
+            self._draining.add(rank)
+        directive = (self._elastic.plan_drain(rank)
+                     if self._elastic is not None else None)
+        if directive is None:
+            with self._cv:
+                self._draining.discard(rank)
+            return DrainAck(
+                False, "drain not survivable: elastic disabled, "
+                       "coordinator rank, or too few survivors")
+        self._await_boundary()
+        self._initiate_abort(rank, directive)
+        return DrainAck(True)
+
+    def _await_boundary(self, budget=5.0):
+        """Poll, outside the lock, until no cycle is half exchanged or
+        ``budget`` seconds passed: a late directive is still right, it
+        fails one cycle into the reconfiguration."""
+        deadline = time.monotonic() + budget
+        while time.monotonic() < deadline:
+            with self._cv:
+                if self._abort is not None or not self._cycles:
+                    return
+            time.sleep(0.005)
+
+    def _deadline_for_locked(self, r):  # holds: self._cv
+        """Rank ``r``'s liveness window: the busy factor multiplies the
+        base window, the RTT slack adds to it."""
+        base = self._liveness * (2.0 if r in self._busy_ranks else 1.0)
+        return base + self._rtt_slack_locked(r)
+
+    def _rtt_slack_locked(self, r):  # holds: self._cv
+        """The slack of the rank's reported RTT EWMA, capped at factor x
+        the base window, so that no report makes a rank unkillable."""
+        return min(self._peer_rtt.get(r, 0.0) * self._straggler_factor,
+                   self._liveness * self._straggler_factor)
+
     def _check_liveness(self):
-        """Convert a silently dead rank (no message within the liveness
-        window) into a coordinated abort instead of an indefinite
-        wait."""
+        """Convert a silently dead rank (no message within its adaptive
+        window) into a coordinated abort instead of an indefinite wait;
+        a draining rank is never blamed.  Without a death, the scan
+        looks for stragglers."""
         # sticky-flag fast path; _initiate_abort re-checks under the lock
         if self._liveness <= 0 or self._abort is not None:  # hvd-lint: ignore[lock-discipline]
             return
@@ -326,12 +477,75 @@ class CoordinatorService(network.MuxService):
                 return
             self._last_liveness_scan = now
             dead = sorted(r for r, ts in self._last_seen.items()
-                          if now - ts > self._liveness)
+                          if now - ts > self._deadline_for_locked(r)
+                          and r not in self._draining)
+            window = self._deadline_for_locked(dead[0]) if dead else 0.0
+            straggler = None if dead else self._straggler_scan_locked()
         if dead:
             self._initiate_abort(
                 dead[0],
                 f"rank {dead[0]} sent no heartbeat for more than "
-                f"{self._liveness:g}s (presumed dead)", dead=True)
+                f"{window:g}s (presumed dead)", dead=True)
+        elif straggler is not None:
+            # the boundary wait and plan_drain block: never on a
+            # heartbeat's thread.  lifecycle: daemon, one-shot
+            threading.Thread(target=self._propose_straggler_exclusion,
+                             args=(straggler,), daemon=True,
+                             name="hvd-torch-straggler").start()
+
+    def _straggler_scan_locked(self):  # holds: self._cv
+        """The k x median verdict: a rank whose RTT EWMA exceeds
+        ``straggler_factor`` x the median of every report for
+        ``straggler_windows`` scans in a row is recorded and logged.  ->
+        a rank to exclude (opt-in, elastic only), or None."""
+        if len(self._peer_rtt) < 3:
+            return None  # no meaningful median from fewer peers
+        med = rtt_mod.median(self._peer_rtt.values())
+        exclude = None
+        for r, value in self._peer_rtt.items():
+            if not (med > 0 and value > self._straggler_factor * med):
+                self._straggler_hits.pop(r, None)
+                continue
+            self._straggler_hits[r] = self._straggler_hits.get(r, 0) + 1
+            if (self._straggler_hits[r] >= self._straggler_windows
+                    and r not in self._straggler_verdicts):
+                self._straggler_verdicts[r] = {
+                    "rank": r, "rtt": value, "median": med,
+                    "factor": self._straggler_factor}
+                _log.warning(
+                    "straggler verdict: rank %d RTT %.3fs > %g x "
+                    "median %.3fs for %d consecutive windows", r,
+                    value, self._straggler_factor, med,
+                    self._straggler_hits[r])
+                if exclude is None:
+                    exclude = r
+        if (exclude is not None and self._straggler_exclude
+                and self._elastic is not None):
+            return exclude
+        return None
+
+    def straggler_verdicts(self):
+        """The recorded straggler verdicts (rank -> verdict dict)."""
+        with self._cv:
+            return {r: dict(v)
+                    for r, v in self._straggler_verdicts.items()}
+
+    def _propose_straggler_exclusion(self, rank):
+        """A confirmed straggler's drain-style exclusion
+        (``HVD_TPU_STRAGGLER_EXCLUDE``, elastic only): the granted drain's
+        protocol, nothing aborts."""
+        with self._cv:
+            if self._abort is not None or rank in self._draining:
+                return
+            self._draining.add(rank)
+        directive = self._elastic.plan_drain(
+            rank, cause=f"rank {rank} excluded as confirmed straggler")
+        if directive is None:
+            with self._cv:
+                self._draining.discard(rank)
+            return
+        self._await_boundary()
+        self._initiate_abort(rank, directive)
 
 
 class ControlPlane:
@@ -340,9 +554,13 @@ class ControlPlane:
     the local abort (``common/basics.py``: abort the communicators, then
     the eager plane's queue and handles)."""
 
-    def __init__(self, rank, size, key, config):
+    def __init__(self, rank, size, key, config, epoch=0, members=None):
         self.rank = rank
         self.size = size
+        # the membership epoch and its worker ids in rank order
+        self.epoch = epoch
+        self.members = (list(members) if members is not None
+                        else list(range(size)))
         self._key = key
         self._config = config
         self._address = None             # (host, port) of the coordinator
@@ -370,12 +588,29 @@ class ControlPlane:
         return list(self._hb_s)
 
     # ------------------------------------------------------------ startup
-    def serve(self, host, rank_of_client=None):
-        """Rank 0: host the coordinator on ``host``; -> its port."""
+    def serve(self, host, rank_of_client=None, rendezvous=None):
+        """Rank 0: host the coordinator on ``host``, with the membership
+        planner under ``HVD_TPU_ELASTIC`` (joiners and the published
+        membership through ``rendezvous``, the launcher's KV as
+        ``(addr, port)``, when there is one); -> its port."""
+        config = self._config
+        elastic = None
+        if config.elastic and self.size > 1:
+            from horovod_tpu_torch.elastic.membership import ElasticContext
+
+            elastic = ElasticContext(
+                members=self.members, epoch=self.epoch,
+                min_ranks=config.min_ranks, max_ranks=config.max_ranks,
+                rendezvous=rendezvous,
+                coord_failover=config.coord_failover)
         self._coordinator = CoordinatorService(
             self.size, self._key, host=host,
-            liveness_timeout_sec=self._config.liveness_timeout_seconds,
-            rank_of_client=rank_of_client, on_abort=self._local_abort)
+            liveness_timeout_sec=config.liveness_timeout_seconds,
+            rank_of_client=rank_of_client, on_abort=self._local_abort,
+            epoch=self.epoch, elastic=elastic,
+            straggler_factor=config.straggler_factor,
+            straggler_windows=config.straggler_windows,
+            straggler_exclude=config.straggler_exclude)
         return self._coordinator.port
 
     def start(self, address, publish_address=None):
@@ -400,8 +635,12 @@ class ControlPlane:
         # exists BEFORE any collective can run, so a crash at any later
         # point falls inside the liveness window
         try:
+            t0 = time.perf_counter()
             self._mux.send(network.HeartbeatMsg(self.rank, host=host_hash()),
                            timeout=30.0)
+            # the adaptive deadline starts from a measured round trip
+            rtt_mod.tracker().sample(rtt_mod.COORD_KEY,
+                                     time.perf_counter() - t0)
         except ConnectionError as exc:
             if isinstance(exc.__cause__, PermissionError):
                 self._refused = coordinator_refused(self.rank)
@@ -431,7 +670,7 @@ class ControlPlane:
         if self.size == 1 or self._refused is not None:
             return
         try:
-            reply = self._mux.send(CycleMsg(self.rank, -1, b""),
+            reply = self._mux.send(CycleMsg(self.rank, -1, b"", self.epoch),
                                    timeout=timeout)
         except TimeoutError:
             raise RuntimeError(
@@ -460,15 +699,17 @@ class ControlPlane:
             raise make_abort_error(*state)
         seq, self._seq = self._seq, self._seq + 1
         try:
-            reply = self._mux.send(CycleMsg(self.rank, seq, data))
+            reply = self._mux.send(CycleMsg(self.rank, seq, data,
+                                            self.epoch))
         except (ConnectionError, TimeoutError, OSError) as exc:
             if isinstance(exc.__cause__, PermissionError):
                 self._refused = coordinator_refused(self.rank)
                 raise PermissionError(self._refused) from exc
             # the control plane is gone: the same typed, symmetric error
-            # as the heartbeat's self-abort, not a one-off transport one
-            self._local_abort(0, f"coordinator unreachable during "
-                                 f"negotiation: {exc}")
+            # as the heartbeat's self-abort (or, with fail-over armed,
+            # the election's directive), not a one-off transport one
+            self._coordinator_lost(f"coordinator unreachable during "
+                                   f"negotiation: {exc}")
             raise make_abort_error(*self.abort_state()) from exc
         if reply.aborted is not None:
             self._local_abort(*reply.aborted)
@@ -485,27 +726,39 @@ class ControlPlane:
         hb = network.MuxClient([self._address], self._key,
                                timeout=max(interval, 2.0), retry_for=0,
                                peer=0)
+        tracker = rtt_mod.tracker()
         fail_since = None
         try:
             while True:
                 try:
                     t0 = time.perf_counter()
-                    reply = hb.send(network.HeartbeatMsg(self.rank,
-                                                         host=host),
-                                    timeout=max(interval * 2, 5.0))
+                    # each beat carries this rank's busy flag and its
+                    # worst smoothed round trip: the coordinator widens
+                    # this rank's window by them (slow is not dead)
+                    reply = hb.send(network.HeartbeatMsg(
+                        self.rank, busy=busy.active(),
+                        rtt=tracker.worst() or None, host=host),
+                        timeout=max(interval * 2, 5.0))
                     self._hb_s.append(time.perf_counter() - t0)
+                    tracker.sample(rtt_mod.COORD_KEY, self._hb_s[-1])
                 except Exception as exc:  # noqa: BLE001 — an outage
                     now = time.monotonic()
                     fail_since = now if fail_since is None else fail_since
                     # the abort deadline, not the liveness window, bounds
                     # how long this rank may spin against a dead
-                    # coordinator
+                    # coordinator; a measured slow link widens it by the
+                    # slack the coordinator grants, so that both sides
+                    # give up alike
                     budget = (self._config.abort_timeout_seconds
                               or self._config.liveness_timeout_seconds)
+                    if budget > 0:
+                        budget += min(tracker.worst()
+                                      * self._config.straggler_factor,
+                                      budget)
                     if budget > 0 and now - fail_since > budget:
-                        self._local_abort(
-                            0, f"coordinator unreachable for "
-                               f"{int(now - fail_since)}s: {exc}")
+                        self._coordinator_lost(
+                            f"coordinator unreachable for "
+                            f"{int(now - fail_since)}s: {exc}")
                         return
                 else:
                     fail_since = None
@@ -518,6 +771,63 @@ class ControlPlane:
             hb.close()
 
     # --------------------------------------------------------------- abort
+    def _coordinator_lost(self, reason):
+        """Every path that finds the coordinator unreachable ends here:
+        with fail-over armed the survivors race the rendezvous CAS
+        election and its winning directive replaces the fatal abort;
+        else (or when the election cannot be won) the abort names rank
+        0."""
+        directive = self._try_failover(reason)
+        self._local_abort(0, directive if directive is not None
+                          else reason)
+
+    def _try_failover(self, reason):
+        """The fail-over election (``elastic/election.py``): -> the
+        winning directive, or None when fail-over is off, rank 0 is this
+        process (then it is the casualty), a verdict has already landed,
+        there is no rendezvous, the survivors would be below
+        ``min_ranks``, or the election cannot be won within
+        ``HVD_TPU_ELECTION_TIMEOUT``."""
+        config = self._config
+        if not (config.coord_failover and config.elastic):
+            return None
+        if self.rank == 0 or self.size <= 1:
+            return None
+        if self.abort_state() is not None:
+            return None
+        addr = env_util.get_str(env_util.HVD_RENDEZVOUS_ADDR)
+        port = env_util.get_str(env_util.HVD_RENDEZVOUS_PORT)
+        if addr is None or port is None:
+            return None
+        if len(self.members) - 1 < config.min_ranks:
+            _log.error("fail-over: %d survivors < --min-ranks %d; "
+                       "coordinator loss is fatal",
+                       len(self.members) - 1, config.min_ranks)
+            return None
+        from horovod_tpu_torch.elastic import election
+
+        return election.elect(
+            addr, int(port), self.epoch, self.members, reason,
+            proposer_wid=self.members[self.rank],
+            timeout=config.election_timeout_seconds)
+
+    def request_drain(self):
+        """Announce this rank's planned departure to the coordinator and
+        wait for its verdict.  True: a reconfiguration without this rank
+        is on its way, keep running until the directive comes.  False:
+        the drain is not survivable (one rank, elastic off, rank 0
+        without fail-over, too few survivors)."""
+        if self.size <= 1 or self._mux is None or self._refused:
+            return False
+        try:
+            # the coordinator's boundary wait is at most 5 s; the rest
+            # is room for a loaded control plane
+            reply = self._mux.send(DrainMsg(self.rank), timeout=30.0)
+        except Exception as exc:  # noqa: BLE001 — a dead coordinator
+            _log.warning("drain announce failed: %s", exc)
+            return False
+        return bool(getattr(reply, "ok", False))
+
     def _local_abort(self, origin_rank, reason):
         """Apply the abort on this rank, once: on rank 0 first wait
         (bounded) until every live peer has been told, since a waiter
@@ -584,6 +894,22 @@ class ControlPlane:
         return self.abort_state()
 
     # ------------------------------------------------------------ shutdown
+    def close_for_reconfig(self):
+        """Take this epoch's plane down so that the next epoch's can be
+        made: no ``ShutdownMsg`` (the coordinator it would leave belongs
+        to the world being torn down); rank 0 has already waited, in its
+        local abort, until every live peer was handed the directive."""
+        self._hb_stop.set()
+        if self._hb_thread is not None:
+            self._hb_thread.join(timeout=5)
+            self._hb_thread = None
+        if self._mux is not None:
+            self._mux.close()
+            self._mux = None
+        if self._coordinator is not None:
+            self._coordinator.shutdown()
+            self._coordinator = None
+
     def shutdown(self):
         self._hb_stop.set()
         if self._hb_thread is not None:

@@ -51,7 +51,11 @@ in place of the backend's own error.  The buckets stay asynchronous on
 the card, as before, so a step that the abort lands in can return and
 queue an update behind a collective that a dead peer left hanging; the
 abort releases that collective, partly reduced, and the update applies
-it.  Such parameters never leave the device as a good state:
+it.  A typed error out of a bucket's start or wait also forgets the
+step it cut short (its launched buckets and its hook counts), so that
+under ``elastic.run`` the retried step starts clean, and each bucket
+resolves ``group=``'s ``torch.distributed`` group when it starts, the
+one an elastic reconfiguration made anew.  Such parameters never leave the device as a good state:
 ``elastic.State.commit()`` checks for the abort after its host copy,
 which waits for the update, and refuses the snapshot (and with it the
 durable checkpoint); the next call here raises.  A host wait in
@@ -85,6 +89,7 @@ import torch.nn.functional as F
 
 from horovod_tpu_torch import groups, mpi_ops
 from horovod_tpu_torch.common import basics, faults
+from horovod_tpu_torch.common.handles import HvdError
 from horovod_tpu_torch.common.compression import (
     Compression, accumulate_int8, all_gather_into, compressor_for,
     int8_chunk, is_quantized, quantize_int8_blocks, quantized_all_gather)
@@ -151,7 +156,7 @@ class _Bucket:
         if self.dropped:
             basics.wait_for_abort()
         with basics.abortable():
-            self.work.wait()
+            basics.wait_work(self.work)
         basics.raise_if_aborted()
         if self.op == Average:
             self.flat.div_(dist.get_world_size(self.group))
@@ -198,7 +203,7 @@ class _QuantizedBucket:
             basics.wait_for_abort()
         with basics.abortable():
             for work in self.works:
-                work.wait()
+                basics.wait_work(work)
         red = accumulate_int8(*self.recv)
         _after_eager_plane()
         with basics.abortable():
@@ -301,7 +306,8 @@ class _DistributedOptimizerMixin:
                   group):
         self._compression = compression
         self._op = op
-        self._group = groups.torch_group(group)
+        groups.torch_group(group)   # a bad group= raises here
+        self._hvd_group = group
         self._backward_passes_per_step = backward_passes_per_step
         self._average_aggregated_gradients = average_aggregated_gradients
         self._should_synchronize = True
@@ -337,8 +343,20 @@ class _DistributedOptimizerMixin:
             if self._allreduce_delay[p] == 0:
                 b = self._bucket_of[p]
                 self._ready[b] += 1
-                self._launch_ready()
+                try:
+                    self._launch_ready()
+                except HvdError:
+                    self._forget_step()
+                    raise
         return hook
+
+    def _forget_step(self):
+        """Drop the step a typed error cut short: its launched buckets
+        and its hook counts."""
+        self._launched = []
+        self._ready = [0] * len(self._buckets)
+        for p in self._requires_update:
+            self._allreduce_delay[p] = self._backward_passes_per_step
 
     def _launch_ready(self, force=False):
         """Start, in plan order, every bucket whose parameters are all
@@ -357,7 +375,7 @@ class _DistributedOptimizerMixin:
                     p.grad = torch.zeros_like(p)
                 grads.append(p.grad)
             bucket = _new_bucket(grads, self._op, self._compression,
-                                 self._group)
+                                 groups.torch_group(self._hvd_group))
             bucket.start()
             self._launched.append(bucket)
 
@@ -367,19 +385,18 @@ class _DistributedOptimizerMixin:
         unless ``average_aggregated_gradients`` is False.  Buckets whose
         hooks did not all fire on this rank are submitted now (reference:
         the missing_p loop of horovod torch/__init__.py synchronize)."""
-        self._launch_ready(force=True)
         passes = (self._backward_passes_per_step
                   if self._average_aggregated_gradients else 1)
-        with torch.no_grad():
-            for params, bucket in zip(self._buckets, self._launched):
-                for p, reduced in zip(params, bucket.wait()):
-                    if passes > 1:
-                        reduced = reduced / passes
-                    p.grad.copy_(reduced)
-        self._launched = []
-        self._ready = [0] * len(self._buckets)
-        for p in self._requires_update:
-            self._allreduce_delay[p] = self._backward_passes_per_step
+        try:
+            self._launch_ready(force=True)
+            with torch.no_grad():
+                for params, bucket in zip(self._buckets, self._launched):
+                    for p, reduced in zip(params, bucket.wait()):
+                        if passes > 1:
+                            reduced = reduced / passes
+                        p.grad.copy_(reduced)
+        finally:
+            self._forget_step()
 
     @contextlib.contextmanager
     def skip_synchronize(self):

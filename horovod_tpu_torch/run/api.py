@@ -36,7 +36,8 @@ def run(fn, args=(), kwargs=None, np=1, hosts=None, extra_env=None,
     itself; the ranks find each other through this call's rendezvous.
     A rank whose function raised fails the call with its traceback; a
     result whose digest does not verify raises ``PermissionError``.
-    ``elastic`` needs elastic membership (ROADMAP A.13c)."""
+    ``elastic`` sets ``HVD_TPU_ELASTIC`` in the workers and supervises
+    the survivors of a lost rank (``launch_job``)."""
     kwargs = kwargs or {}
 
     if hosts:
@@ -76,6 +77,8 @@ def run(fn, args=(), kwargs=None, np=1, hosts=None, extra_env=None,
 
             addr = _routable_addr(slots)
 
+        if elastic:
+            env.setdefault(env_util.HVD_TPU_ELASTIC, "1")
         command = (f"{shlex.quote(sys.executable)} -m "
                    f"horovod_tpu_torch.run.task_runner")
         code = launch_job(slots, command, addr, port, extra_env=env,

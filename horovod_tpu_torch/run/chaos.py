@@ -11,9 +11,10 @@ seed's spec is the same under both packages.
         -- -np 4 python train.py
 
 prints the spec, then launches ``hvdrun-torch`` with it (everything
-after ``--`` goes to the launcher verbatim).  The reference's
-``--elastic`` and ``--coord-failover`` (elastic membership) wait for
-ROADMAP A.13c; the cells they add are generated all the same.
+after ``--`` goes to the launcher verbatim).  ``--elastic`` adds the
+drain's ``preempt`` cells and runs the job under ``--elastic``;
+``--coord-failover`` (which implies it) adds a rank-0 cell and arms the
+fail-over, as the reference's ``bin/hvd-chaos`` does.
 """
 
 import random
@@ -158,6 +159,14 @@ def main(argv=None):
     parser.add_argument("--spec", default=None,
                         help="Explicit fault spec (skips generation); "
                              "use to replay a failure verbatim.")
+    parser.add_argument("--elastic", action="store_true",
+                        help="Run the job under --elastic: the "
+                             "survivors re-form instead of every rank "
+                             "raising the typed abort; adds the "
+                             "drain's preempt cells.")
+    parser.add_argument("--coord-failover", action="store_true",
+                        help="Admit rank 0 into the crash draws and arm "
+                             "--coord-failover (implies --elastic).")
     parser.add_argument("--blips", type=int, default=0,
                         help="Number of mid-stream connection-break "
                              "cells (reset/blip at the link point), "
@@ -183,11 +192,21 @@ def main(argv=None):
         if a in ("-np", "--num-proc") and i + 1 < len(hvdrun_args):
             num_ranks = int(hvdrun_args[i + 1])
 
+    if args.coord_failover:
+        args.elastic = True   # fail-over rides the elastic machinery
     spec = args.spec or generate_spec(args.seed, num_ranks, args.faults,
+                                      elastic=args.elastic,
                                       degrade=args.degrade,
+                                      coord_failover=args.coord_failover,
                                       groups=args.groups, blips=args.blips)
-    print(f"hvd-chaos: seed={args.seed} HVD_TPU_FAULT_SPEC={spec!r}",
+    print(f"hvd-chaos: seed={args.seed} HVD_TPU_FAULT_SPEC={spec!r}"
+          f"{' (elastic)' if args.elastic else ''}"
+          f"{' (coord-failover)' if args.coord_failover else ''}",
           flush=True)
+    for flag, on in (("--elastic", args.elastic),
+                     ("--coord-failover", args.coord_failover)):
+        if on and flag not in hvdrun_args:
+            hvdrun_args = [flag] + hvdrun_args
     # as a flag: the launcher's culprit attribution reads the job's own
     # crash ranks from it (run/launch.py::fault_crash_ranks)
     from horovod_tpu_torch.run.runner import run_commandline

@@ -46,6 +46,23 @@ _PARAMS = {
     "fault_spec": (env_util.HVD_TPU_FAULT_SPEC, "fault_tolerance.spec"),
     "term_grace": (env_util.HVD_TPU_TERM_GRACE,
                    "fault_tolerance.term_grace"),
+    "drain": (env_util.HVD_TPU_DRAIN, "fault_tolerance.drain"),
+    "rtt_alpha": (env_util.HVD_TPU_RTT_ALPHA, "fault_tolerance.rtt_alpha"),
+    "straggler_factor": (env_util.HVD_TPU_STRAGGLER_FACTOR,
+                         "fault_tolerance.straggler_factor"),
+    "straggler_windows": (env_util.HVD_TPU_STRAGGLER_WINDOWS,
+                          "fault_tolerance.straggler_windows"),
+    "straggler_exclude": (env_util.HVD_TPU_STRAGGLER_EXCLUDE,
+                          "fault_tolerance.straggler_exclude"),
+    "elastic": (env_util.HVD_TPU_ELASTIC, "elastic.enabled"),
+    "min_ranks": (env_util.HVD_TPU_MIN_RANKS, "elastic.min_ranks"),
+    "max_ranks": (env_util.HVD_TPU_MAX_RANKS, "elastic.max_ranks"),
+    "reconfig_timeout": (env_util.HVD_TPU_RECONFIG_TIMEOUT,
+                         "elastic.reconfig_timeout"),
+    "coord_failover": (env_util.HVD_TPU_COORD_FAILOVER,
+                       "elastic.coord_failover"),
+    "election_timeout": (env_util.HVD_TPU_ELECTION_TIMEOUT,
+                         "elastic.election_timeout"),
     "ckpt_dir": (env_util.HVD_TPU_CKPT_DIR, "checkpoint.dir"),
     "ckpt_interval": (env_util.HVD_TPU_CKPT_INTERVAL,
                       "checkpoint.interval"),
@@ -59,6 +76,9 @@ _PARAMS = {
 # negation flags -> env var forced to "0" (reference: --no-autotune etc.)
 _NEGATIONS = {
     "stall_check": env_util.HVD_STALL_CHECK_DISABLE,  # enable = disable-var 0
+    # drain defaults on; the negation is the interesting direction
+    "no_drain": env_util.HVD_TPU_DRAIN,
+    "no_straggler_exclude": env_util.HVD_TPU_STRAGGLER_EXCLUDE,
 }
 
 

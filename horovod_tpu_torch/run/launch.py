@@ -6,11 +6,12 @@ rank runs the (possibly ssh-prefixed) command with the env contract
 (``gloo_run.py:152-157,261-273``); the first nonzero exit terminates every
 other rank.
 
-The reference's elastic supervision (``elastic=True``, with
-``coord_failover``) needs elastic membership (ROADMAP A.13c); here it
-raises ``NotImplementedError`` naming that item.  The job's own fault
-spec feeds culprit attribution (``fault_crash_ranks``): a rank it arms
-with a crash is blamed even when its peers exit first.
+Under ``elastic=True`` a rank's failure that the job survives (not rank
+0's, unless ``coord_failover``; ``min_ranks`` left) does not fire the
+kill fan-out: the workers re-form the world without it and the launcher
+supervises the survivors to their end.  The job's own fault spec feeds
+culprit attribution (``fault_crash_ranks``): a rank it arms with a crash
+is blamed even when its peers exit first.
 """
 
 import os
@@ -102,7 +103,9 @@ def fault_crash_ranks(extra_env):
         specs = parse_fault_spec(spec_text)
     except ValueError:
         return frozenset()  # the workers will fail loudly at init
-    # preempt counts: it kills the rank just like a crash
+    # preempt counts: with the drain off it kills the rank just like a
+    # crash, and with the drain on the rank exits 0 and never appears in
+    # the failure list at all
     return frozenset(s.rank for s in specs
                      if s.action in ("crash", "preempt")
                      and s.rank is not None)
@@ -167,17 +170,19 @@ def launch_job(slots, command, rendezvous_addr, rendezvous_port,
     to ``<dir>/rank.<NN>/stdout|stderr`` (``NN`` zero-padded to the
     width of ``len(slots) - 1``) and to the console.
 
+    With ``elastic=True`` a non-rank-0 failure does not fire the kill
+    fan-out: the workers re-form the world around the survivors, and
+    the launcher supervises them to their end.  The fan-out still fires
+    when rank 0 dies (it hosts the coordinator) or when fewer than
+    ``min_ranks`` workers remain.  With ``coord_failover=True`` a rank-0
+    loss is survivable too: the workers elect a new coordinator at the
+    rendezvous.
+
     A SIGTERM delivered to the launcher itself (the platform preempting
     the whole allocation) is forwarded once to every worker process
-    group; an escalation timer then fires the ordinary kill fan-out
-    after the ``HVD_TPU_TERM_GRACE`` window for anything still running.
-
-    ``elastic`` and ``coord_failover`` (the reference's supervision of
-    survivors, ``min_ranks``) need elastic membership (ROADMAP A.13c)."""
-    if elastic or coord_failover:
-        raise NotImplementedError(
-            "elastic supervision (elastic=True, coord_failover=True) "
-            "needs elastic membership, ROADMAP A.13c")
+    group, so that the workers can drain; an escalation timer then fires
+    the ordinary kill fan-out after the ``HVD_TPU_TERM_GRACE`` window for
+    anything still running."""
     log = get_logger()
     failure = threading.Event()
     drain = threading.Event()
@@ -185,6 +190,7 @@ def launch_job(slots, command, rendezvous_addr, rendezvous_port,
     # attribution re-ranks by evidence, see pick_culprit
     failures = []
     failures_lock = threading.Lock()
+    alive = [len(slots)]  # guarded by failures_lock
 
     def run_rank(slot):
         info = {}
@@ -239,7 +245,21 @@ def launch_job(slots, command, rendezvous_addr, rendezvous_port,
                                  info.get("terminated_by_event", False)
                                  or info.get("drained", False),
                                  info.get("exit_ts")))
-            failure.set()
+                alive[0] -= 1
+                survivors = alive[0]
+            if (elastic and (slot.rank != 0 or coord_failover)
+                    and survivors >= min_ranks):
+                # the workers re-form around the remaining ranks (rank
+                # 0's loss only with fail-over armed): keep supervising
+                log.warning(
+                    "rank %d failed (%s); elastic mode: supervising "
+                    "%d surviving rank(s)", slot.rank,
+                    describe_exit(code), survivors)
+            else:
+                failure.set()
+        else:
+            with failures_lock:
+                alive[0] -= 1
 
     escalation = []  # [threading.Timer] so the success path can cancel
 
@@ -290,6 +310,13 @@ def launch_job(slots, command, rendezvous_addr, rendezvous_port,
 
     if drain.is_set() and not failures:
         log.warning("all ranks exited cleanly after SIGTERM")
+    if failures and elastic and not failure.is_set():
+        # every loss was absorbed by a reconfiguration and the survivors
+        # ran to their end: the job succeeded
+        log.warning("%d rank(s) were lost but the surviving ranks "
+                    "completed after elastic reconfiguration",
+                    len(failures))
+        return 0
     if failures:
         # name the culprit: the first rank that failed on its own, not a
         # victim the fan-out terminated, ranked by when each child was

@@ -13,8 +13,7 @@ reads (``utils/env.py``).  Not ported: ``--tpu`` and ``--global-mesh``
 (the JAX package's one-process-per-host device-rank mode; a torch process
 drives one card), the race, protocol, fuzz and soak flags (the
 ``tools/`` analysers and the soak rig, which run on the JAX package),
-the elastic, straggler, drain and fail-over flags (ROADMAP A.13c), and
-the flags of the reference's TCP data plane and session layer,
+and the flags of the reference's TCP data plane and session layer,
 controllers, autotune and timeline (A.13e, A.14); ROADMAP lists each.
 """
 
@@ -146,6 +145,74 @@ def make_parser():
                             "SIGTERM the launcher forwards to a worker "
                             "process group and the SIGKILL escalation "
                             "(HVD_TPU_TERM_GRACE, default 5).")
+    fault.add_argument("--drain", action="store_true", default=None,
+                       help="Workers turn SIGTERM (the preemption "
+                            "notice) into a graceful drain: announce "
+                            "the departure to the coordinator, "
+                            "reconfigure without the rank, exit 0 "
+                            "(HVD_TPU_DRAIN, default on).")
+    fault.add_argument("--no-drain", action="store_true", default=None,
+                       help="Force the drain handler off: SIGTERM "
+                            "keeps its default kill disposition.")
+    fault.add_argument("--rtt-alpha", type=float, default=None,
+                       help="EWMA smoothing factor of the control-plane "
+                            "round trips behind the adaptive liveness "
+                            "deadlines (HVD_TPU_RTT_ALPHA, default "
+                            "0.25).")
+    fault.add_argument("--straggler-factor", type=float, default=None,
+                       help="A rank is a straggler when its reported "
+                            "RTT exceeds this multiple of the median "
+                            "across reporting ranks "
+                            "(HVD_TPU_STRAGGLER_FACTOR, default 4). "
+                            "The same factor caps the extra deadline "
+                            "slack a slow rank may earn.")
+    fault.add_argument("--straggler-windows", type=int, default=None,
+                       help="Consecutive liveness scans a rank must "
+                            "exceed the straggler threshold before the "
+                            "verdict is recorded "
+                            "(HVD_TPU_STRAGGLER_WINDOWS, default 3).")
+    fault.add_argument("--straggler-exclude", action="store_true",
+                       default=None,
+                       help="Under --elastic, propose a confirmed "
+                            "straggler for a drain-style exclusion "
+                            "(HVD_TPU_STRAGGLER_EXCLUDE, default off: "
+                            "verdicts are only logged).")
+    fault.add_argument("--no-straggler-exclude", action="store_true",
+                       default=None,
+                       help="Force straggler exclusion off (verdicts "
+                            "are only logged).")
+
+    elastic = parser.add_argument_group("elastic membership")
+    elastic.add_argument("--elastic", action="store_true", default=None,
+                         help="Survive rank loss: re-form the world "
+                              "around the survivors at a new membership "
+                              "epoch instead of ending the job "
+                              "(HVD_TPU_ELASTIC).")
+    elastic.add_argument("--min-ranks", type=int, default=None,
+                         help="Smallest membership the job may shrink "
+                              "to; below it a rank loss is fatal "
+                              "(HVD_TPU_MIN_RANKS, default 1).")
+    elastic.add_argument("--max-ranks", type=int, default=None,
+                         help="Cap on the membership when admitting "
+                              "late joiners (HVD_TPU_MAX_RANKS; 0 = "
+                              "unlimited).")
+    elastic.add_argument("--reconfig-timeout", type=float, default=None,
+                         help="Deadline in seconds for the survivors to "
+                              "re-form the world at the new epoch "
+                              "(HVD_TPU_RECONFIG_TIMEOUT, default 60).")
+    elastic.add_argument("--coord-failover", action="store_true",
+                         default=None,
+                         help="Survive the loss of rank 0, which hosts "
+                              "the coordinator: the survivors race a "
+                              "CAS election at the rendezvous and "
+                              "re-form under a new coordinator "
+                              "(HVD_TPU_COORD_FAILOVER; needs "
+                              "--elastic).")
+    elastic.add_argument("--election-timeout", type=float, default=None,
+                         help="Budget in seconds for one fail-over "
+                              "election: the CAS race and adopting its "
+                              "winner (HVD_TPU_ELECTION_TIMEOUT, "
+                              "default 10).")
 
     ckpt = parser.add_argument_group("checkpointing")
     ckpt.add_argument("--ckpt-dir", default=None,
@@ -332,7 +399,10 @@ def run_commandline(argv=None) -> int:
     try:
         code = launch_job(slots, command, addr, port, extra_env=extra_env,
                           ssh_port=args.ssh_port, verbose=args.verbose,
-                          output_filename=args.output_filename)
+                          output_filename=args.output_filename,
+                          elastic=bool(args.elastic),
+                          min_ranks=args.min_ranks or 1,
+                          coord_failover=bool(args.coord_failover))
     finally:
         rendezvous.stop()
     # a signal death surfaces as Popen's negative code; exit statuses

@@ -17,7 +17,8 @@ and mux request ids start at a random offset so a frame recorded from an
 earlier connection cannot pair with a live request.
 
 Ported: the messages (``PingRequest`` ... ``HeartbeatReply``; a
-heartbeat carries the rank and its launcher host hash), ``connect`` with
+heartbeat carries the rank, its launcher host hash, its busy flag and
+its round trips' EWMA), ``connect`` with
 ``default_connect_retry`` and backoff, ``_apply_link_faults`` (the
 degraded-link verdicts of ``common/faults.py``), the codec,
 ``BasicService``/``BasicClient`` and ``MuxService``/``MuxClient``.  Not
@@ -80,10 +81,16 @@ class AbortMsg:
 # boundaries — the coordinator's last-seen table is how a rank that
 # died mid-reconfiguration gets detected
 class HeartbeatMsg:
-    def __init__(self, rank, host=None):
+    def __init__(self, rank, busy=False, rtt=None, host=None):
         self.rank = rank
         # sender's launcher host hash (run/host_hash.py)
         self.host = host
+        # the sender is inside a slow but live window (a checkpoint
+        # write, a drain): the coordinator doubles its liveness window
+        self.busy = busy
+        # the sender's worst round-trip EWMA in seconds: the coordinator
+        # adds an RTT-proportional slack to its liveness window
+        self.rtt = rtt
 
 
 class HeartbeatReply:

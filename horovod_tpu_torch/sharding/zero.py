@@ -93,7 +93,12 @@ def _resolve_min_size(min_size):
 # ------------------------------------------------------------------ wrapper
 class _ZeroOptimizer:
     """The inner optimizer rebuilt on one fp32 flat shard; subclasses
-    supply the layout and the exchange (:meth:`_update`)."""
+    supply the topology (:meth:`_topo`), the layout and the exchange
+    (:meth:`_update`).  When the topology changes (an elastic
+    reconfiguration), the shard and the inner optimizer are made again
+    for the new block before the next step or state load
+    (:meth:`_follow_topology`); ``elastic.State.restore`` then loads the
+    state resharded for it."""
 
     def __init__(self, optimizer, op, what):
         op = ReduceOp(op)
@@ -113,14 +118,25 @@ class _ZeroOptimizer:
         self.params = [p for g in groups for p in g["params"]]
         self.n_params = sum(p.numel() for p in self.params)
         self.device = self.params[0].device
+        self.rank, self.world = self._topo()
+        self._make_inner(type(optimizer), hyper)
+
+    def _make_inner(self, cls, hyper):
         self._start, cnt = self._layout()
         self.shard = torch.zeros(cnt, dtype=torch.float32,
                                  device=self.device)
-        cls = type(optimizer)
         takes = inspect.signature(cls.__init__).parameters
         self.inner = cls([self.shard], **{k: v for k, v in hyper.items()
                                           if k in takes})
         self.inner.param_groups[0].update(hyper)
+
+    def _follow_topology(self):
+        topo = self._topo()
+        if topo != (self.rank, self.world):
+            self.rank, self.world = topo
+            hyper = {k: v for k, v in self.inner.param_groups[0].items()
+                     if k != "params"}
+            self._make_inner(type(self.inner), hyper)
 
     # -- what a torch optimizer offers
     @property
@@ -128,9 +144,11 @@ class _ZeroOptimizer:
         return self.inner.state
 
     def state_dict(self):
+        self._follow_topology()
         return self.inner.state_dict()
 
     def load_state_dict(self, state_dict):
+        self._follow_topology()
         self.inner.load_state_dict(state_dict)
 
     def zero_grad(self, set_to_none=True):
@@ -148,6 +166,7 @@ class _ZeroOptimizer:
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        self._follow_topology()
         grads = [(p.grad if p.grad is not None else torch.zeros_like(p))
                  .reshape(-1).float() for p in self.params]
         pad = self._padded_size() - self.n_params
@@ -185,9 +204,10 @@ class _Sharded(_ZeroOptimizer):
     def __init__(self, optimizer, op, compression):
         self.compression = compression
         self.quantized = getattr(compression, "block_quantized", False)
-        self.world = dist.get_world_size()
-        self.rank = dist.get_rank()
         super().__init__(optimizer, op, "ShardedDistributedOptimizer")
+
+    def _topo(self):
+        return dist.get_rank(), dist.get_world_size()
 
     def _layout(self):
         chunk = shard_chunk_size(self.n_params, self.world)
@@ -235,9 +255,11 @@ class _Eager(_ZeroOptimizer):
     def __init__(self, optimizer, op, compression, min_size, group):
         self.compression = compression   # None: the job's default
         self.group = group
-        self.rank, self.world = _topology(group)
         self.min_size = _resolve_min_size(min_size)
         super().__init__(optimizer, op, "ZeroDistributedOptimizer")
+
+    def _topo(self):
+        return _topology(self.group)
 
     @property
     def sharded(self):

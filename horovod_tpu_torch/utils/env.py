@@ -6,8 +6,10 @@ knobs (start timeout, termination grace, interface, logging), the fusion
 threshold, the job-wide default compression, ZeRO's replicated-update
 threshold, the cap on live process groups, the eager plane's executor
 and its cycle, cache and stall knobs, the control plane's abort,
-heartbeat, liveness and connect-retry windows and the fault spec,
-hierarchical Adasum, and durable checkpointing.  Kept as a copy so that the port never imports the JAX
+heartbeat, liveness and connect-retry windows and the fault spec, the
+drain and the degraded-network knobs, elastic membership with the
+coordinator's fail-over, hierarchical Adasum, and durable
+checkpointing.  Kept as a copy so that the port never imports the JAX
 package.
 
 Every knob outside ``LAUNCHER_CONTRACT`` has an ``hvdrun-torch`` flag
@@ -55,6 +57,42 @@ HVD_TPU_LIVENESS_TIMEOUT = "HVD_TPU_LIVENESS_TIMEOUT"
 HVD_TPU_CONNECT_RETRY_SECONDS = "HVD_TPU_CONNECT_RETRY_SECONDS"
 # deterministic fault injection spec (common/faults.py grammar)
 HVD_TPU_FAULT_SPEC = "HVD_TPU_FAULT_SPEC"
+
+# graceful drain: a worker turns SIGTERM (the preemption notice) into a
+# planned departure instead of dying as a crash (default on)
+HVD_TPU_DRAIN = "HVD_TPU_DRAIN"
+
+# --- degraded-network tolerance ----------------------------------------------
+# EWMA smoothing factor of each rank's control-plane round trips; the
+# liveness window widens by an RTT-proportional slack so that a slow but
+# live rank is not aborted as dead
+HVD_TPU_RTT_ALPHA = "HVD_TPU_RTT_ALPHA"
+# k of the straggler verdict (rank RTT > k x median for m windows) and
+# the multiplier of the RTT slack added to the liveness window
+HVD_TPU_STRAGGLER_FACTOR = "HVD_TPU_STRAGGLER_FACTOR"
+# m of the straggler verdict: consecutive liveness scans a rank must
+# exceed k x median before the verdict is recorded
+HVD_TPU_STRAGGLER_WINDOWS = "HVD_TPU_STRAGGLER_WINDOWS"
+# under elastic, a confirmed straggler is proposed for a drain-style
+# exclusion (a reconfiguration, no abort) instead of only logged
+HVD_TPU_STRAGGLER_EXCLUDE = "HVD_TPU_STRAGGLER_EXCLUDE"
+
+# --- elastic membership (elastic/, ops/tcp_controller.py) --------------------
+# survive rank loss: re-form the world at a new membership epoch instead
+# of aborting the job
+HVD_TPU_ELASTIC = "HVD_TPU_ELASTIC"
+# budget for one reconfiguration: the survivors must rendezvous again
+# and make their groups within this many seconds
+HVD_TPU_RECONFIG_TIMEOUT = "HVD_TPU_RECONFIG_TIMEOUT"
+# below this many survivors a failure is fatal even under elastic
+HVD_TPU_MIN_RANKS = "HVD_TPU_MIN_RANKS"
+# cap on the membership after admitting late joiners (0 = unlimited)
+HVD_TPU_MAX_RANKS = "HVD_TPU_MAX_RANKS"
+# coordinator fail-over: the survivors of a rank-0 loss elect a new
+# coordinator at the launcher's KV instead of aborting
+HVD_TPU_COORD_FAILOVER = "HVD_TPU_COORD_FAILOVER"
+# budget for one fail-over election (the CAS and adopting its winner)
+HVD_TPU_ELECTION_TIMEOUT = "HVD_TPU_ELECTION_TIMEOUT"
 
 HVD_LOG_LEVEL = "HVD_LOG_LEVEL"      # trace|debug|info|warning|error|fatal
 HVD_LOG_HIDE_TIME = "HVD_LOG_HIDE_TIME"
@@ -116,6 +154,13 @@ DEFAULT_GROUP_MAX = 64  # live process groups per job
 DEFAULT_CKPT_INTERVAL_STEPS = 10
 DEFAULT_CKPT_KEEP = 2
 DEFAULT_START_TIMEOUT_SECONDS = 120.0
+DEFAULT_RECONFIG_TIMEOUT_SECONDS = 60.0
+DEFAULT_MIN_RANKS = 1
+DEFAULT_MAX_RANKS = 0  # unlimited
+DEFAULT_ELECTION_TIMEOUT_SECONDS = 10.0
+DEFAULT_RTT_ALPHA = 0.25
+DEFAULT_STRAGGLER_FACTOR = 4.0
+DEFAULT_STRAGGLER_WINDOWS = 3
 
 _warned = set()
 _warned_lock = threading.Lock()

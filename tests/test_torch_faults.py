@@ -174,16 +174,21 @@ def test_generate_spec_is_byte_identical(options):
         faults.parse_fault_spec(got)
 
 
-def test_chaos_cli_prints_the_spec_and_launches():
+@pytest.mark.parametrize("flags,kw", [
+    ((), {}), (("--elastic",), {"elastic": True}),
+    (("--coord-failover",), {"elastic": True, "coord_failover": True})],
+    ids=["plain", "elastic", "coord-failover"])
+def test_chaos_cli_prints_the_spec_and_launches(flags, kw):
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     out = subprocess.run(
         [sys.executable, "-m", "horovod_tpu_torch.run.chaos", "--seed",
-         "7", "--faults", "2", "--", "-np", "2", "--version"],
+         "7", "--faults", "2", *flags, "--", "-np", "2", "--version"],
         env=env, capture_output=True, text=True, timeout=60, cwd=REPO)
     assert out.returncode == 0, out.stderr
-    want = jax_chaos.generate_spec(7, 2, 2)
+    want = jax_chaos.generate_spec(7, 2, 2, **kw)
     assert f"HVD_TPU_FAULT_SPEC={want!r}" in out.stdout
+    assert ("(elastic)" in out.stdout) == bool(kw)
     assert out.stdout.strip().endswith(runner.__version__)
 
 

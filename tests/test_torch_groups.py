@@ -11,7 +11,9 @@ per-thread auto-name counters start at 0 as the port's do.
 
 - The handle API (ranks, size, rank, membership, repr, the deterministic
   id), the auto-names, the cap on live groups and the error texts equal
-  the JAX ones; ``reform`` raises ``NotImplementedError`` naming A.13.
+  the JAX ones; ``reform`` to a rotated membership maps the groups'
+  worker ids to their new ranks (and turns a grid whose shape no longer
+  fits typed-unsatisfiable) as the JAX ``reform`` does, and back.
 - ``hvd.grid(dp=2, tp=2, pp=2)`` at 8 ranks: axes, coords, every group's
   name, id and ranks, and the error texts, equal the JAX grid's.
 - ``group=`` on allreduce, broadcast, allgather, grouped_allgather,
@@ -143,8 +145,17 @@ WORKER = CASES + textwrap.dedent('''
         out["errors"] = {
             "empty": err(lambda: hvd.new_group([])),
             "range": err(lambda: hvd.new_group([0, n])),
-            "resolve": err(lambda: groups.resolve("not-a-group")),
-            "reform": err(lambda: groups.reform([0, 1]))}
+            "resolve": err(lambda: groups.resolve("not-a-group"))}
+        # every rank re-forms, in the same order: a rotated membership,
+        # then the identity again (the torch groups are made anew each
+        # time)
+        groups.reform([1, 2, 3, 0])
+        out["reform"] = {"odd": g.ranks, "auto": hvd.new_group(
+            [0, 1], name="group.0-1.0").ranks}
+        groups.reform([1, 2, 3])
+        out["reform"]["three"] = err(lambda: g.ranks)
+        groups.reform([0, 1, 2, 3])
+        out["reform"]["back"] = g.ranks
         os.environ["HVD_TPU_GROUP_MAX"] = str(len(groups._live))
         out["cap_same"] = hvd.new_group([1, 3], name="odd").size
         out["errors"]["cap"] = err(lambda: hvd.new_group([0, 1],
@@ -399,8 +410,29 @@ def test_group_handle_api_matches_jax(port_runs, jax_hvd):
         "[0, 8]", "[0, 4]").replace("world size 8", "world size 4"))
     kind, text = errors["cap"]
     assert kind == "HvdError" and "HVD_TPU_GROUP_MAX" in text
-    assert errors["reform"][0] == "NotImplementedError"
-    assert "A.13" in errors["reform"][1]
+    # reform: the JAX groups of the same specs under the same
+    # memberships (the JAX world has 8 ranks: the port's 4 then 4 more)
+    def reformed():
+        odd = jax_hvd.new_group([1, 3], name="odd")
+        pair = jax_hvd.new_group([0, 1], name="group.0-1.0")
+        jg.reform([1, 2, 3, 0, 4, 5, 6, 7])
+        try:
+            want = {"odd": odd.ranks, "auto": pair.ranks}
+            jg.reform([1, 2, 3, 4, 5, 6, 7])
+            want["three"] = odd.ranks
+        finally:
+            jg.reform(list(range(8)))
+        want["back"] = odd.ranks
+        return want
+
+    want = _in_fresh_thread(reformed)
+    for res in port_runs[4]:
+        got = res["reform"]
+        assert got["odd"] == want["odd"] == [0, 2]
+        assert got["auto"] == want["auto"] == [0, 3]
+        # worker 0 departed: the explicit group [1, 3] keeps its workers
+        assert got["three"] is None and want["three"] == [0, 2]
+        assert got["back"] == want["back"] == [1, 3]
 
 
 def test_group_cap_text_matches_jax(port_runs, jax_hvd, monkeypatch):

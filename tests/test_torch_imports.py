@@ -1,5 +1,6 @@
-"""The port stands alone: ``horovod_tpu_torch``, ``chip_smoke.py`` and
-``chip_negotiation_ab.py`` import neither JAX nor the JAX package, the card is the default device,
+"""The port stands alone: ``horovod_tpu_torch``, ``chip_smoke.py``,
+``chip_negotiation_ab.py`` and ``chip_abort_diag.py`` import neither JAX
+nor the JAX package, the card is the default device,
 and no entry point falls back to the CPU when asked for the card."""
 
 import ast
@@ -17,7 +18,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "horovod_tpu", "horovod"}
 
 def _port_files():
     files = sorted((REPO / "horovod_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py", REPO / "chip_negotiation_ab.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "chip_negotiation_ab.py",
+                    REPO / "chip_abort_diag.py"]
 
 
 def _clean_env():
@@ -54,7 +56,11 @@ def test_import_leaves_jax_and_horovod_tpu_out():
         "horovod_tpu_torch.parallel.moe, horovod_tpu_torch.parallel.pipeline, "
         "horovod_tpu_torch.sharding.mesh_executor, "
         "horovod_tpu_torch.ops.adasum, horovod_tpu_torch.elastic, "
-        "horovod_tpu_torch.elastic.state, horovod_tpu_torch.checkpoint, "
+        "horovod_tpu_torch.elastic.state, "
+        "horovod_tpu_torch.elastic.membership, "
+        "horovod_tpu_torch.elastic.election, "
+        "horovod_tpu_torch.common.drain, horovod_tpu_torch.common.busy, "
+        "horovod_tpu_torch.common.rtt, horovod_tpu_torch.checkpoint, "
         "horovod_tpu_torch.checkpoint.store, "
         "horovod_tpu_torch.checkpoint.manager, "
         "horovod_tpu_torch.utils.checkpoint, horovod_tpu_torch.utils.data, "

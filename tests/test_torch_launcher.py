@@ -108,6 +108,11 @@ PORT_ARGV = [
     "--heartbeat-interval", "0.5", "--liveness-timeout", "6",
     "--connect-retry-seconds", "8",
     "--fault-spec", "rank1:allreduce:2:crash,*:connect:1:refuse",
+    "--drain", "--no-drain", "--rtt-alpha", "0.4",
+    "--straggler-factor", "5", "--straggler-windows", "2",
+    "--straggler-exclude", "--no-straggler-exclude", "--elastic",
+    "--min-ranks", "2", "--max-ranks", "6", "--reconfig-timeout", "45",
+    "--coord-failover", "--election-timeout", "4",
     "--log-level", "debug",
     "--log-hide-timestamp", "python", "train.py", "--lr", "0.1"]
 
@@ -137,6 +142,18 @@ fault_tolerance:
   liveness_timeout: 10
   connect_retry_seconds: 12
   spec: "rank0:link:1:delay:5:2"
+  drain: false
+  rtt_alpha: 0.3
+  straggler_factor: 6
+  straggler_windows: 4
+  straggler_exclude: true
+elastic:
+  enabled: true
+  min_ranks: 2
+  max_ranks: 5
+  reconfig_timeout: 30
+  coord_failover: yes
+  election_timeout: 3
 checkpoint:
   dir: /tmp/run#3/ckpt
   interval: 5
@@ -156,15 +173,21 @@ def _port_flags():
 
 def test_port_flags_are_the_references():
     """The port exposes the reference's flags under their names, and
-    none of those this slice leaves out."""
+    none of those it leaves out; elastic membership's are among them."""
     jax_flags = {opt for action in jax_runner.make_parser()._actions
                  for opt in action.option_strings}
     assert _port_flags() <= jax_flags
     for absent in ("--tpu", "--global-mesh", "--race", "--proto-depth",
                    "--fuzz-seed", "--soak-ranks", "--reconnect-budget",
-                   "--elastic", "--coord-failover", "--straggler-factor",
                    "--controller", "--autotune", "--timeline-filename"):
         assert absent not in _port_flags()
+    for present in ("--elastic", "--min-ranks", "--max-ranks",
+                    "--reconfig-timeout", "--coord-failover",
+                    "--election-timeout", "--drain", "--no-drain",
+                    "--rtt-alpha", "--straggler-factor",
+                    "--straggler-windows", "--straggler-exclude",
+                    "--no-straggler-exclude"):
+        assert present in _port_flags()
 
 
 def test_every_port_flag_in_the_argv():
@@ -244,7 +267,18 @@ def test_config_from_env_matches_jax(monkeypatch):
                         ("HVD_ADASUM_HIERARCHICAL", "yes"),
                         ("HVD_TPU_COMPRESSION", "FP16"),
                         ("HVD_TPU_EXECUTOR", "mesh"),
-                        ("HVD_TPU_ZERO_MIN_SIZE", "5")]:
+                        ("HVD_TPU_ZERO_MIN_SIZE", "5"),
+                        ("HVD_TPU_ELASTIC", "1"),
+                        ("HVD_TPU_MIN_RANKS", "0"),
+                        ("HVD_TPU_MAX_RANKS", "6"),
+                        ("HVD_TPU_RECONFIG_TIMEOUT", "12.5"),
+                        ("HVD_TPU_COORD_FAILOVER", "on"),
+                        ("HVD_TPU_ELECTION_TIMEOUT", "3"),
+                        ("HVD_TPU_DRAIN", "no"),
+                        ("HVD_TPU_RTT_ALPHA", "0.5"),
+                        ("HVD_TPU_STRAGGLER_FACTOR", "2.5"),
+                        ("HVD_TPU_STRAGGLER_WINDOWS", "0"),
+                        ("HVD_TPU_STRAGGLER_EXCLUDE", "1")]:
         monkeypatch.setenv(name, value)
     got = dataclasses.asdict(config_mod.Config.from_env())
     want = dataclasses.asdict(JaxConfig.from_env())
@@ -256,6 +290,7 @@ def test_config_from_env_matches_jax(monkeypatch):
     assert (cfg.hier_local_size, cfg.start_timeout_seconds) == (2, 9.5)
     for name, bad in [("HVD_TPU_EXECUTOR", "bogus"),
                       ("HVD_TPU_ZERO_MIN_SIZE", "-1"),
+                      ("HVD_TPU_MAX_RANKS", "-2"),
                       ("HVD_TPU_COMPRESSION", "zip")]:
         monkeypatch.setenv(name, bad)
         with pytest.raises(ValueError) as want_err:
@@ -576,11 +611,33 @@ def test_launch_job_names_the_culprit_and_writes_rank_logs(tmp_path):
     assert any("rank 1 failed first (exit code 3)" in r for r in records)
 
 
-def test_launch_job_refuses_what_needs_elastic_membership():
-    slots = alloc.allocate([alloc.HostInfo("localhost", 1)], 1)
-    for kw in ({"elastic": True}, {"coord_failover": True}):
-        with pytest.raises(NotImplementedError, match="A.13c"):
-            launch.launch_job(slots, "true", "127.0.0.1", 1, **kw)
+@pytest.mark.parametrize("dies,kw,want", [
+    (1, {"elastic": True}, 0),
+    (0, {"elastic": True}, 3),
+    (0, {"elastic": True, "coord_failover": True}, 0),
+    (1, {"elastic": True, "min_ranks": 3}, 3)])
+def test_launch_job_refuses_what_needs_elastic_membership(tmp_path, dies,
+                                                          kw, want):
+    """What elastic membership makes of a lost rank (the JAX launcher's
+    supervision, ``tests/test_coord_failover.py``'s launcher cases): a
+    non-rank-0 loss leaves the survivors running to their end (exit 0);
+    rank 0's loss, or one below ``min_ranks``, still fires the kill
+    fan-out and names the culprit, unless fail-over is armed."""
+    slots = alloc.allocate([alloc.HostInfo("localhost", 3)], 3)
+    script = tmp_path / "w.py"
+    script.write_text(
+        "import os, sys, time\n"
+        "r = int(os.environ['HVD_RANK'])\n"
+        f"if r == {dies}:\n    sys.exit(3)\n"
+        "time.sleep(2.0)\n")
+    t0 = time.monotonic()
+    code = launch.launch_job(slots, f"{sys.executable} {script}",
+                             "127.0.0.1", 1, **kw)
+    assert code == want
+    # the fan-out ends the sleepers at once; supervision waits for them
+    assert (time.monotonic() - t0 >= 2.0) == (want == 0)
+    assert code == jax_launch.launch_job(
+        slots, f"{sys.executable} {script}", "127.0.0.1", 1, **kw)
 
 
 # ---------------------------------------------- delegated placement, LSF --

@@ -64,9 +64,11 @@ print(f"rank {r} DONE", flush=True)
 """
 
 
-def spawn(n, script, extra_env=None, timeout=60):
+def spawn(n, script, extra_env=None, timeout=60, world_size=None):
     """Start ``n`` ranks of ``script``; -> [(returncode, stdout, stderr)]
-    per rank.  Every child is reaped on any exit path."""
+    per rank.  ``world_size`` (default ``n``) is the ``HVD_SIZE`` every
+    process is given: the processes past it are late joiners.  Every
+    child is reaped on any exit path."""
     sys.path.insert(0, REPO)
     from horovod_tpu_torch.run.http_server import RendezvousServer
     from horovod_tpu_torch.run.service import secret
@@ -84,7 +86,7 @@ def spawn(n, script, extra_env=None, timeout=60):
                 if name.startswith("HVD_"):
                     del env[name]
             env.update({
-                "HVD_RANK": str(r), "HVD_SIZE": str(n),
+                "HVD_RANK": str(r), "HVD_SIZE": str(world_size or n),
                 "HVD_LOCAL_RANK": str(r), "HVD_LOCAL_SIZE": str(n),
                 "HVD_CROSS_RANK": "0", "HVD_CROSS_SIZE": "1",
                 "HVD_RENDEZVOUS_ADDR": "127.0.0.1",
