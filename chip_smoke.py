@@ -176,7 +176,27 @@ Phases, each of which must pass:
    ``--coord-failover``: worker 1 becomes rank 0 with the coordinator,
    the launcher exits 0; without it, a typed abort everywhere and exit
    1 naming rank 0.  At one card the four jobs run at four ranks on the
-   CPU (gloo), the integer schedule only, which the phase says.
+   CPU (gloo), the integer schedule only, which the phase says;
+15. the cluster layer: (a) ``TorchEstimator(model_factory=<phase 5's
+   transformer>, loss=lm_loss)`` through ``InProcessBackend`` on this
+   card, 10 SGD steps of 8 rows (phase 5's batch, over and over) from a
+   ``LocalStore``, ``validation=0.125``: the loss finite and falling,
+   ``val_loss`` finite, the fitted ``TorchModel``'s logits on the card
+   bitwise the trained rank's (it is rank 0's checkpoint, loaded with
+   ``map_location`` the card), every kernel's launches 10 steps' plus
+   the validation forward's; the fit's seconds (materialize, the
+   backend's run: the model's build, rank 0's parameters, the steps,
+   rank 0's checkpoint, validation; the reload), and its step in turns
+   with phase 5's; (b) the same fit through ``ProcessBackend`` at
+   ``min(cards, 4)`` ranks, a rank a card: each rank on its own card,
+   the parameters bitwise equal on every rank, the metrics equal, the
+   launch to every rank's start; (c) ``spark/runner.py``'s task function
+   in ``min(cards, 4)`` processes against a rendezvous the phase hosts,
+   as Spark executors on one host run it (this machine has no pyspark):
+   local ranks 0..n-1, one card each, an exact allreduce; (d) NIC
+   discovery with two task servers started as processes here: the
+   interfaces and the seconds.  At one card (b) and (c) run two gloo
+   ranks on the CPU at a small shape, which the phase says.
 
 Phases 6 and 8-11 (12-14 through its CLI) start their ranks above one
 card through the port's
@@ -191,8 +211,9 @@ Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` in
 phase 5's run, and ``launches_by_path``: phase 5's, phase 10's tp, MoE
 and pipeline runs', phase 11's ``op=Adasum`` run's, phase 12's
 launched run's and, above one card, phase 13 (a)'s before and at its
-crash and phase 14 (a)'s over both epochs, each of which must be above
-0), the
+crash and phase 14 (a)'s over both epochs, phase 15 (a)'s fit and,
+above one card, (b)'s rank 0 up to its validation loss, each of which
+must be above 0), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that last line.  ``--profile`` adds one profiled step of phase 5, one of
@@ -202,6 +223,7 @@ ResNet-50, one of phase 9's zigzag transformer and one of each of phase
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import os
@@ -4630,6 +4652,488 @@ def elastic_phase(smi, buckets):
     return out
 
 
+# phase 15: the estimator's steps of 8 rows a rank and its SGD learning
+# rate (momentum 0.9, the estimator's); the validation share of the rows
+CL_STEPS, CL_BATCH, CL_LR, CL_VALIDATION = 10, 8, 0.05, 0.125
+# the shapes of (b) and (c) on the CPU at one card (two gloo ranks: NCCL
+# takes no two ranks of a communicator on one card)
+CL_CPU = {"vocab_size": 512, "d_model": 128, "n_layers": 2, "seq": 64}
+# the models each call of _cl_factory built in this process, in order
+_CL_MODELS = []
+
+
+def _cl_config(cpu, layers=LAYERS):
+    import torch
+
+    if cpu:
+        from horovod_tpu_torch.models import TransformerConfig
+
+        return TransformerConfig(
+            vocab_size=CL_CPU["vocab_size"], n_layers=CL_CPU["n_layers"],
+            d_model=CL_CPU["d_model"], n_heads=CL_CPU["d_model"] // 64,
+            d_ff=4 * CL_CPU["d_model"], max_len=CL_CPU["seq"],
+            dtype=torch.float32)
+    return main_config(layers)
+
+
+def _cl_factory(cpu, layers=LAYERS):
+    """Phase 15's ``model_factory``: phase 5's transformer at ``layers``
+    on this rank's card (``cpu``: the small fp32 one), seed 0; each model
+    is kept in ``_CL_MODELS``."""
+    from horovod_tpu_torch.models import Transformer
+
+    model = Transformer(_cl_config(cpu, layers), seed=0,
+                        device="cpu" if cpu else None)
+    _CL_MODELS.append(model)
+    return model
+
+
+def _cl_digest(model):
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for name, p in sorted(model.state_dict().items()):
+        h.update(name.encode())
+        h.update(p.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _cl_check_counts(what, counts, xent_val):
+    """A phase-15 fit's launches: ``CL_STEPS`` of phase 5's steps and one
+    validation forward (its loss's cross-entropy when ``xent_val``)."""
+    val = {"layer_norm_fwd": 2 * LAYERS + 1, "flash_attention_fwd": LAYERS,
+           "softmax_xent_fwd": int(xent_val)}
+    want = {k: v * CL_STEPS + val.get(k, 0)
+            for k, v in per_step_launches(LAYERS).items()}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want} "
+                             f"({CL_STEPS} steps and the validation "
+                             f"forward)")
+
+
+class _ClLoss:
+    """Phase 15's ``loss``: ``lm_loss``, with a record of its calls.  A
+    call under autograd is a training step's: it synchronises the card
+    and stamps the host clock (the step is the time between stamps) and
+    keeps the loss.  The call without autograd is the validation
+    forward's, after training and rank 0's checkpoint: it writes this
+    rank's record (rank, card, stamps, losses, each kernel's launches so
+    far, the trained parameters' sha256) to ``<out>/rank.<r>.json``.
+    Module-level, so plain pickle sends it to ``ProcessBackend``'s
+    workers by name."""
+
+    def __init__(self, out):
+        self.out = out
+        self.stamps, self.losses = [], []
+
+    def __call__(self, logits, tokens):
+        import torch
+
+        from horovod_tpu_torch.common import basics
+        from horovod_tpu_torch.models import lm_loss
+        from horovod_tpu_torch.ops import cuda as kernels
+
+        if logits.is_cuda:
+            torch.cuda.synchronize()
+        if not torch.is_grad_enabled():
+            rec = {"rank": basics.rank(), "device": str(basics.device()),
+                   "card": (torch.cuda.current_device()
+                            if logits.is_cuda else None),
+                   "stamps": self.stamps, "losses": self.losses,
+                   "counts": kernels.launch_counts(),
+                   "digest": _cl_digest(_CL_MODELS[0])}
+            os.makedirs(self.out, exist_ok=True)
+            with open(os.path.join(self.out,
+                                   f"rank.{rec['rank']}.json"), "w") as f:
+                json.dump(rec, f)
+            return lm_loss(logits, tokens)
+        self.stamps.append(time.perf_counter())
+        loss = lm_loss(logits, tokens)
+        self.losses.append(loss.item())
+        return loss
+
+
+def _cl_tokens(world, cpu, validation=CL_VALIDATION, seed=0):
+    """The fit's token rows: phase 5's batch (``RandomState(seed)``, 8
+    rows) over and over, enough for ``CL_STEPS`` steps of ``CL_BATCH``
+    rows on each of ``world`` ranks after the validation split, so that
+    every step of every rank sees phase 5's batch (the loss must fall)."""
+    import numpy as np
+
+    vocab = CL_CPU["vocab_size"] if cpu else VOCAB
+    seq = CL_CPU["seq"] if cpu else MAIN_SEQ
+    batch = np.random.RandomState(seed).randint(0, vocab, (CL_BATCH, seq))
+    need = world * CL_STEPS * CL_BATCH
+    n = need
+    while validation and n - max(1, int(n * validation)) < need:
+        n += 1
+    return np.ascontiguousarray(batch[np.arange(n) % CL_BATCH])
+
+
+def _cl_steps_ms(stamps):
+    """The steady step of a stamped fit: the median of the intervals
+    between the training calls of its loss, the first left out."""
+    gaps = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    return statistics.median(gaps[1:] if len(gaps) > 1 else gaps), gaps
+
+
+def _cl_records(out, world):
+    recs = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank.{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def _cl_fit(cs, store_dir, backend, world, cpu, validation, out):
+    """One phase-15 fit through ``backend``: -> (estimator, the fitted
+    model, the metrics, the loss object)."""
+    import shutil
+
+    from horovod_tpu_torch.cluster import LocalStore, TorchEstimator
+
+    shutil.rmtree(store_dir, ignore_errors=True)
+    shutil.rmtree(out, ignore_errors=True)
+    tokens = _cl_tokens(world, cpu, validation)
+    loss = cs._ClLoss(out)
+    est = TorchEstimator(
+        functools.partial(cs._cl_factory, cpu), loss=loss, epochs=1,
+        batch_size=CL_BATCH, learning_rate=CL_LR,
+        store=LocalStore(store_dir), backend=backend,
+        validation=validation, seed=0, device="cpu" if cpu else None)
+    fitted, metrics = est.fit(tokens, tokens)
+    return est, fitted, metrics, loss, tokens
+
+
+def _cl_split(est):
+    t = est.timings
+    ranks = t["ranks"]
+    return {"materialize_s": t["materialize_s"], "run_s": t["run_s"],
+            "reload_s": t["reload_s"],
+            "launch_to_rank_s": [r["start"] - t["run_start"]
+                                 for r in ranks],
+            "build_s": [r["build_s"] for r in ranks],
+            "sync_s": [r["sync_s"] for r in ranks],
+            "train_s": [r["train_s"] for r in ranks],
+            "checkpoint_s": ranks[0]["checkpoint_s"],
+            "val_s": [r.get("val_s") for r in ranks]}
+
+
+def _cl_print_split(what, split, smi):
+    def r3(key):
+        return [round(v, 3) for v in split[key]]
+
+    print(f"cluster {what}: fit {split['materialize_s']:.3f} s "
+          f"materialize, {split['run_s']:.3f} s through the backend "
+          f"(launch to each rank's start {r3('launch_to_rank_s')} s, then "
+          f"the model and its optimizer built {r3('build_s')} s, rank "
+          f"0's parameters taken {r3('sync_s')} s, {CL_STEPS} steps and "
+          f"the metric "
+          f"{r3('train_s')} s, rank 0's "
+          f"checkpoint {split['checkpoint_s']:.3f} s, validation "
+          f"{[round(v, 3) for v in split['val_s'] if v is not None]} s), "
+          f"reload {split['reload_s']:.3f} s on {smi}", flush=True)
+
+
+def _cl_metrics_ok(what, metrics, world):
+    if len(metrics) != world:
+        raise AssertionError(f"{what}: {len(metrics)} metrics for "
+                             f"{world} ranks")
+    if any(m != metrics[0] for m in metrics):
+        raise AssertionError(f"{what}: the ranks' metrics differ: "
+                             f"{metrics}")
+    if not all(map(math.isfinite, metrics[0].values())):
+        raise AssertionError(f"{what}: non-finite metrics {metrics[0]}")
+
+
+def cluster_in_process(cs, smi, phase5_ms):
+    """Phase 15 (a): ``TorchEstimator`` + ``InProcessBackend`` on this
+    card, phase 5's transformer at full width and depth, ``lm_loss``,
+    ``validation=CL_VALIDATION``; then phase 5's step and the estimator's
+    in turns (a second fit without validation).  -> the record."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.cluster import InProcessBackend
+    from horovod_tpu_torch.ops import cuda as kernels
+
+    store = os.path.join(_scratch_dir(), "cluster_a")
+    out = os.path.join(_scratch_dir(), "cluster_a_rec")
+    hvd.init()
+    try:
+        cs._CL_MODELS.clear()
+        kernels.reset_launch_counts()
+        est, fitted, metrics, loss, tokens = _cl_fit(
+            cs, store, InProcessBackend(), 1, False, CL_VALIDATION, out)
+        counts = kernels.launch_counts()
+        _cl_metrics_ok("(a)", metrics, 1)
+        losses = loss.losses
+        if len(losses) != CL_STEPS or not all(map(math.isfinite, losses)) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"(a): step losses {losses}")
+        _cl_check_counts("(a)", counts, True)
+        trained = cs._CL_MODELS[0]
+        if fitted.model is not cs._CL_MODELS[-1] or trained is fitted.model:
+            raise AssertionError("(a): the fitted model is not the "
+                                 "reloaded one")
+        if str(next(fitted.model.parameters()).device) != str(hvd.device()):
+            raise AssertionError("(a): the fitted model is not on the card")
+        probe = torch.from_numpy(tokens[:2]).to(hvd.device())
+        with torch.no_grad():
+            want_logits = trained(probe)
+        got_logits = fitted.predict(tokens[:2])
+        if not torch.equal(got_logits, want_logits):
+            raise AssertionError(
+                f"(a): the fitted model's logits differ from the trained "
+                f"rank's by {max_err(got_logits, want_logits):.3e}")
+        del trained, fitted, probe, want_logits, got_logits
+        cs._CL_MODELS.clear()
+        _release()
+        split = _cl_split(est)
+        steady, gaps = _cl_steps_ms(loss.stamps)
+        # phase 5's step and the estimator's in turns
+        turns = {"estimator_ms": [steady], "phase5_ms": []}
+        for turn in range(2):
+            model = cs._cl_factory(False)
+            opt = hvd.DistributedOptimizer(
+                torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                  weight_decay=1e-4),
+                named_parameters=model.named_parameters())
+            batch = torch.from_numpy(tokens[:CL_BATCH]).to(hvd.device())
+            _, _, times = _timed_steps(model, opt, batch, CL_STEPS)
+            turns["phase5_ms"].append(1e3 * statistics.median(times[1:]))
+            del model, opt, batch
+            cs._CL_MODELS.clear()
+            _release()
+            if turn == 0:
+                _, _, _, again, _ = _cl_fit(cs, store, InProcessBackend(),
+                                            1, False, None, out)
+                turns["estimator_ms"].append(_cl_steps_ms(again.stamps)[0])
+                cs._CL_MODELS.clear()
+                _release()
+    finally:
+        hvd.shutdown()
+    print(f"cluster (a): TorchEstimator(InProcessBackend) fit phase 5's "
+          f"transformer ({LAYERS} layers, bf16, lm_loss, SGD lr {CL_LR} "
+          f"momentum 0.9) on {len(tokens)} rows: {CL_STEPS} steps of "
+          f"{CL_BATCH}, losses {[round(v, 4) for v in losses]}, metrics "
+          f"{metrics[0]}; the fitted model's logits bitwise the trained "
+          f"rank's; launches {counts}", flush=True)
+    _cl_print_split("(a)", split, smi)
+    print(f"cluster (a): step ms in turns: estimator "
+          f"{[round(v, 3) for v in turns['estimator_ms']]} (SGD, the loss's "
+          f"stamps; gaps of the first fit {[round(g, 3) for g in gaps]}), "
+          f"phase 5's {[round(v, 3) for v in turns['phase5_ms']]} "
+          f"(AdamW; phase 5 itself {phase5_ms:.3f}) on {smi}", flush=True)
+    return {"metrics": metrics[0], "losses": losses, "counts": counts,
+            "split": split, "step_gaps_ms": gaps, "turns": turns}
+
+
+def cluster_processes(cs, smi, world, phase6_ms):
+    """Phase 15 (b): the same fit through ``ProcessBackend(world)``, a
+    rank a card (at one card: two gloo ranks on the CPU at ``CL_CPU``).
+    -> the record."""
+    from horovod_tpu_torch.cluster import ProcessBackend
+
+    cpu = world == 1
+    ranks = 2 if cpu else world
+    store = os.path.join(_scratch_dir(), "cluster_b")
+    out = os.path.join(_scratch_dir(), "cluster_b_rec")
+    backend = ProcessBackend(ranks, device="cpu" if cpu else None,
+                             extra_env={"PYTHONPATH": os.path.dirname(
+                                 os.path.abspath(__file__))})
+    cs._CL_MODELS.clear()
+    est, fitted, metrics, _, tokens = _cl_fit(
+        cs, store, backend, ranks, cpu, CL_VALIDATION, out)
+    del fitted
+    cs._CL_MODELS.clear()
+    _release()
+    _cl_metrics_ok("(b)", metrics, ranks)
+    recs = _cl_records(out, ranks)
+    if len({r["digest"] for r in recs}) != 1:
+        raise AssertionError(f"(b): the ranks' parameters differ: "
+                             f"{[r['digest'][:12] for r in recs]}")
+    for r in recs:
+        if len(r["losses"]) != CL_STEPS or not all(
+                map(math.isfinite, r["losses"])) \
+                or not r["losses"][-1] < r["losses"][0]:
+            raise AssertionError(f"(b) rank {r['rank']}: losses "
+                                 f"{r['losses']}")
+    if not cpu:
+        cards = [r["card"] for r in recs]
+        if sorted(cards) != list(range(world)):
+            raise AssertionError(f"(b): the ranks' cards {cards}")
+        for r in recs:
+            # recorded at the validation loss: its cross-entropy not yet
+            _cl_check_counts(f"(b) rank {r['rank']}", r["counts"], False)
+    split = _cl_split(est)
+    steps = [_cl_steps_ms(r["stamps"])[0] for r in recs]
+    where = ("on the CPU, two gloo ranks at "
+             f"{CL_CPU} (NCCL takes no two ranks on one card)" if cpu else
+             f"a rank a card, cards {[r['card'] for r in recs]}")
+    print(f"cluster (b): TorchEstimator(ProcessBackend({ranks})) {where}: "
+          f"losses {[round(v, 4) for v in recs[0]['losses']]}, metrics "
+          f"{metrics[0]} on every rank, parameters bitwise equal on every "
+          f"rank (sha256 {recs[0]['digest'][:16]})", flush=True)
+    _cl_print_split("(b)", split, smi)
+    if not cpu:
+        print(f"cluster (b): step ms a rank {[round(s, 3) for s in steps]} "
+              f"(SGD) against phase 6's DO step {phase6_ms:.3f} (AdamW) at "
+              f"{world} GPUs; launches a rank {recs[0]['counts']} on {smi}",
+              flush=True)
+    return {"metrics": metrics[0], "split": split, "steps_ms": steps,
+            "records": recs, "cpu": cpu,
+            "counts": None if cpu else recs[0]["counts"]}
+
+
+def spark_task_result():
+    """What phase 15 (c)'s Spark tasks run: the rank's placement and card,
+    and an allreduce of ``rank + 1`` (integer-valued fp32: exact)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    t = torch.full((1 << 20,), float(hvd.rank() + 1), device=hvd.device())
+    total = hvd.allreduce(t, op=hvd.Sum, name="p15.spark")
+    if not torch.equal(total, torch.full_like(t, total[0].item())):
+        raise AssertionError("allreduce result not uniform")
+    return {"rank": hvd.rank(), "local_rank": hvd.local_rank(),
+            "local_size": hvd.local_size(), "cross_rank": hvd.cross_rank(),
+            "cross_size": hvd.cross_size(), "device": str(hvd.device()),
+            "card": (torch.cuda.current_device()
+                     if hvd.device().type == "cuda" else None),
+            "sum": total[0].item()}
+
+
+def _spark_task(index, world):
+    """One of phase 15 (c)'s task processes (``--spark-task INDEX
+    WORLD``): the rendezvous, the job key and the device on stdin."""
+    import chip_smoke as cs
+    from horovod_tpu_torch.spark import runner
+
+    addr, port, key, device = sys.stdin.readline().split()
+    res = runner._task_fn(index, world, cs.spark_task_result, (), {}, addr,
+                          port, key, None,
+                          None if device == "cuda" else device, 120.0)
+    print("SPARK_RESULT " + json.dumps(res), flush=True)
+    return 0
+
+
+def cluster_spark(smi, world):
+    """Phase 15 (c): ``spark/runner.py``'s task function in ``world``
+    processes against a rendezvous this phase hosts, as Spark executors
+    on one host run it (at one card: two on the CPU).  -> the results."""
+    import base64
+
+    from horovod_tpu_torch.run.http_server import RendezvousServer
+    from horovod_tpu_torch.run.service import secret
+
+    cpu = world == 1
+    ranks = 2 if cpu else world
+    env = {k: v for k, v in os.environ.items() if not k.startswith("HVD_")}
+    server = RendezvousServer()
+    port = server.start()
+    key = base64.b64encode(secret.make_secret_key()).decode()
+    t0 = time.time()
+    procs = []
+    try:
+        for i in range(ranks):
+            p = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--spark-task",
+                 str(i), str(ranks)], stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env, cwd=os.path.dirname(os.path.abspath(__file__)))
+            p.stdin.write(f"127.0.0.1 {port} {key} "
+                          f"{'cpu' if cpu else 'cuda'}\n")
+            p.stdin.close()
+            p.stdin = None   # communicate() below reads only
+            procs.append(p)
+        outs = []
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        server.stop()
+    wall = time.time() - t0
+    res = []
+    for i, (code, out, err) in enumerate(outs):
+        lines = [x for x in out.splitlines() if x.startswith("SPARK_RESULT ")]
+        if code != 0 or not lines:
+            raise AssertionError(f"(c) task {i} exited {code}:\n"
+                                 f"{out[-3000:]}\n{err[-3000:]}")
+        res.append(json.loads(lines[-1].split(" ", 1)[1]))
+    want_sum = float(ranks * (ranks + 1) // 2)
+    if [r["rank"] for r in res] != list(range(ranks)) \
+            or sorted(r["local_rank"] for r in res) != list(range(ranks)) \
+            or any(r["local_size"] != ranks or r["cross_size"] != 1
+                   for r in res) \
+            or any(r["sum"] != want_sum for r in res):
+        raise AssertionError(f"(c): {res}")
+    if not cpu and sorted(r["card"] for r in res) != list(range(ranks)):
+        raise AssertionError(f"(c): the tasks' cards {res}")
+    print(f"cluster (c): spark/runner.py's task function in {ranks} "
+          f"processes against this phase's rendezvous, without Spark (this "
+          f"machine has no pyspark)"
+          + (", on the CPU (one card)" if cpu else "")
+          + f": local ranks {[r['local_rank'] for r in res]} of "
+          f"{ranks} on one host, devices {[r['device'] for r in res]}, the "
+          f"allreduce {want_sum} exact on every rank, {wall:.2f} s on "
+          f"{smi}", flush=True)
+    return {"results": res, "wall_s": wall, "cpu": cpu}
+
+
+def cluster_discovery(smi):
+    """Phase 15 (d): NIC discovery with two task servers started as
+    processes on this machine.  -> the interfaces and the seconds."""
+    from horovod_tpu_torch.run.driver_discovery import (
+        discover_common_interfaces)
+    from horovod_tpu_torch.run.service.network import local_interfaces
+
+    t0 = time.time()
+    ifaces, ip = discover_common_interfaces(["localhost", "localhost"],
+                                            timeout=120)
+    wall = time.time() - t0
+    if not ifaces or ip.count(".") != 3:
+        raise AssertionError(f"(d): discovery found {ifaces}, {ip}")
+    print(f"cluster (d): NIC discovery with 2 task servers: interfaces "
+          f"{sorted(ifaces)} (this host's: {local_interfaces()}), "
+          f"rendezvous address {ip}, {wall:.2f} s on {smi}", flush=True)
+    return {"interfaces": sorted(ifaces), "ip": ip, "wall_s": wall}
+
+
+def cluster_phase(smi, phase5_ms, phase6_ms):
+    """Phase 15: the cluster layer.  (a) :func:`cluster_in_process`; (b)
+    :func:`cluster_processes` at ``min(cards, 4)`` ranks; (c)
+    :func:`cluster_spark`; (d) :func:`cluster_discovery`.  At one card
+    (b) and (c) run two ranks on the CPU.  -> the record."""
+    import shutil
+
+    import chip_smoke as cs
+
+    world = _world()
+    wall, out = {}, {}
+    for part, fn, args in (
+            ("a", cluster_in_process, (cs, smi, phase5_ms)),
+            ("b", cluster_processes, (cs, smi, world, phase6_ms)),
+            ("c", cluster_spark, (smi, world)),
+            ("d", cluster_discovery, (smi,))):
+        t0 = time.time()
+        out[part] = fn(*args)
+        wall[part] = time.time() - t0
+    shutil.rmtree(_scratch_dir(), ignore_errors=True)
+    print(f"cluster: wall s { {k: round(v, 2) for k, v in wall.items()} }",
+          flush=True)
+    out["wall_s"] = wall
+    return out
+
+
 RANK_PHASES = {"eager": eager_checks, "zero": zero_checks,
                "sequence": sequence_checks, "model": model_parallel_checks,
                "adasum": adasum_checks, "adasum_hier": adasum_hier_checks,
@@ -4865,9 +5369,13 @@ def main(argv=None):
                     "9 and each run of 10")
     ap.add_argument("--rank-of", nargs=2, metavar=("PHASE", "LAYERS"),
                     help=argparse.SUPPRESS)  # one rank of phase 6, 8-12
+    ap.add_argument("--spark-task", nargs=2, metavar=("INDEX", "WORLD"),
+                    type=int, help=argparse.SUPPRESS)  # phase 15 (c)
     args = ap.parse_args(argv)
     if args.rank_of is not None:
         return _rank_of(args.rank_of[0], int(args.rank_of[1]), args.profile)
+    if args.spark_task is not None:
+        return _spark_task(*args.spark_task)
 
     import torch
 
@@ -4914,6 +5422,8 @@ def main(argv=None):
                      eager[0]["negotiation_ms_median"])
     fault = timed(13, fault_phase, smi, phase5_ms, run["buckets"])
     elastic = timed(14, elastic_phase, smi, run["buckets"])
+    cluster = timed(15, cluster_phase, smi, phase5_ms,
+                    eager[0]["step_ms_plane_on"])
     paths = {"phase10_tp": model[0]["tp_dp2"]["counts"],
              "phase10_moe": model[0]["moe"]["counts"],
              "phase10_pp": model[0]["pipeline"]["counts"],
@@ -4925,6 +5435,11 @@ def main(argv=None):
     if elastic.get("loss") and elastic["loss"]["ranks"][0]["counts"]:
         # phase 14 (a): a survivor's steps at both epochs
         paths["phase14"] = elastic["loss"]["ranks"][0]["counts"]
+    # phase 15 (a), and (b) above one card: the fit's steps and its
+    # validation forward (rank 0's, up to its validation loss)
+    paths["phase15a"] = cluster["a"]["counts"]
+    if cluster["b"]["counts"] is not None:
+        paths["phase15b"] = cluster["b"]["counts"]
     for k in kernels:
         k["launches_by_path"] = {"phase5": k["launches"], **{
             path: c[k["name"]] for path, c in paths.items()}}
@@ -4938,7 +5453,7 @@ def main(argv=None):
                    "sequence": sequence, "model": model, "adasum": adasum,
                    "adasum_hierarchical": adasum_hier,
                    "launcher": launcher, "fault": fault,
-                   "elastic": elastic}, f, indent=1)
+                   "elastic": elastic, "cluster": cluster}, f, indent=1)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,0 +1,27 @@
+"""Cluster glue (port of ``horovod_tpu/cluster``; reference:
+``horovod/spark/`` §2.5): estimators that materialize a dataset to a
+Store, train one process a rank through a Backend, checkpoint to the
+store and hand back a model that serves.
+
+Exported as in the JAX package, except ``JaxEstimator``/``JaxModel``,
+whose counterpart is ``TorchEstimator``/``TorchModel`` (the JAX
+package's SPMD fit, one jitted ``shard_map`` over the mesh, has none: a
+torch process feeds its own card), and ``KerasEstimator``/
+``KerasModel``, which wait for the port's Keras binding.  Importing this
+package needs neither ``pyarrow`` (only a ``ParquetStore`` does) nor
+``pyspark``."""
+
+from horovod_tpu_torch.cluster.store import LocalStore, Store  # noqa: F401
+from horovod_tpu_torch.cluster.parquet_store import (  # noqa: F401
+    FilesystemStore,
+    ParquetStore,
+)
+from horovod_tpu_torch.cluster.backend import (  # noqa: F401
+    Backend,
+    InProcessBackend,
+    ProcessBackend,
+)
+from horovod_tpu_torch.cluster.torch_estimator import (  # noqa: F401
+    TorchEstimator,
+    TorchModel,
+)

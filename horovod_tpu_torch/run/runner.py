@@ -387,11 +387,17 @@ def run_commandline(argv=None) -> int:
 
     rendezvous = RendezvousServer()
     port = rendezvous.start()
-    # no NIC discovery across hosts yet (the reference's
-    # driver_discovery, ROADMAP A.13b): the override, else the host
-    # name's address
-    addr = env_util.get_str(env_util.HVD_RENDEZVOUS_HOST_ADDR) \
-        or _routable_addr(slots)
+    addr = env_util.get_str(env_util.HVD_RENDEZVOUS_HOST_ADDR)
+    if addr is None:
+        # across hosts, the NIC every host reaches (run/driver_discovery);
+        # on one host, or when discovery fails, the host name's address
+        from horovod_tpu_torch.run.driver_discovery import maybe_discover
+        discovered = maybe_discover(slots, ssh_port=args.ssh_port)
+        if discovered is not None:
+            ifaces, addr = discovered
+            extra_env.setdefault(env_util.HVD_IFACE, sorted(ifaces)[0])
+        else:
+            addr = _routable_addr(slots)
     # Quote each token so arguments with spaces/quotes survive the shell
     # (reference: runner.py quotes the unknown args the same way).
     import shlex

@@ -1,10 +1,16 @@
-"""Input pipeline: batches over a rank's in-memory shard, and device
-prefetch (port of ``horovod_tpu/utils/data.py``'s ``BatchIterator`` and
-``prefetch_to_device``).
+"""Input pipeline: batches over a rank's in-memory shard, batches
+streamed from a rank's Parquet row groups, and device prefetch (port of
+``horovod_tpu/utils/data.py``).
 
 - :class:`BatchIterator` batches ``{name: array}`` dicts, tuples or one
   array, reshuffled every epoch with ``seed + epoch``: the same numpy
   generator calls as the JAX iterator, so the same batches.
+- :class:`ParquetShardIterator` streams this rank's row groups of a
+  ``cluster.ParquetStore`` dataset (``rg % shard_count == cur_shard``),
+  one group in memory at a time; :func:`lockstep_plan` and
+  :func:`lockstep_shard_batches` cap every rank at the smallest shard's
+  steps.  The same generator calls as the JAX package's, so the same
+  batches and the same shuffle.
 - :func:`prefetch_to_device` copies the next batches to the card while
   the training loop computes: a producer thread pins each batch in host
   memory and copies it on a CUDA stream of its own; the consumer's
@@ -12,12 +18,11 @@ prefetch (port of ``horovod_tpu/utils/data.py``'s ``BatchIterator`` and
   ``record_stream`` tells the caching allocator that the consumer's
   stream uses the memory.
 
-Not ported: the reference's ``sharding=`` and ``mesh=`` arguments (a
-``jax.sharding`` layout, or a global ``jax.Array`` built from every
-process's rows): a torch process feeds its own card, whose rows are
-already its shard.  ``ParquetShardIterator`` and the ``lockstep_*``
-helpers read the Spark store, which the port does not have yet
-(ROADMAP A.13).
+A column is a numpy array or a tensor (a ``torch.bfloat16`` column, which
+numpy cannot hold, comes out of the stores as a tensor).  Not ported: the
+reference's ``sharding=`` and ``mesh=`` arguments (a ``jax.sharding``
+layout, or a global ``jax.Array`` built from every process's rows): a
+torch process feeds its own card, whose rows are already its shard.
 """
 
 import queue
@@ -27,7 +32,9 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["BatchIterator", "prefetch_to_device"]
+__all__ = ["BatchIterator", "ParquetShardIterator", "prefetch_to_device",
+           "lockstep_plan", "lockstep_shard_batches", "min_shard_rows",
+           "require_sharded_store"]
 
 
 def _tree_rows(data):
@@ -102,6 +109,140 @@ class BatchIterator:
                 idx = order[lo:lo + self.batch_size]
                 yield _tree_map(lambda v: v[idx], self._data)
             epoch += 1
+
+
+def _concat(a, b):
+    if torch.is_tensor(a):
+        return torch.cat([a, b])
+    return np.concatenate([a, b])
+
+
+class ParquetShardIterator:
+    """Stream this rank's Parquet row groups into batches, one group in
+    memory at a time.
+
+    ``ParquetStore.read_shard``'s rows (the disjoint row groups ``rg %
+    shard_count == cur_shard``; reference: the Petastorm readers of
+    ``horovod/spark/keras/remote.py``) without the whole shard in memory:
+    the rows left when a group runs out carry into the next group's
+    batches, so batch boundaries do not show the group size.  ``shuffle``
+    permutes the rank's group order each epoch and the rows inside each
+    group (a window shuffle bounded by one row group, as Petastorm's
+    shuffling buffer is).
+    """
+
+    def __init__(self, store, cur_shard, shard_count, batch_size, *,
+                 split="train", idx=None, columns=None, shuffle=False,
+                 seed=0, drop_remainder=True, epochs=1):
+        if not 0 <= cur_shard < shard_count:
+            raise ValueError(
+                f"cur_shard {cur_shard} outside [0, {shard_count})")
+        if batch_size <= 0:
+            raise ValueError(f"batch_size must be > 0, got {batch_size}")
+        self._store = store
+        self._cur_shard = cur_shard
+        self._shard_count = shard_count
+        self._split = split
+        self._idx = idx
+        self._columns = columns
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_remainder = drop_remainder
+        self.epochs = epochs
+        pf = store._open(split, idx)
+        self._groups = [rg for rg in range(pf.metadata.num_row_groups)
+                        if rg % shard_count == cur_shard]
+        if not self._groups:
+            raise ValueError(
+                f"shard {cur_shard}/{shard_count} holds no row groups "
+                f"({pf.metadata.num_row_groups} total) — rewrite with "
+                f"smaller rows_per_row_group or fewer ranks")
+        rows = sum(pf.metadata.row_group(rg).num_rows
+                   for rg in self._groups)
+        if drop_remainder and rows < batch_size:
+            # BatchIterator's check: an epoch that yields nothing fails
+            # here, not as a run of zero training steps
+            raise ValueError(
+                f"shard {cur_shard}/{shard_count} rows ({rows}) < "
+                f"batch_size ({batch_size}) with drop_remainder — "
+                f"every epoch would be empty")
+
+    def _read_group(self, pf, rg, schema_meta):
+        table = pf.read_row_groups([rg], columns=self._columns)
+        return self._store._to_numpy(table, schema_meta, table.num_rows)
+
+    def __iter__(self):
+        epoch = 0
+        while self.epochs is None or epoch < self.epochs:
+            rng = (np.random.default_rng(self.seed + epoch)
+                   if self.shuffle else None)
+            groups = list(self._groups)
+            if rng is not None:
+                rng.shuffle(groups)
+            pf = self._store._open(self._split, self._idx)
+            schema_meta = pf.schema_arrow.metadata
+            pending = None  # the rows left over, fewer than a batch
+            for rg in groups:
+                chunk = self._read_group(pf, rg, schema_meta)
+                if rng is not None:
+                    order = rng.permutation(_tree_rows(chunk))
+                    chunk = _tree_map(lambda v: v[order], chunk)
+                if pending is not None:
+                    chunk = {k: _concat(pending[k], v)
+                             for k, v in chunk.items()}
+                rows = _tree_rows(chunk)
+                stop = rows - rows % self.batch_size
+                for lo in range(0, stop, self.batch_size):
+                    yield _tree_map(
+                        lambda v: v[lo:lo + self.batch_size], chunk)
+                pending = (_tree_map(lambda v: v[stop:rows], chunk)
+                           if stop < rows else None)
+            if pending is not None and not self.drop_remainder:
+                yield pending
+            epoch += 1
+
+
+def require_sharded_store(store):
+    """Fail before any I/O when a store has no row groups to stream."""
+    if not hasattr(store, "shard_row_counts"):
+        raise ValueError(
+            "streaming=True needs a sharded-dataset store "
+            "(ParquetStore/FilesystemStore); this store has no "
+            "row-group layout to stream")
+
+
+def min_shard_rows(store, num_ranks):
+    """The smallest shard's row count (from the footer alone), with
+    ``read_shard``'s error for an empty shard."""
+    counts = store.shard_row_counts(num_ranks)
+    if min(counts) == 0:
+        raise ValueError(
+            f"shard {counts.index(0)} of {num_ranks} would be empty — "
+            f"rewrite with smaller rows_per_row_group or fewer ranks")
+    return min(counts)
+
+
+def lockstep_plan(store, num_ranks, batch_size, epochs):
+    """-> (batch_size clamped to the smallest shard, steps an epoch,
+    steps in all), the same on every rank: a rank that runs more
+    collective rounds than its peers hangs the job.  The streamed
+    counterpart of ``read_shard``'s trim to equal shards."""
+    rows = min_shard_rows(store, num_ranks)
+    batch_size = min(batch_size, rows)
+    steps_per_epoch = max(rows // batch_size, 1)
+    return batch_size, steps_per_epoch, epochs * steps_per_epoch
+
+
+def lockstep_shard_batches(store, rank, num_ranks, batch_size, epochs):
+    """One rank's streamed batches, capped by :func:`lockstep_plan`."""
+    import itertools
+
+    batch_size, _, steps = lockstep_plan(store, num_ranks, batch_size,
+                                         epochs)
+    return itertools.islice(
+        iter(ParquetShardIterator(store, rank, num_ranks, batch_size,
+                                  epochs=None)), steps)
 
 
 def _default_device(device):

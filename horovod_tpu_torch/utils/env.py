@@ -129,6 +129,11 @@ HVD_START_TIMEOUT = "HVD_START_TIMEOUT"  # gang-start deadline, s (default 120)
 HVD_RENDEZVOUS_HOST_ADDR = "HVD_RENDEZVOUS_HOST_ADDR"
 # the launcher's SIGTERM -> SIGKILL escalation window, s (default 5)
 HVD_TPU_TERM_GRACE = "HVD_TPU_TERM_GRACE"
+# the NIC-discovery task server (run/service/task_main.py; the job key
+# rides its stdin, never its environment or command line)
+HVD_TASK_INDEX = "HVD_TASK_INDEX"
+HVD_DRIVER_ADDRS = "HVD_DRIVER_ADDRS"          # "ip:port;ip:port"
+HVD_TASK_TIMEOUT = "HVD_TASK_TIMEOUT"          # seconds, default 120
 # folded into run/host_hash.py's identity (containers sharing a hostname)
 HVD_HOSTNAME_HASH_SALT = "HVD_HOSTNAME_HASH_SALT"  # hvd-lint: ignore[config-surface]
 
@@ -138,7 +143,8 @@ LAUNCHER_CONTRACT = frozenset({
     HVD_RANK, HVD_SIZE, HVD_LOCAL_RANK, HVD_LOCAL_SIZE,
     HVD_CROSS_RANK, HVD_CROSS_SIZE, HVD_SECRET_KEY,
     HVD_RENDEZVOUS_ADDR, HVD_RENDEZVOUS_PORT, HVD_HOST_SLOTS,
-    HVD_RENDEZVOUS_HOST_ADDR, HVD_CONTROLLER,
+    HVD_RENDEZVOUS_HOST_ADDR, HVD_CONTROLLER, HVD_TASK_INDEX,
+    HVD_DRIVER_ADDRS, HVD_TASK_TIMEOUT,
 })
 
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024

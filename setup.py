@@ -86,6 +86,8 @@ setup(
         "horovod_tpu_torch.checkpoint",
         "horovod_tpu_torch.elastic",
         "horovod_tpu_torch.utils",
+        "horovod_tpu_torch.cluster",
+        "horovod_tpu_torch.spark",
     ],
     package_data={"horovod_tpu": ["lib/libhvdcore.so"],
                   "horovod_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},

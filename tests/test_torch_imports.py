@@ -75,10 +75,44 @@ def test_import_leaves_jax_and_horovod_tpu_out():
         "horovod_tpu_torch.run.host_hash, horovod_tpu_torch.run.ssh_check, "
         "horovod_tpu_torch.run.mpi_run, horovod_tpu_torch.run.js_run, "
         "horovod_tpu_torch.run.lsf, horovod_tpu_torch.run.service.secret, "
-        "horovod_tpu_torch.run.service.network\n"
+        "horovod_tpu_torch.run.service.network, "
+        "horovod_tpu_torch.run.service.driver_service, "
+        "horovod_tpu_torch.run.service.task_service, "
+        "horovod_tpu_torch.run.service.task_main, "
+        "horovod_tpu_torch.run.driver_discovery, "
+        "horovod_tpu_torch.cluster, horovod_tpu_torch.cluster.store, "
+        "horovod_tpu_torch.cluster.parquet_store, "
+        "horovod_tpu_torch.cluster.backend, "
+        "horovod_tpu_torch.cluster.torch_estimator, "
+        "horovod_tpu_torch.spark, horovod_tpu_torch.spark.runner, "
+        "horovod_tpu_torch.spark.backend, horovod_tpu_torch.spark.torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_clean_env(),
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and "clean" in out.stdout, out.stderr
+
+
+def test_the_cluster_layer_needs_neither_pyarrow_nor_pyspark():
+    """``import horovod_tpu_torch.cluster`` and ``.spark`` succeed where
+    neither package can be imported (the card's machine has neither);
+    ``ParquetStore`` and ``spark.run`` then raise their ImportErrors."""
+    code = (
+        "import sys\n"
+        "sys.modules['pyarrow'] = None\n"
+        "sys.modules['pyspark'] = None\n"
+        "import horovod_tpu_torch.cluster as cluster\n"
+        "import horovod_tpu_torch.spark as spark\n"
+        "for call, what in ((lambda: cluster.ParquetStore('x'), 'pyarrow'),"
+        " (lambda: spark.run(print), 'PySpark')):\n"
+        "    try:\n"
+        "        call()\n"
+        "        raise SystemExit('no ImportError')\n"
+        "    except ImportError as exc:\n"
+        "        assert what in str(exc), exc\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], env=_clean_env(),
                          cwd=REPO, capture_output=True, text=True,
