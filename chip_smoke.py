@@ -196,9 +196,33 @@ Phases, each of which must pass:
    local ranks 0..n-1, one card each, an exact allreduce; (d) NIC
    discovery with two task servers started as processes here: the
    interfaces and the seconds.  At one card (b) and (c) run two gloo
-   ranks on the CPU at a small shape, which the phase says.
+   ranks on the CPU at a small shape, which the phase says;
+16. the timeline, the hierarchical collectives and autotune: (a) phase
+   5's LM at ``min(cards, 4)`` ranks through ``python -m
+   horovod_tpu_torch.run --timeline-filename chiprun_out/p16/trace/
+   timeline.json --timeline-mark-cycles``, twice from one seed under
+   ``DistributedOptimizer(AdamW)``, a step with the timeline and a step
+   without in turns: the losses and parameters bitwise equal, and
+   bitwise the same on every rank; rank 0's merged trace parses, holds
+   every rank's rows, and every bucket has one balanced ``ALLREDUCE``
+   span a step on every rank; prints both steps and, a rank, the bucket
+   spans' time in a step and how much of it lies before the card ended
+   the backward (ROADMAP B.9); (b) the plane's ``grouped_allreduce`` of
+   fp32 gradients of phase 5's shapes, an int32 allreduce and an
+   allgather of uneven first dimensions under
+   ``HVD_HIERARCHICAL_ALLREDUCE=1 HVD_HIERARCHICAL_ALLGATHER=1
+   HVD_HIER_LOCAL_SIZE=2`` at four ranks, hierarchical and flat in
+   turns: floats within rtol 1e-4 of flat, integers and the gather
+   exact, every rank the same bytes; (c) ``HVD_AUTOTUNE=1`` (warm-up 1,
+   steady 1, 4 samples a categorical, ``HVD_HIER_LOCAL_SIZE=2``) on
+   phase 5's LM at four ranks whose gradients go through the plane: every
+   rank applied the same tuned sets at the same cycles and holds the
+   same final values, the walk pinned, rank 0's CSV has a row a sample;
+   prints the pinned values and the step and negotiation before and
+   after pinning.  At fewer than four cards (b) and (c) run four gloo
+   ranks on the CPU at phase 15's small width, which the phase says.
 
-Phases 6 and 8-11 (12-14 through its CLI) start their ranks above one
+Phases 6 and 8-11 (12-14 and 16 through its CLI) start their ranks above one
 card through the port's
 launcher (``run/launch.py::launch_job``, a rendezvous KV server and a
 job key of their own; rank logs under ``chiprun_out/ranks/<phase>``);
@@ -212,8 +236,9 @@ phase 5's run, and ``launches_by_path``: phase 5's, phase 10's tp, MoE
 and pipeline runs', phase 11's ``op=Adasum`` run's, phase 12's
 launched run's and, above one card, phase 13 (a)'s before and at its
 crash and phase 14 (a)'s over both epochs, phase 15 (a)'s fit and,
-above one card, (b)'s rank 0 up to its validation loss, each of which
-must be above 0), the
+above one card, (b)'s rank 0 up to its validation loss, phase 16 (a)'s
+rank 0 and, at four cards, (c)'s rank 0, each of which must be above
+0), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that last line.  ``--profile`` adds one profiled step of phase 5, one of
@@ -5134,6 +5159,555 @@ def cluster_phase(smi, phase5_ms, phase6_ms):
     return out
 
 
+# phase 16: the timeline (a), the hierarchical allreduce and allgather
+# (b) and autotune (c).  (a): timed steps of each model after one warm
+# step each, in turns; (b): rounds of the hierarchical and the flat
+# collective in turns; (c): steps of the LM whose gradients go through
+# the plane (enough for the walk below to pin), then steps after it
+TL_PAIRS = 6
+HIER_ROUNDS = 5
+TUNE_WARMUP, TUNE_STEADY, TUNE_MAX = 1, 1, 4
+TUNE_STEPS, TUNE_AFTER = 90, 10
+# (b)'s allgather: rank r's rows of 4096 fp32 (uneven first dims)
+HIER_GATHER_ROWS, HIER_GATHER_COLS = 2048, 4096
+
+
+def _p16_device():
+    """``P16_DEVICE`` (``cpu`` for the gloo rehearsal at one card), else
+    the card."""
+    return os.environ.get("P16_DEVICE") or None
+
+
+def _p16_sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def _timeline_off():
+    """Steps inside run as with ``HVD_TIMELINE`` unset: the buckets see
+    no timeline (``basics.timeline()`` is None)."""
+    import dataclasses
+
+    from horovod_tpu_torch.common import basics
+
+    state = basics._state
+    basics._state = dataclasses.replace(state, timeline=None)
+    try:
+        yield
+    finally:
+        basics._state = state
+
+
+class _BackwardEnd:
+    """A ``backward.end`` span a step on the timeline: from the host's
+    return from ``loss.backward()`` to the moment the card reaches it
+    (every gradient computed), stamped by a thread of its own so that no
+    bucket's completion delays the stamp."""
+
+    def __init__(self, tl):
+        import queue
+        import threading
+
+        self.tl = tl
+        self.q = queue.Queue()
+        # lifecycle: close() puts the None sentinel and joins it
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def mark(self, dev):
+        import torch
+
+        event = None
+        if dev.type == "cuda":
+            event = torch.cuda.Event(blocking=True)
+            event.record()
+        self.q.put((self.tl.now(), event))
+
+    def _run(self):
+        while True:
+            item = self.q.get()  # wakeable: close()'s None sentinel
+            if item is None:
+                return
+            begin, event = item
+            if event is not None:
+                event.synchronize()
+            self.tl.begin("backward.end", "BACKWARD", ts=begin)
+            self.tl.end("backward.end", ts=self.tl.now())
+
+    def close(self):
+        self.q.put(None)
+        self.thread.join(timeout=30)
+
+
+def timeline_train(layers):
+    """Phase 16 (a) on one rank that ``python -m horovod_tpu_torch.run
+    --timeline-filename ... --timeline-mark-cycles`` started: phase 5's
+    LM twice from the same seed under ``DistributedOptimizer(AdamW)``,
+    each rank its own batch, the one with the timeline and the other
+    without (``_timeline_off``), a step each in turns.  The losses and
+    parameters of the two must be bitwise equal, and bitwise the same on
+    every rank.  -> the step times, the launches, the bucket count."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.models import Transformer, lm_loss
+    from horovod_tpu_torch.ops import cuda as kernels
+
+    cpu = _p16_device() == "cpu"
+    hvd.init(device=_p16_device())
+    try:
+        r, n, dev = hvd.rank(), hvd.size(), hvd.device()
+        tl = basics.timeline()
+        if tl is None or not tl.enabled:
+            raise AssertionError("HVD_TIMELINE did not turn the timeline on")
+        cfg = _cl_config(cpu, layers)
+        models, opts = {}, {}
+        for k in ("on", "off"):
+            models[k] = Transformer(cfg, seed=0,
+                                    device="cpu" if cpu else None)
+            opts[k] = hvd.DistributedOptimizer(
+                torch.optim.AdamW(models[k].parameters(), lr=1e-4,
+                                  weight_decay=1e-4),
+                named_parameters=models[k].named_parameters())
+            hvd.broadcast_parameters(models[k].state_dict(), root_rank=0)
+        batch, seq = ((2, cfg.max_len) if cpu else (MAIN_BATCH, MAIN_SEQ))
+        tokens = torch.from_numpy(np.random.RandomState(r).randint(
+            0, cfg.vocab_size, (batch, seq))).to(dev)
+        # the plane's spans and cycle marks, before and after the steps
+        ones = torch.ones(1 << 20, device=dev)
+        hvd.allreduce(ones, op=hvd.Sum, name="p16.plane")
+        marker = _BackwardEnd(tl)
+        losses = {"on": [], "off": []}
+        times = {"on": [], "off": []}
+        kernels.reset_launch_counts()
+        for i in range(1 + TL_PAIRS):
+            for k in ("on", "off"):
+                with contextlib.ExitStack() as stack:
+                    if k == "off":
+                        stack.enter_context(_timeline_off())
+                    _p16_sync(dev)
+                    t0 = time.perf_counter()
+                    opts[k].zero_grad(set_to_none=True)
+                    loss = lm_loss(models[k](tokens), tokens)
+                    loss.backward()
+                    if k == "on":
+                        marker.mark(dev)
+                    opts[k].step()
+                    _p16_sync(dev)
+                    dt = time.perf_counter() - t0
+                losses[k].append(loss.item())
+                if i:
+                    times[k].append(dt)
+        counts = kernels.launch_counts()
+        marker.close()
+        if hvd.allreduce(ones, op=hvd.Sum, name="p16.plane")[0].item() != n:
+            raise AssertionError("the plane's allreduce is wrong")
+        if losses["on"] != losses["off"]:
+            raise AssertionError(f"rank {r}: the losses differ with and "
+                                 f"without the timeline: {losses}")
+        if not torch.equal(_flat_params(models["on"]),
+                           _flat_params(models["off"])):
+            raise AssertionError(f"rank {r}: the parameters differ with "
+                                 f"and without the timeline")
+        _same_on_every_rank("phase 16 (a) parameters",
+                            _flat_params(models["on"]))
+        if not all(np.isfinite(losses["on"])) \
+                or not losses["on"][-1] < losses["on"][0]:
+            raise AssertionError(f"rank {r}: loss not finite or not "
+                                 f"falling: {losses['on']}")
+        buckets = len(opts["on"]._buckets)
+    finally:
+        hvd.shutdown()
+    if not cpu:
+        expect_launches(f"phase 16 (a) rank {r}", counts,
+                        per_step_launches(layers), 2 * (1 + TL_PAIRS))
+    return {"rank": r, "world": n, "losses": losses["on"],
+            "step_s": times, "counts": counts, "buckets": buckets,
+            "steps": 1 + TL_PAIRS}
+
+
+def _spans(events, row):
+    """The ``(B ts, E ts, E args, name)`` spans of the merged trace's
+    ``row``, in the order written; each ``B`` must be closed by the next
+    record of the row, an ``E`` no earlier than it."""
+    pids = [e["pid"] for e in events if e.get("name") == "process_name"
+            and e["args"]["name"] == row]
+    if len(pids) != 1:
+        raise AssertionError(f"phase 16 (a): {len(pids)} rows {row!r} in "
+                             f"the merged trace")
+    # in the order written: a span's B and E are written together, and
+    # a completion stamped late still follows its B
+    recs = [e for e in events if e.get("pid") == pids[0]
+            and e.get("ph") in ("B", "E")]
+    spans = []
+    for b, e in zip(recs[::2], recs[1::2]):
+        if (b["ph"], e["ph"]) != ("B", "E") or e["ts"] < b["ts"]:
+            raise AssertionError(f"phase 16 (a): row {row!r} is not a "
+                                 f"sequence of balanced spans: {b} {e}")
+        spans.append((b["ts"], e["ts"], e.get("args", {}), b["name"]))
+    if len(recs) % 2:
+        raise AssertionError(f"phase 16 (a): row {row!r} has an open span")
+    return spans
+
+
+def _check_trace(path, world, buckets, steps):
+    """The merged trace of (a): it parses, every rank's rows are in it
+    (the cycle marks, the plane's two allreduces with their negotiation),
+    and every bucket has ``steps`` balanced ``ALLREDUCE`` spans on every
+    rank.  -> a step's bucket span time and how much of it lies before
+    the card reached the end of the backward (ROADMAP B.9), a rank."""
+    with open(path) as f:
+        events = json.load(f)
+    rows = {e["args"]["name"] for e in events
+            if e.get("name") == "process_name"}
+    out = []
+    for r in range(world):
+        if f"rank {r}: CYCLE" not in rows:
+            raise AssertionError(f"phase 16 (a): no CYCLE row of rank {r}")
+        plane = [x[3] for x in _spans(events, f"rank {r}: p16.plane")]
+        if sorted(plane) != ["ALLREDUCE"] * 2 + ["NEGOTIATE_ALLREDUCE"] * 2:
+            raise AssertionError(f"phase 16 (a): rank {r}'s plane spans "
+                                 f"{plane}")
+        ends = [x[1] for x in _spans(events, f"rank {r}: backward.end")]
+        per_bucket = []
+        for b in range(buckets):
+            spans = _spans(events, f"rank {r}: DistributedOptimizer."
+                                   f"bucket.{b}")
+            if len(spans) != steps or not all(x[2].get("bytes")
+                                              for x in spans):
+                raise AssertionError(f"phase 16 (a): rank {r} bucket {b}: "
+                                     f"{len(spans)} spans of {steps}")
+            per_bucket.append(spans)
+        if len(ends) != steps:
+            raise AssertionError(f"phase 16 (a): rank {r}: {len(ends)} "
+                                 f"backward marks of {steps}")
+        total, hidden, before = [], [], []
+        for s in range(1, steps):     # the first step warms up
+            spans = [pb[s] for pb in per_bucket]
+            total.append(sum(e - b for b, e, *_ in spans) / 1e3)
+            hidden.append(sum(max(0, min(e, ends[s]) - b)
+                              for b, e, *_ in spans) / 1e3)
+            before.append(sum(e <= ends[s] for _, e, *_ in spans))
+        out.append({"bucket_span_ms": statistics.median(total),
+                    "before_backward_end_ms": statistics.median(hidden),
+                    "buckets_done_before": statistics.median(before)})
+    return out
+
+
+def _p16_job(name, world, phase, layers=LAYERS, extra=(), env=None):
+    """One phase 16 job through ``python -m horovod_tpu_torch.run`` (rank
+    logs in ``chiprun_out/p16/<name>/``) with ``env`` added; -> each
+    rank's ``RANK_RESULT``."""
+    logs = os.path.join(_out_dir(), "p16", name)
+    old = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        code, _ = _launcher_cli(world, logs, phase, layers, extra,
+                                timeout=600)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return _rank_results(f"phase 16 {name}", logs, world, code)
+
+
+def hier_rank(layers):
+    """Phase 16 (b) on one rank, ``HVD_HIERARCHICAL_ALLREDUCE=1
+    HVD_HIERARCHICAL_ALLGATHER=1 HVD_HIER_LOCAL_SIZE=2``: the plane's
+    ``grouped_allreduce`` of fp32 gradients of phase 5's shapes (each
+    rank its own), an int32 allreduce and an allgather of uneven first
+    dimensions, hierarchical and flat in turns (every rank switches the
+    executor before its next submission).  Floats within the test's
+    tolerance of the flat result, integers exact, every rank the same
+    bytes.  -> the times."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+
+    cpu = _p16_device() == "cpu"
+    hvd.init(device=_p16_device())
+    try:
+        r, n, dev = hvd.rank(), hvd.size(), hvd.device()
+        ex = basics._get_state().controller._executor
+        if ex.hier is None or ex.hier[2] != HIER_LOCAL \
+                or not ex.hierarchical_allreduce:
+            raise AssertionError(f"no {HIER_LOCAL}-rank hierarchy: "
+                                 f"{ex.hier}")
+        from horovod_tpu_torch.models import Transformer
+        shapes = [p.shape for p in Transformer(
+            _cl_config(cpu, layers), seed=0,
+            device="cpu" if cpu else None).parameters()]
+        gen = torch.Generator(device=dev).manual_seed(100 + r)
+        grads = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+        ints = torch.randint(-1000, 1000, (1 << (12 if cpu else 22),),
+                             generator=gen, device=dev, dtype=torch.int32)
+        rows = (HIER_GATHER_ROWS // 64 if cpu else HIER_GATHER_ROWS)
+        gath = torch.randn(rows * (r + 1), HIER_GATHER_COLS // (
+            64 if cpu else 1), generator=gen, device=dev)
+        total = sum(g.numel() for g in grads)
+        out, times = {}, {"allreduce": {}, "allgather": {}}
+        for i in range(1 + HIER_ROUNDS):
+            for mode in ("hier", "flat"):
+                ex.hierarchical_allreduce = ex.hierarchical_allgather = \
+                    mode == "hier"
+                _p16_sync(dev)
+                t0 = time.perf_counter()
+                red = hvd.grouped_allreduce(grads, op=hvd.Sum,
+                                            name=f"p16.grads.{mode}")
+                _p16_sync(dev)
+                t1 = time.perf_counter()
+                gathered = hvd.allgather(gath, name=f"p16.gather.{mode}")
+                _p16_sync(dev)
+                t2 = time.perf_counter()
+                if i:
+                    times["allreduce"].setdefault(mode, []).append(t1 - t0)
+                    times["allgather"].setdefault(mode, []).append(t2 - t1)
+                if i == 0:
+                    out[mode] = (torch.cat([x.reshape(-1) for x in red]),
+                                 hvd.allreduce(ints, op=hvd.Sum,
+                                               name=f"p16.ints.{mode}"),
+                                 gathered)
+                del red, gathered
+        (fh, ih, gh), (ff, if_, gf) = out["hier"], out["flat"]
+        err = max_err(fh, ff)
+        if not torch.allclose(fh, ff, rtol=1e-4, atol=1e-5):
+            raise AssertionError(f"rank {r}: the hierarchical allreduce is "
+                                 f"{err:.3e} from the flat one")
+        if not torch.equal(ih, if_) or not torch.equal(gh, gf):
+            raise AssertionError(f"rank {r}: integers or the allgather "
+                                 f"differ between hierarchical and flat")
+        if gh.shape[0] != rows * n * (n + 1) // 2:
+            raise AssertionError(f"allgather rows {gh.shape[0]}")
+        for what, t in (("allreduce", fh), ("ints", ih), ("gather", gh)):
+            _same_on_every_rank(f"phase 16 (b) hierarchical {what}", t)
+        wires = dict(ex.wires)
+    finally:
+        hvd.shutdown()
+    return {"rank": r, "world": n, "elements": total,
+            "gather_bytes": gh.numel() * 4, "max_abs_err": err,
+            "wires": wires, "ms": {
+                op: {m: 1e3 * statistics.median(v) for m, v in d.items()}
+                for op, d in times.items()}}
+
+
+def tune_train(layers):
+    """Phase 16 (c) on one rank, ``HVD_AUTOTUNE=1`` with small sample
+    counts and ``HVD_HIER_LOCAL_SIZE=2``: phase 5's LM whose gradients
+    go through the plane (``grouped_allreduce``, op Average, then
+    AdamW), ``TUNE_STEPS + TUNE_AFTER`` steps.  -> the tuner's
+    applications, the final values, the steps' times and the
+    negotiation of each step's cycles."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.models import Transformer, lm_loss
+    from horovod_tpu_torch.ops import cuda as kernels
+
+    cpu = _p16_device() == "cpu"
+    hvd.init(device=_p16_device())
+    try:
+        r, n, dev = hvd.rank(), hvd.size(), hvd.device()
+        controller = basics._get_state().controller
+        cfg = _cl_config(cpu, layers)
+        model = Transformer(cfg, seed=0, device="cpu" if cpu else None)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        params = list(model.parameters())
+        opt = torch.optim.AdamW(params, lr=1e-4, weight_decay=1e-4)
+        batch, seq = ((2, cfg.max_len) if cpu else (MAIN_BATCH, MAIN_SEQ))
+        tokens = torch.from_numpy(np.random.RandomState(r).randint(
+            0, cfg.vocab_size, (batch, seq))).to(dev)
+        losses, steps = [], []
+        kernels.reset_launch_counts()
+        for _ in range(TUNE_STEPS + TUNE_AFTER):
+            _p16_sync(dev)
+            c0 = controller.cycles
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = lm_loss(model(tokens), tokens)
+            loss.backward()
+            red = hvd.grouped_allreduce([p.grad for p in params],
+                                        op=hvd.Average, name="p16.tune")
+            for p, g in zip(params, red):
+                p.grad.copy_(g)
+            opt.step()
+            losses.append(loss.item())
+            _p16_sync(dev)
+            cycles = controller.cycles - c0
+            neg = list(controller._negotiation_s)[-cycles:] if cycles else []
+            steps.append({"s": time.perf_counter() - t0,
+                          "end_cycle": controller.cycles,
+                          "negotiation_ms": [1e3 * x for x in neg]})
+        counts = kernels.launch_counts()
+        apps = controller.tuned_applications()
+        final = controller.tuned_params()
+        _same_on_every_rank("phase 16 (c) parameters", _flat_params(model))
+    finally:
+        hvd.shutdown()
+    if not cpu:
+        expect_launches(f"phase 16 (c) rank {r}", counts,
+                        per_step_launches(layers), TUNE_STEPS + TUNE_AFTER)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"rank {r}: loss not finite or not falling")
+    return {"rank": r, "world": n, "applications": apps, "params": final,
+            "steps": steps, "counts": counts}
+
+
+def _tune_split(res):
+    """Rank ``res``'s steps before and after the cycle the pinned values
+    were applied at: the median step ms and negotiation ms of each."""
+    pin = res["applications"][-1][0]
+    split = {"before": [], "after": []}
+    for st in res["steps"][1:]:
+        split["before" if st["end_cycle"] <= pin else "after"].append(st)
+    return {k: {"steps": len(v),
+                "step_ms": (1e3 * statistics.median(x["s"] for x in v)
+                            if v else None),
+                "negotiation_ms": (statistics.median(
+                    y for x in v for y in x["negotiation_ms"])
+                    if any(x["negotiation_ms"] for x in v) else None)}
+            for k, v in split.items()}
+
+
+def _card_memory(where):
+    """Print this process's card memory (phase 16 (a)'s launched rank
+    shares the card with it at one card); above 8 GB allocated, the
+    largest live tensors and what holds them."""
+    import gc
+
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    alloc = torch.cuda.memory_allocated()
+    print(f"{where}: this process holds {alloc / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; the "
+          f"card has {free / 2**30:.2f} of {total / 2**30:.2f} GiB free",
+          flush=True)
+    if alloc < 8 * 2**30:
+        return
+    live = sorted((o for o in gc.get_objects() if torch.is_tensor(o)
+                   and o.is_cuda), key=lambda t: -t.numel()
+                  * t.element_size())[:10]
+    for t in live:
+        holders = {type(h).__name__ for h in gc.get_referrers(t)}
+        print(f"  {tuple(t.shape)} {t.dtype} held by {sorted(holders)}",
+              flush=True)
+
+
+def timeline_phase(smi, phase5_ms):
+    """Phase 16: (a) the timeline around phase 5's LM at ``min(cards,
+    4)`` ranks through the launcher's ``--timeline-filename`` and
+    ``--timeline-mark-cycles``, a step with it and a step without in
+    turns; the merged trace checked in this process.  (b) the
+    hierarchical allreduce and allgather (2 x 2) against flat in turns
+    and (c) autotune on the LM whose gradients go through the plane,
+    both at four ranks: on the cards above one card, else four gloo
+    ranks on the CPU at ``CL_CPU``'s width, which the phase says.  ->
+    the results, with the launches of (a) and (c)."""
+    import shutil
+
+    world = _world()
+    head = f"phase 16 ({world} rank{'s' if world > 1 else ''})"
+    res = {}
+    trace_dir = os.path.join(_out_dir(), "p16", "trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    os.makedirs(trace_dir)
+    trace = os.path.join(trace_dir, "timeline.json")
+    ranks = _p16_job("timeline", world, "timeline_train", LAYERS,
+                     ("--timeline-filename", trace,
+                      "--timeline-mark-cycles"))
+    b9 = _check_trace(trace, world, ranks[0]["buckets"], ranks[0]["steps"])
+    on = [1e3 * statistics.median(x["step_s"]["on"]) for x in ranks]
+    off = [1e3 * statistics.median(x["step_s"]["off"]) for x in ranks]
+    res["a"] = {"ranks": ranks, "b9": b9, "step_ms_on": on,
+                "step_ms_off": off,
+                "trace_bytes": os.path.getsize(trace)}
+    print(f"{head} (a): timeline on/off, DistributedOptimizer step ms "
+          f"(median of {ranks[0]['steps'] - 1}, in turns) a rank: on "
+          f"{[round(x, 3) for x in on]}, off {[round(x, 3) for x in off]} "
+          f"(phase 5: {phase5_ms:.3f}); losses and parameters bitwise "
+          f"equal; merged trace {res['a']['trace_bytes']} bytes, "
+          f"{ranks[0]['buckets']} buckets x {ranks[0]['steps']} balanced "
+          f"ALLREDUCE spans a rank; on {smi}", flush=True)
+    print(f"{head} (a): B.9, a step's bucket spans (host issue to card "
+          f"completion) ms a rank: "
+          f"{[round(x['bucket_span_ms'], 3) for x in b9]}, of it before "
+          f"the card ended the backward "
+          f"{[round(x['before_backward_end_ms'], 3) for x in b9]}, buckets "
+          f"done by then {[x['buckets_done_before'] for x in b9]} of "
+          f"{ranks[0]['buckets']}", flush=True)
+
+    cpu = world < 4
+    four = {"P16_DEVICE": "cpu"} if cpu else {}
+    where = "4 gloo ranks on the CPU at CL_CPU's width" if cpu else \
+        "four cards"
+    hier_env = dict(four, HVD_HIERARCHICAL_ALLREDUCE="1",
+                    HVD_HIERARCHICAL_ALLGATHER="1",
+                    HVD_HIER_LOCAL_SIZE=str(HIER_LOCAL))
+    hier = _p16_job("hier", 4, "hier_rank", LAYERS, env=hier_env)
+    res["b"] = hier
+    ms = hier[0]["ms"]
+    gb = hier[0]["elements"] * 4 / 1e9
+    print(f"{head} (b) on {where}: the plane's grouped_allreduce of "
+          f"{hier[0]['elements']} fp32 gradients, hierarchical (2 x 2) "
+          f"{ms['allreduce']['hier']:.3f} ms ({gb / ms['allreduce']['hier'] * 1e3:.1f} GB/s "
+          f"algorithmic) vs flat {ms['allreduce']['flat']:.3f} ms; "
+          f"allgather of {hier[0]['gather_bytes']} bytes a rank at most, "
+          f"hierarchical {ms['allgather']['hier']:.3f} ms vs flat "
+          f"{ms['allgather']['flat']:.3f} ms (median of {HIER_ROUNDS}, in "
+          f"turns); max abs err vs flat "
+          f"{max(x['max_abs_err'] for x in hier):.3e}, integers and the "
+          f"gather exact, every rank the same bytes; on {smi}", flush=True)
+
+    tune_env = dict(four, HVD_AUTOTUNE="1",
+                    HVD_AUTOTUNE_LOG=os.path.join(_out_dir(), "p16",
+                                                  "autotune.csv"),
+                    HVD_AUTOTUNE_WARMUP_SAMPLES=str(TUNE_WARMUP),
+                    HVD_AUTOTUNE_STEADY_STATE_SAMPLES=str(TUNE_STEADY),
+                    HVD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES=str(TUNE_MAX),
+                    HVD_HIER_LOCAL_SIZE=str(HIER_LOCAL))
+    tune = _p16_job("tune", 4, "tune_train", LAYERS, env=tune_env)
+    res["c"] = tune
+    first = tune[0]
+    for x in tune[1:]:
+        if x["applications"] != first["applications"] \
+                or x["params"] != first["params"]:
+            raise AssertionError(f"phase 16 (c): rank {x['rank']} applied "
+                                 f"other tuned values than rank 0")
+    if first["params"]["tuning"] or len(first["applications"]) < 2:
+        raise AssertionError(f"phase 16 (c): the walk did not pin: "
+                             f"{first['params']}")
+    with open(tune_env["HVD_AUTOTUNE_LOG"]) as f:
+        rows = f.read().strip().splitlines()
+    samples = 5 * TUNE_MAX    # five categoricals, no compressor
+    if len(rows) != 1 + samples:
+        raise AssertionError(f"phase 16 (c): {len(rows) - 1} CSV rows for "
+                             f"{samples} samples")
+    split = _tune_split(first)
+    res["c_split"] = split
+    print(f"{head} (c) on {where}: autotune walked {samples} samples in "
+          f"{len(first['applications'])} publications (the same cycles on "
+          f"every rank), pinned {first['params']}; rank 0's step ms "
+          f"before/after pinning {split['before']['step_ms']} / "
+          f"{split['after']['step_ms']} over {split['before']['steps']} / "
+          f"{split['after']['steps']} steps, negotiation median ms "
+          f"{split['before']['negotiation_ms']} / "
+          f"{split['after']['negotiation_ms']}; on {smi}", flush=True)
+    res["counts"] = {"phase16a": ranks[0]["counts"]}
+    if not cpu:
+        res["counts"]["phase16c"] = first["counts"]
+    return res
+
+
 RANK_PHASES = {"eager": eager_checks, "zero": zero_checks,
                "sequence": sequence_checks, "model": model_parallel_checks,
                "adasum": adasum_checks, "adasum_hier": adasum_hier_checks,
@@ -5141,11 +5715,14 @@ RANK_PHASES = {"eager": eager_checks, "zero": zero_checks,
                "launcher_fail": launcher_fail, "launcher_key": launcher_key,
                "fault_crash": fault_crash, "fault_stall": fault_stall,
                "fault_user": fault_user, "fault_cross": fault_cross,
-               "elastic_rank": elastic_rank}
+               "elastic_rank": elastic_rank,
+               "timeline_train": timeline_train, "hier_rank": hier_rank,
+               "tune_train": tune_train}
 # the ranks of these phases make their own hvd.init() and shutdown
 LAUNCHER_PHASES = ("launcher_train", "launcher_fail", "launcher_key",
                    "fault_crash", "fault_stall", "fault_user", "fault_cross",
-                   "elastic_rank")
+                   "elastic_rank", "timeline_train", "hier_rank",
+                   "tune_train")
 
 
 def _profile_step(model, opt, tokens):
@@ -5424,6 +6001,9 @@ def main(argv=None):
     elastic = timed(14, elastic_phase, smi, run["buckets"])
     cluster = timed(15, cluster_phase, smi, phase5_ms,
                     eager[0]["step_ms_plane_on"])
+    _release()
+    _card_memory("before phase 16")
+    p16 = timed(16, timeline_phase, smi, phase5_ms)
     paths = {"phase10_tp": model[0]["tp_dp2"]["counts"],
              "phase10_moe": model[0]["moe"]["counts"],
              "phase10_pp": model[0]["pipeline"]["counts"],
@@ -5440,6 +6020,8 @@ def main(argv=None):
     paths["phase15a"] = cluster["a"]["counts"]
     if cluster["b"]["counts"] is not None:
         paths["phase15b"] = cluster["b"]["counts"]
+    # phase 16 (a), and (c) above one card: rank 0's steps
+    paths.update(p16.pop("counts"))
     for k in kernels:
         k["launches_by_path"] = {"phase5": k["launches"], **{
             path: c[k["name"]] for path, c in paths.items()}}
@@ -5453,7 +6035,8 @@ def main(argv=None):
                    "sequence": sequence, "model": model, "adasum": adasum,
                    "adasum_hierarchical": adasum_hier,
                    "launcher": launcher, "fault": fault,
-                   "elastic": elastic, "cluster": cluster}, f, indent=1)
+                   "elastic": elastic, "cluster": cluster,
+                   "timeline_hier_autotune": p16}, f, indent=1)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

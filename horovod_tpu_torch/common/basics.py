@@ -100,6 +100,20 @@ rank) for the plane's executor.  A local size that gives no two-level
 hierarchy with a power-of-two cross size leaves Adasum flat, with a
 warning when it was set (reference: ``xla_executor.py:102-137``).
 
+``HVD_HIERARCHICAL_ALLREDUCE`` and ``HVD_HIERARCHICAL_ALLGATHER`` (or
+``HVD_AUTOTUNE``, whose walk tries both) make the same grid for the
+plane's two-level allreduce and allgather when ``1 < L < size`` and
+``size % L == 0``, with no condition on the cross size; another ``L``
+leaves them flat, with the JAX package's warning when it was set.  One
+grid serves Adasum and these when both are on.
+
+``HVD_TIMELINE`` opens this process's trace, ``<path>.rank<worker id>``
+(``.e<epoch>`` added after a reconfiguration), before the eager plane
+starts; ``shutdown`` merges every rank's into ``<path>`` through the
+launcher's KV (``utils/timeline.py::publish_and_merge``), and an
+elastic reconfiguration closes it (both of its threads joined) and opens
+the next epoch's.
+
 ``HVD_TPU_EXECUTOR`` (``psum``, the default, or ``mesh``) picks the
 plane's executor: ``mesh`` runs it over a mesh's ``dp`` axis
 (``sharding/mesh_executor.py``); any other value raises.
@@ -153,6 +167,7 @@ from horovod_tpu_torch.ops.controller import Controller
 from horovod_tpu_torch.ops.nccl_executor import Executor
 from horovod_tpu_torch.ops.tcp_controller import ControlPlane
 from horovod_tpu_torch.utils import env as env_util
+from horovod_tpu_torch.utils.timeline import Timeline, publish_and_merge
 
 _state = None
 _state_lock = threading.Lock()
@@ -195,6 +210,8 @@ class _State:
     # the runtime's own grids (the hierarchy, the sequence axis), made
     # afresh at each epoch
     grids: tuple = ()
+    # this epoch's trace (utils/timeline.py) under HVD_TIMELINE, or None
+    timeline: object = None
 
 
 def resolve_device(device=None):
@@ -270,21 +287,33 @@ def _form_world(state, start_timeout):
         _inits += 1
     plane = _start_control_plane(rank, size, config, state.key,
                                  state.epoch, state.members)
+    timeline = None
+    if config.timeline_path:
+        path = f"{config.timeline_path}.rank{state.worker_id}"
+        timeline = Timeline(
+            path if state.epoch == 0 else f"{path}.e{state.epoch}",
+            config.timeline_mark_cycles)
     controller = _start_eager_plane(rank, size, state.device, backend,
-                                    config, state.key, plane)
-    _state = dataclasses.replace(state, controller=controller, plane=plane)
+                                    config, state.key, plane, timeline)
+    _state = dataclasses.replace(state, controller=controller, plane=plane,
+                                 timeline=timeline)
     if state.epoch > 0:
         # the process groups before the runtime's own grids: a joiner
         # has none, and makes only the latter
         groups.reform(state.members)
     grids = []
-    local = _adasum_local_size(size, state.local_size, config)
+    adasum_local = _adasum_local_size(size, state.local_size, config)
+    hier_local = _hier_local_size(size, state.local_size, config)
+    local = adasum_local or hier_local
     if local is not None:
         hier = groups.grid(cross=size // local, local=local)
         grids.append(hier)
-        controller._executor.hierarchy = tuple(
-            groups.plane_group(hier.group(axis).gid)
-            for axis in ("local", "cross"))
+        pair = tuple(groups.plane_group(hier.group(axis).gid)
+                     for axis in ("local", "cross"))
+        if adasum_local is not None:
+            controller._executor.hierarchy = pair
+        if hier_local is not None:
+            controller._executor.hier = pair + (local,)
     seq = groups.grid(sp=size)
     grids.append(seq)
     _state = dataclasses.replace(_state, sequence_group=seq.group("sp"),
@@ -450,6 +479,36 @@ def _adasum_local_size(size, local_size, config):
     return None
 
 
+def _hier_local_size(size, local_size, config):
+    """The local size of the hierarchical allreduce and allgather, or None
+    for the flat path: none of ``HVD_HIERARCHICAL_ALLREDUCE``,
+    ``HVD_HIERARCHICAL_ALLGATHER`` and ``HVD_AUTOTUNE`` on, or a local
+    size ``L`` (explicit ``HVD_HIER_LOCAL_SIZE``, else the launcher's)
+    that is not ``1 < L < size`` with ``size % L == 0``; an explicit one
+    that fails warns in the JAX executor's words
+    (``xla_executor.py:120-138``)."""
+    if not (config.hierarchical_allreduce or config.hierarchical_allgather
+            or config.autotune):
+        return None
+    explicit = config.hier_local_size or None
+    local = explicit or local_size
+    log = logging.getLogger("horovod_tpu_torch")
+    if 1 < local < size:
+        if size % local == 0:
+            return local
+        if explicit is not None:
+            log.warning(
+                "ignoring HVD_HIER_LOCAL_SIZE=%s: %s — hierarchical "
+                "collectives will run the flat path", explicit,
+                f"{size} devices not divisible by local_size {explicit}")
+    elif explicit is not None:
+        log.warning(
+            "HVD_HIER_LOCAL_SIZE=%s does not define a two-level hierarchy "
+            "over %d ranks; hierarchical collectives will run the flat "
+            "path", explicit, size)
+    return None
+
+
 def _start_control_plane(rank, size, config, key, epoch=0, members=None):
     """The control plane (``ops/tcp_controller.py``); above one rank,
     rank 0's coordinator first, its address through the store (keys of
@@ -538,7 +597,8 @@ def wait_work(work):
     work.wait()
 
 
-def _start_eager_plane(rank, size, device, backend, config, key, plane):
+def _start_eager_plane(rank, size, device, backend, config, key, plane,
+                       timeline=None):
     data = dist.new_group(backend=backend)
     if config.executor == "mesh":
         from horovod_tpu_torch.sharding.mesh_executor import MeshExecutor
@@ -546,7 +606,7 @@ def _start_eager_plane(rank, size, device, backend, config, key, plane):
     else:
         cls = Executor
     controller = Controller(rank, size, plane, cls(data, rank, size, device),
-                            key, config)
+                            key, config, timeline)
     plane.add_listener(controller.abort)
     controller.start()
     return controller
@@ -558,12 +618,34 @@ def shutdown():
         if _state is None:
             return
         _state.controller.shutdown()
+        _finish_timeline(_state)
         _state.plane.shutdown()
         groups.reset()
         with _comm_lock:
             if dist.is_initialized():
                 dist.destroy_process_group()
         _state = None
+
+
+def _finish_timeline(state):
+    """At shutdown: merge every rank's trace into ``HVD_TIMELINE``'s path
+    (after an abort, only close this rank's)."""
+    timeline = state.timeline
+    if timeline is None:
+        return
+    if state.plane.abort_state() is not None:
+        timeline.close()
+        return
+    publish_and_merge(
+        state.rank, state.size, state.config.timeline_path, timeline,
+        scope="timeline" if state.epoch == 0 else f"timeline.e{state.epoch}")
+
+
+def timeline():
+    """This process's ``utils/timeline.py::Timeline`` under
+    ``HVD_TIMELINE``, else None (also before ``init``)."""
+    state = _state
+    return None if state is None else state.timeline
 
 
 def worker_id():
@@ -592,6 +674,8 @@ def _leave_epoch(state):
     if state.device.type == "cuda":
         torch.cuda.synchronize(state.device)
     state.controller.shutdown(timeout=budget)
+    if state.timeline is not None:
+        state.timeline.close()
     state.plane.close_for_reconfig()
     _abort_communicators(None, None)
 
@@ -624,7 +708,7 @@ def _elastic_reinit(epoch, members):
             dataclasses.replace(
                 state, rank=new_rank, size=new_size, local_rank=new_rank,
                 local_size=new_size, controller=None, plane=None,
-                sequence_group=None, grids=(), epoch=epoch,
+                sequence_group=None, grids=(), timeline=None, epoch=epoch,
                 members=tuple(members)),
             state.config.reconfig_timeout_seconds)
         logging.getLogger("horovod_tpu_torch").warning(

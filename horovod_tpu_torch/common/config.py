@@ -2,9 +2,10 @@
 (port of ``horovod_tpu/common/config.py``; reference: knob parsing in
 ``horovod/common/operations.cc:404-500``).
 
-Only the fields of the knobs the port reads at ``init`` are here: the
+The fields are those of the knobs the port reads at ``init``: the
 eager plane's fusion threshold, cycle time, cache capacity, stall
-warning and stall shutdown, the control plane's abort, heartbeat and
+warning and stall shutdown, the timeline, autotune and the hierarchical
+allreduce and allgather, the control plane's abort, heartbeat and
 liveness windows and the fault spec, the degraded-network windows
 (RTT smoothing, the straggler verdict), elastic membership with the
 coordinator's fail-over and the drain, the job's default compression,
@@ -13,8 +14,11 @@ Adasum with its local size, and the gang-start deadline of the
 rendezvous.  Field names, defaults and validation texts are the
 reference's; ``hier_local_size`` and ``start_timeout_seconds`` have no
 reference field (the reference reads those two variables where it uses
-them).  The reference's other fields join with the module that reads
-them (ROADMAP A.13e-A.14).
+them).  Not ported, by decision (ROADMAP A.13e, A.13f): ``controller``
+(the port has one eager plane), ``ring_segment_bytes``,
+``ring_stripes`` and ``schedule`` (the JAX package's TCP data plane;
+NCCL carries every byte here), ``reconnect_budget_seconds`` and
+``replay_buffer_bytes`` (the session layer, queued as A.13f).
 """
 
 import dataclasses
@@ -27,9 +31,19 @@ class Config:
     fusion_threshold_bytes: int = env_util.DEFAULT_FUSION_THRESHOLD
     cycle_time_ms: float = env_util.DEFAULT_CYCLE_TIME_MS
     cache_capacity: int = env_util.DEFAULT_CACHE_CAPACITY
+    timeline_path: str | None = None
+    timeline_mark_cycles: bool = False
     stall_check_disable: bool = False
     stall_warning_seconds: float = env_util.DEFAULT_STALL_WARNING_SECONDS
     stall_shutdown_seconds: float = 0.0
+    autotune: bool = False
+    autotune_log: str | None = None
+    autotune_warmup_samples: int = 3
+    autotune_steady_state_samples: int = 10
+    autotune_bayes_opt_max_samples: int = 20
+    autotune_gaussian_process_noise: float = 0.8
+    hierarchical_allreduce: bool = False
+    hierarchical_allgather: bool = False
     # Opt-in: hierarchical Adasum changes the result (Adasum of the
     # local groups' averages), it is not a schedule-only switch.
     adasum_hierarchical: bool = False
@@ -89,6 +103,9 @@ class Config:
                 env_util.HVD_CYCLE_TIME, env_util.DEFAULT_CYCLE_TIME_MS),
             cache_capacity=env_util.get_int(
                 env_util.HVD_CACHE_CAPACITY, env_util.DEFAULT_CACHE_CAPACITY),
+            timeline_path=env_util.get_str(env_util.HVD_TIMELINE),
+            timeline_mark_cycles=env_util.get_bool(
+                env_util.HVD_TIMELINE_MARK_CYCLES),
             stall_check_disable=env_util.get_bool(
                 env_util.HVD_STALL_CHECK_DISABLE),
             stall_warning_seconds=env_util.get_float(
@@ -96,6 +113,20 @@ class Config:
                 env_util.DEFAULT_STALL_WARNING_SECONDS),
             stall_shutdown_seconds=env_util.get_float(
                 env_util.HVD_STALL_SHUTDOWN_TIME_SECONDS, 0.0),
+            autotune=env_util.get_bool(env_util.HVD_AUTOTUNE),
+            autotune_log=env_util.get_str(env_util.HVD_AUTOTUNE_LOG),
+            autotune_warmup_samples=env_util.get_int(
+                env_util.HVD_AUTOTUNE_WARMUP_SAMPLES, 3),
+            autotune_steady_state_samples=env_util.get_int(
+                env_util.HVD_AUTOTUNE_STEADY_STATE_SAMPLES, 10),
+            autotune_bayes_opt_max_samples=env_util.get_int(
+                env_util.HVD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES, 20),
+            autotune_gaussian_process_noise=env_util.get_float(
+                env_util.HVD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE, 0.8),
+            hierarchical_allreduce=env_util.get_bool(
+                env_util.HVD_HIERARCHICAL_ALLREDUCE),
+            hierarchical_allgather=env_util.get_bool(
+                env_util.HVD_HIERARCHICAL_ALLGATHER),
             adasum_hierarchical=env_util.get_bool(
                 env_util.HVD_ADASUM_HIERARCHICAL),
             hier_local_size=env_util.get_int(

@@ -29,12 +29,15 @@ class SignatureCache:
         self._next_id = 0
         self._capacity = capacity
         self.hits = 0
+        # off (the autotuner's candidate): no ids are sent and every
+        # name validates; every rank flips it at the same cycle
+        self.enabled = True
 
     def id_of(self, name, sig):
         """The id to send for this rank's request, or None when the
         cache holds another signature, or none, for the name.  Read only:
         the LRU order changes on every rank alike, in :meth:`check`."""
-        cached = self._entries.get(name)
+        cached = self._entries.get(name) if self.enabled else None
         return cached[0] if cached is not None and cached[1] == sig else None
 
     def entry(self, cache_id):
@@ -46,7 +49,7 @@ class SignatureCache:
         """True iff every rank's signature agrees and matches the cached
         one.  ``sigs`` is an iterable of per-rank signatures."""
         sigs = set(sigs)
-        if len(sigs) != 1:
+        if len(sigs) != 1 or not self.enabled:
             return False
         cached = self._entries.get(name)
         if cached is not None and cached[1] == next(iter(sigs)):
@@ -60,7 +63,7 @@ class SignatureCache:
         all ranks agreed (a mixed set means per-rank shapes legitimately
         differ, e.g. variable-dim0 allgather)."""
         sigs = set(sigs)
-        if len(sigs) != 1:
+        if len(sigs) != 1 or not self.enabled:
             return
         old = self._entries.pop(name, None)
         if old is not None:

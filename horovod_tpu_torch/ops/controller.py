@@ -81,6 +81,30 @@ sites: each request's type at submit (``ops/eager.py``), and ``ring``
 just before :meth:`Executor.run <horovod_tpu_torch.ops.nccl_executor.
 Executor.run>` issues a negotiated collective.
 
+Timeline (``HVD_TIMELINE``, ``utils/timeline.py``), at the JAX
+package's span sites (``python_controller.py:335, 343, 381, 702-706``):
+``NEGOTIATE_<OP>`` on a name's row from the cycle its name first enters
+the table to the cycle it is ready, with one tick a rank (named by the
+rank) as that rank's submission shows up in the gathered cycle; ``<OP>``
+from the moment this rank issues the collective to the moment it
+completes, on the card when the plane's stream reaches the run's event
+(the timeline's completion thread waits for it, never this thread),
+ending with ``{"bytes": ...}`` of the output; ``CYCLE`` marks under
+``HVD_TIMELINE_MARK_CYCLES``.
+
+Autotune (``HVD_AUTOTUNE``, ``ops/autotune.py``): rank 0 owns the
+tuner.  It records the bytes of each cycle's executed responses and
+ticks the score window in that cycle; a new ``(seq, params)`` rides in
+rank 0's next cycle message.  Every rank applies it at one fixed point:
+in the cycle that carries it, once every message is absorbed and before
+readiness, validation and fusion are decided.  The gathered cycle is the
+same on every rank, so every rank cuts the same buckets and runs the
+same schedule (a rank running hierarchically beside a flat one would
+pair mismatched collectives and hang).  The values: the fusion
+threshold, the cycle time, the world executor's hierarchical allreduce
+and allgather, the response cache (ids stop travelling and every name
+validates) and the default compression of later submissions.
+
 Ordering against ``DistributedOptimizer``: the optimizer's collectives
 run on the default process group from the caller's thread, the plane's
 on a communicator of its own from the cycle thread.  NCCL can deadlock
@@ -110,6 +134,7 @@ from horovod_tpu_torch.common.handles import (Handle, HvdAbortedError,
                                               make_abort_error)
 from horovod_tpu_torch.common.ops_enum import ReduceOp, RequestType
 from horovod_tpu_torch.common.response_cache import SignatureCache
+from horovod_tpu_torch.ops.autotune import AutotuneManager, default_params
 from horovod_tpu_torch.ops.nccl_executor import Executor
 from horovod_tpu_torch.run.service import secret
 
@@ -239,17 +264,26 @@ class _Entry:
 class Controller:
     """One rank's side of the negotiation; see the module docstring."""
 
-    def __init__(self, rank, size, plane, executor, key, config):
+    def __init__(self, rank, size, plane, executor, key, config,
+                 timeline=None):
         """``plane``: the control plane
         (``ops/tcp_controller.py::ControlPlane``) the cycle messages are
         exchanged over and the job's abort comes from; ``key``: the job
         key they are signed with; ``config``: the knobs
-        (``common/config.py::Config``)."""
+        (``common/config.py::Config``); ``timeline``: a
+        ``utils/timeline.py::Timeline``, or None."""
         self.rank = rank
         self.size = size
         self._plane = plane
         self._executor = executor
         self._key = key
+        self._config = config
+        self._timeline = timeline
+        executor.hierarchical_allreduce = config.hierarchical_allreduce
+        executor.hierarchical_allgather = config.hierarchical_allgather
+        # the default compression of later submissions (ops/eager.py),
+        # which the tuner may switch off and on
+        self.compression = config.compression
         self._cycle_s = config.cycle_time_ms / 1e3
         self._threshold = config.fusion_threshold_bytes
         self._stall_s = (None if config.stall_check_disable
@@ -277,6 +311,13 @@ class Controller:
         self._hmac_s = collections.deque(maxlen=1000)
         self.cycles = 0         # cycles run, idle ones too
         self._thread = None
+        # autotune: rank 0's tuner, its publication for the next cycle
+        # message, and on every rank the values applied and when
+        self._autotune = AutotuneManager.create(config) if rank == 0 \
+            else None
+        self._publish = None
+        self._tuned = None
+        self._tuned_log = []    # (cycle, seq) of each application
 
     @property
     def cache_hits(self):
@@ -295,6 +336,20 @@ class Controller:
         """Seconds each of the last (up to 1000) exchanges spent signing
         this rank's message and checking every rank's."""
         return list(self._hmac_s)
+
+    def tuned_params(self):
+        """The knob values in force: the last tuned set applied, else the
+        configured ones (``ops/autotune.py::default_params``); the JAX
+        package's keys without ``ring_segment_bytes``, ``ring_stripes``
+        and ``schedule``."""
+        tuned = self._tuned
+        return dict(tuned) if tuned is not None \
+            else default_params(self._config)
+
+    def tuned_applications(self):
+        """``(cycle, seq)`` of every tuned set applied on this rank: the
+        same list on every rank."""
+        return list(self._tuned_log)
 
     # ---------------------------------------------------------- user side
     def start(self):
@@ -370,6 +425,8 @@ class Controller:
         self._thread.join(timeout)
         with self._cond:
             self._running = False
+        if self._autotune is not None:
+            self._autotune.close()
 
     def abort(self, origin_rank, reason):
         """The job has aborted (``ControlPlane`` listener): fail the
@@ -428,13 +485,17 @@ class Controller:
                     cache_id = self._cache.id_of(key, req.sig)
                     new.append((req.name, req.sig) if cache_id is None
                                else cache_id)
-                mine = (new, joining, stopping)
+                # rank 0's tuner publication rides in its message
+                mine = (new, joining, stopping, self._publish)
+                self._publish = None
                 state = self._plane.abort_state()
                 if state is not None:
                     raise make_abort_error(*state)
                 msgs = [mine] if self.size == 1 else self._exchange(mine)
                 if all(m[2] for m in msgs):
                     break
+                if self._timeline is not None:
+                    self._timeline.mark_cycle()
                 if not self._cycle(msgs, t0):
                     break
                 self.cycles += 1
@@ -499,7 +560,8 @@ class Controller:
             join.set_error(_error(failure))
 
     def _cycle(self, msgs, t0):
-        for r, (new, joining, _) in enumerate(msgs):
+        tl = self._timeline
+        for r, (new, joining, _, _) in enumerate(msgs):
             if joining and r not in self._joined:
                 self._joined.append(r)
             for item in new:
@@ -513,7 +575,15 @@ class Controller:
                 entry = self._table.get(key)
                 if entry is None:
                     entry = self._table[key] = _Entry()
+                    if tl is not None:
+                        tl.begin(key[1], f"NEGOTIATE_{sig.req_type.name}")
                 entry.sigs[r] = sig
+                if tl is not None:
+                    tl.instant(key[1], str(r))
+        if msgs[0][3] is not None:
+            # the one point where every rank applies rank 0's tuned
+            # values: the same cycle, before it is planned
+            self._apply_tuned(*msgs[0][3])
         if self._table:
             groups.note_inflight(gid for gid, _ in self._table)
         if self._stall_s is not None and self._check_stalls():
@@ -525,6 +595,8 @@ class Controller:
         responses = []
         for key in ready:
             entry = self._table.pop(key)
+            if tl is not None:
+                tl.end(key[1])
             if joined or not self._cache.check(key, entry.sigs.values()):
                 error = self._validate(key, entry.sigs, joined)
                 if error is not None:
@@ -546,6 +618,20 @@ class Controller:
             if handle is not None:
                 handle.set_result(last)
         return True
+
+    def _apply_tuned(self, seq, params):
+        """Put a tuned set in force (see the module docstring): every
+        rank calls it in the same cycle."""
+        self._tuned = dict(params)
+        self._tuned_log.append((self.cycles, seq))
+        self._threshold = params["fusion_threshold_bytes"]
+        self._cycle_s = params["cycle_time_ms"] / 1e3
+        self._executor.hierarchical_allreduce = \
+            params["hierarchical_allreduce"]
+        self._executor.hierarchical_allgather = \
+            params["hierarchical_allgather"]
+        self._cache.enabled = params["cache_enabled"]
+        self.compression = params["compression"]
 
     @staticmethod
     def _needed(entry, world):
@@ -644,6 +730,13 @@ class Controller:
             req.handle.set_result(out, event)
         if mine:
             self._settle(mine, streams)
+        if self._autotune is not None and responses:
+            # rank 0 scores the negotiated bytes; a new set rides in its
+            # next cycle message
+            self._autotune.record(sum(nbytes(item) for item in responses))
+            update = self._autotune.maybe_update()
+            if update is not None:
+                self._publish = update
 
     def _executor_for(self, sig):
         """The world's executor, or the group's own (made at its first
@@ -670,6 +763,8 @@ class Controller:
                 if req is not None:
                     self.hold(req)
             return []
+        tl = self._timeline
+        begin = tl.now() if tl is not None else None
         with ex.run(reqs) as run:
             if sig.req_type == RequestType.ALLREDUCE:
                 shapes = [_agreed(sigs).shape for _, sigs in bucket]
@@ -699,6 +794,11 @@ class Controller:
                 results = [(req, out)]
                 run.outputs = [(req, [out[0] if isinstance(out, tuple)
                                       else out])] if req is not None else []
+        if tl is not None:
+            for req, outs in run.outputs:
+                tl.span_after(req.name, sig.req_type.name, begin, run.done,
+                              {"bytes": sum(o.numel() * o.element_size()
+                                            for o in outs)})
         return [(req, out, run.done) for req, out in results
                 if req is not None]
 

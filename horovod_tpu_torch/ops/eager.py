@@ -121,8 +121,9 @@ def _request(req_type, tensor, name, *, op=Sum, root_rank=-1,
         prescale_factor=float(prescale_factor),
         postscale_factor=float(postscale_factor),
         splits=None if splits is None else tuple(int(s) for s in splits),
-        compression=resolve_compression(compression,
-                                        default=state.compression),
+        # the job's default, as the autotuner may have switched it
+        compression=resolve_compression(
+            compression, default=state.controller.compression),
         group=group[0], group_ranks=group[1])
     req = Request(sig=sig, name=name, tensor=tensor, handle=Handle(name))
     if tensor.device.type == "cuda":

@@ -23,6 +23,21 @@ each input was submitted at, and the inputs and outputs are marked with
 allocator does not hand their memory out early.  :meth:`Executor.run`
 returns the event at which the outputs are complete.
 
+Hierarchical allreduce and allgather (``HVD_HIERARCHICAL_ALLREDUCE``,
+``HVD_HIERARCHICAL_ALLGATHER``, or the autotuner's candidate), when
+``hvd.init`` set :attr:`Executor.hier`, the ``(cross, local)`` grid's
+eager-plane groups (the world only: a process group's executor stays
+flat, as the reference's sub-executors do).  The allreduce is
+``xla_executor.py:314-331`` (``hier_body``): pad to a multiple of
+``local * FUSION_ALIGN_ELEMS``, reduce-scatter over ``local``,
+allreduce over ``cross``, allgather over ``local``; its int8 form
+(:380-425) runs the quantized legs over ``local`` and the owned chunk
+across ``cross`` in fp32.  The allgather (:465-473) gathers within
+``local``, then across ``cross``: rank order is cross-major, as the
+grid's.  Integers stay exact; floats differ from the flat path only in
+the order of the sums.  Reduce-scatter, broadcast, alltoall and Adasum
+are not switched by these knobs (Adasum has its own, below).
+
 Adasum runs one tensor at a time: flat, an ``all_gather`` of the ranks'
 contributions and the pairing tree on the stack; hierarchical, when
 ``hvd.init`` set :attr:`Executor.hierarchy` (``HVD_ADASUM_HIERARCHICAL``,
@@ -37,9 +52,13 @@ import math
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from horovod_tpu_torch.common.compression import (all_gather_into,
+                                                  int8_chunk,
+                                                  quantized_all_gather,
                                                   quantized_allreduce,
+                                                  quantized_reduce_scatter,
                                                   reduce_scatter_into)
 from horovod_tpu_torch.common.ops_enum import (INT8_BLOCK, ReduceOp,
                                                reduce_scatter_split_sizes)
@@ -47,6 +66,11 @@ from horovod_tpu_torch.ops.adasum import (adasum_reduce_hierarchical,
                                          adasum_reduce_stacked)
 
 _WIRE = {"bf16": torch.bfloat16, "fp16": torch.float16}
+# the hierarchical allreduce pads its buffer to a multiple of local *
+# this many elements, so that the reduce-scatter's chunks are equal
+# (xla_executor.py:51; the reference rounds its fusion buffer the same
+# way, controller.cc:358-376)
+FUSION_ALIGN_ELEMS = 64
 
 
 def effective_compression(compression, dtype, size, total):
@@ -77,6 +101,12 @@ class Executor:
         self.wires = collections.Counter()
         # (local group, cross group) of hierarchical Adasum, or None
         self.hierarchy = None
+        # (local group, cross group, local size) of the hierarchical
+        # allreduce and allgather, or None; the switches are the
+        # configured or tuned ones, and run flat without the groups
+        self.hier = None
+        self.hierarchical_allreduce = False
+        self.hierarchical_allgather = False
 
     @contextlib.contextmanager
     def run(self, requests):
@@ -123,29 +153,63 @@ class Executor:
         the dtype allows."""
         dtype = flat.dtype
         comp = self._wire(compression, dtype, flat.numel())
+        hier = self.hier if self.hierarchical_allreduce else None
         if comp == "int8":
-            return self._int8(flat, op, prescale, postscale)
+            return self._int8(flat, op, prescale, postscale, hier)
         wire = _WIRE.get(comp)
         if prescale != 1.0 and dtype.is_floating_point:
             flat.mul_(prescale)
         if wire is not None:
             flat = flat.to(wire)
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+        if hier is not None and flat.dtype != torch.bool:
+            flat = self._hier_sum(flat, *hier)
+        else:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
         return self._finish(flat, dtype, op, prescale, postscale)
+
+    @staticmethod
+    def _hier_sum(x, local, cross, n_local):
+        """``hier_body`` of ``xla_executor.py:314-331``: the sum of ``x``
+        over the world as a reduce-scatter within ``local``, an
+        allreduce across ``cross`` and an allgather within ``local``."""
+        total = x.numel()
+        align = n_local * FUSION_ALIGN_ELEMS
+        padded = -(-total // align) * align
+        if padded != total:
+            x = F.pad(x, (0, padded - total))
+        chunk = torch.empty(padded // n_local, dtype=x.dtype,
+                            device=x.device)
+        reduce_scatter_into(chunk, x.contiguous(), op=dist.ReduceOp.SUM,
+                            group=local)
+        dist.all_reduce(chunk, op=dist.ReduceOp.SUM, group=cross)
+        full = torch.empty(padded, dtype=x.dtype, device=x.device)
+        all_gather_into(full, chunk, group=local)
+        return full[:total]
 
     def _wire(self, compression, dtype, total):
         comp = effective_compression(compression, dtype, self.size, total)
         self.wires[comp] += 1
         return comp
 
-    def _int8(self, flat, op, prescale, postscale):
+    def _int8(self, flat, op, prescale, postscale, hier=None):
         """The reference's int8 allreduce (``xla_executor.py:380-420``):
-        fp32, prescale, the quantized sum, then the average and the
+        fp32, prescale, the quantized sum (hierarchical when ``hier``
+        holds the groups: the quantized legs over ``local``, the owned
+        chunk across ``cross`` in fp32), then the average and the
         postscale in fp32 and the cast back.  ``flat`` is not written."""
         x = flat.float()
         if prescale != 1.0:
             x = x * prescale
-        x = quantized_allreduce(x, self.group)
+        if hier is None:
+            x = quantized_allreduce(x, self.group)
+        else:
+            local, cross, n_local = hier
+            total = x.numel()
+            chunk = int8_chunk(total, n_local)
+            x = F.pad(x, (0, n_local * chunk - total))
+            red = quantized_reduce_scatter(x.view(n_local, chunk), local)
+            dist.all_reduce(red, op=dist.ReduceOp.SUM, group=cross)
+            x = quantized_all_gather(red, local)[:total]
         if op == ReduceOp.AVERAGE:
             x = x / self.size
         if postscale != 1.0:
@@ -205,7 +269,17 @@ class Executor:
             src[:tensor.shape[0]] = tensor
         out = torch.empty((self.size * top,) + rest, dtype=tensor.dtype,
                           device=self.device)
-        all_gather_into(out, src, group=self.group)
+        hier = self.hier if self.hierarchical_allgather else None
+        if hier is None:
+            all_gather_into(out, src, group=self.group)
+        else:
+            # within the fast group first, then the assembled blocks
+            # across: cross-major rank order, the grid's
+            local, cross, n_local = hier
+            block = torch.empty((n_local * top,) + rest,
+                                dtype=tensor.dtype, device=self.device)
+            all_gather_into(block, src, group=local)
+            all_gather_into(out, block, group=cross)
         if all(d == top for d in dims0):
             return out
         return torch.cat([out[r * top:r * top + d]

@@ -62,6 +62,15 @@ durable checkpoint); the next call here raises.  A host wait in
 ``synchronize()``, the reference's place for it, cost about 2 ms of a
 45 ms step at four H100s (PERF.md), so it is not made.
 
+Timeline (``HVD_TIMELINE``, ``utils/timeline.py``): the buckets bypass
+the eager plane, so each writes its own ``ALLREDUCE`` span, on a row
+named after the bucket (``DistributedOptimizer.bucket.<b>``,
+``allreduce_gradients.bucket.<b>``), from its ``start()`` to the moment
+its collective completes on the card: the timeline's completion thread
+polls the work (an int8 bucket's span ends at an event after its gather
+in ``wait()``).  With the timeline off a bucket checks one attribute and
+records nothing.
+
 Adasum (``op=Adasum``, ``ops/adasum.py``) takes two forms, the
 reference's:
 
@@ -82,6 +91,7 @@ reference's:
 """
 
 import contextlib
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -123,13 +133,16 @@ def _quantizes(tensor, compression):
 
 class _Bucket:
     """Tensors reduced as one flat buffer over ``group`` (a
-    ``torch.distributed`` group; None: the default group)."""
+    ``torch.distributed`` group; None: the default group); ``name``: its
+    timeline row."""
 
-    def __init__(self, tensors, op, compression, group=None):
+    def __init__(self, tensors, op, compression, group=None, name=None):
         self.tensors = tensors
         self.op = op
         self.compression = compression
         self.group = group
+        self.name = name
+        self.timeline = basics.timeline()
         self.work = None
         self.flat = None
         self.ctxs = None
@@ -139,6 +152,8 @@ class _Bucket:
         if faults.check("allreduce"):
             self.dropped = True   # this rank silently never contributes
             return
+        tl = self.timeline
+        begin = tl.now() if tl is not None else None
         compressed = []
         self.ctxs = []
         for t in self.tensors:
@@ -150,6 +165,10 @@ class _Bucket:
         with basics.abortable():
             self.work = dist.all_reduce(self.flat, op=dist.ReduceOp.SUM,
                                         group=self.group, async_op=True)
+        if begin is not None:
+            tl.span_after(self.name, "ALLREDUCE", begin, self.work,
+                          {"bytes": self.flat.numel()
+                           * self.flat.element_size()})
 
     def wait(self):
         """-> the reduced tensors, in the order and shapes given."""
@@ -175,10 +194,13 @@ class _QuantizedBucket:
     docstring): the ``all_to_all`` of the quantized contributions starts
     in :meth:`start`; :meth:`wait` accumulates, requantizes and gathers."""
 
-    def __init__(self, tensors, op, group=None):
+    def __init__(self, tensors, op, group=None, name=None):
         self.tensors = tensors
         self.op = op
         self.group = group
+        self.name = name
+        self.timeline = basics.timeline()
+        self.begin = None
         self.n = dist.get_world_size(group)
         self.chunks = [int8_chunk(t.numel(), self.n) for t in tensors]
         self.works = self.recv = None
@@ -188,6 +210,8 @@ class _QuantizedBucket:
         if faults.check("allreduce"):
             self.dropped = True
             return
+        if self.timeline is not None:
+            self.begin = self.timeline.now()
         rows = [F.pad(t.reshape(-1).float(), (0, self.n * c - t.numel()))
                 .view(self.n, c) for t, c in zip(self.tensors, self.chunks)]
         q, s = quantize_int8_blocks(torch.cat(rows, dim=1))
@@ -208,6 +232,13 @@ class _QuantizedBucket:
         _after_eager_plane()
         with basics.abortable():
             full = quantized_all_gather(red, self.group).view(self.n, -1)
+        if self.begin is not None:
+            done = None
+            if full.device.type == "cuda":
+                done = torch.cuda.Event(blocking=True)
+                done.record()
+            self.timeline.span_after(self.name, "ALLREDUCE", self.begin,
+                                     done, {"bytes": full.numel() * 4})
         out, offset = [], 0
         for t, c in zip(self.tensors, self.chunks):
             red = full[:, offset:offset + c].reshape(-1)[:t.numel()]
@@ -219,12 +250,12 @@ class _QuantizedBucket:
         return out
 
 
-def _new_bucket(tensors, op, compression, group=None):
+def _new_bucket(tensors, op, compression, group=None, name=None):
     if _quantizes(tensors[0], compression):
-        return _QuantizedBucket(tensors, op, group)
+        return _QuantizedBucket(tensors, op, group, name)
     if getattr(compression, "block_quantized", False):
         compression = Compression.none   # below one block, or not float
-    return _Bucket(tensors, op, compression, group)
+    return _Bucket(tensors, op, compression, group, name)
 
 
 def _plan(tensors, compression, threshold):
@@ -255,8 +286,10 @@ def allreduce_gradients(grads, op=Average, compression=Compression.none,
     if op == Adasum:
         reduced = [_adasum_gradient(t, compression, tg) for t in tensors]
         return dict(zip(keys, reduced)) if keys is not None else reduced
-    buckets = [_new_bucket([tensors[i] for i in idx], op, compression, tg)
-               for idx in _plan(tensors, compression, _fusion_threshold())]
+    buckets = [_new_bucket([tensors[i] for i in idx], op, compression, tg,
+                           f"allreduce_gradients.bucket.{b}")
+               for b, idx in enumerate(
+                   _plan(tensors, compression, _fusion_threshold()))]
     for b in buckets:
         b.start()
     reduced = [t for b in buckets for t in b.wait()]
@@ -328,8 +361,15 @@ class _DistributedOptimizerMixin:
             p.register_post_accumulate_grad_hook(self._make_hook())
 
     def _make_hook(self):
+        # a weak reference: the parameter keeps its hook in C++, where
+        # the collector cannot see a cycle through it, so a hook holding
+        # the optimizer would keep the optimizer, its state and its
+        # parameters alive for the life of the process
+        ref = weakref.ref(self)
+
         def hook(p):
-            if p not in self._allreduce_delay:
+            self = ref()
+            if self is None or p not in self._allreduce_delay:
                 return
             if self._allreduce_delay[p] <= 0:
                 # reference: horovod torch/__init__.py asserts here —
@@ -375,7 +415,8 @@ class _DistributedOptimizerMixin:
                     p.grad = torch.zeros_like(p)
                 grads.append(p.grad)
             bucket = _new_bucket(grads, self._op, self._compression,
-                                 groups.torch_group(self._hvd_group))
+                                 groups.torch_group(self._hvd_group),
+                                 f"DistributedOptimizer.bucket.{b}")
             bucket.start()
             self._launched.append(bucket)
 

@@ -17,11 +17,31 @@ _PARAMS = {
     "cycle_time_ms": (env_util.HVD_CYCLE_TIME, "params.cycle_time_ms"),
     "cache_capacity": (env_util.HVD_CACHE_CAPACITY,
                        "params.cache_capacity"),
+    "hierarchical_allreduce": (env_util.HVD_HIERARCHICAL_ALLREDUCE,
+                               "params.hierarchical_allreduce"),
+    "hierarchical_allgather": (env_util.HVD_HIERARCHICAL_ALLGATHER,
+                               "params.hierarchical_allgather"),
     "hier_local_size": (env_util.HVD_HIER_LOCAL_SIZE,
                         "params.hier_local_size"),
     "adasum_hierarchical": (env_util.HVD_ADASUM_HIERARCHICAL,
                             "params.adasum_hierarchical"),
     "compression": (env_util.HVD_TPU_COMPRESSION, "params.compression"),
+    "autotune": (env_util.HVD_AUTOTUNE, "autotune.enabled"),
+    "autotune_log_file": (env_util.HVD_AUTOTUNE_LOG, "autotune.log_file"),
+    "autotune_warmup_samples": (env_util.HVD_AUTOTUNE_WARMUP_SAMPLES,
+                                "autotune.warmup_samples"),
+    "autotune_steady_state_samples": (
+        env_util.HVD_AUTOTUNE_STEADY_STATE_SAMPLES,
+        "autotune.steady_state_samples"),
+    "autotune_bayes_opt_max_samples": (
+        env_util.HVD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES,
+        "autotune.bayes_opt_max_samples"),
+    "autotune_gaussian_process_noise": (
+        env_util.HVD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE,
+        "autotune.gaussian_process_noise"),
+    "timeline_filename": (env_util.HVD_TIMELINE, "timeline.filename"),
+    "timeline_mark_cycles": (env_util.HVD_TIMELINE_MARK_CYCLES,
+                             "timeline.mark_cycles"),
     "no_stall_check": (env_util.HVD_STALL_CHECK_DISABLE,
                        "stall_check.disabled"),
     "stall_check_warning_time_seconds": (
@@ -75,6 +95,9 @@ _PARAMS = {
 
 # negation flags -> env var forced to "0" (reference: --no-autotune etc.)
 _NEGATIONS = {
+    "no_autotune": env_util.HVD_AUTOTUNE,
+    "no_hierarchical_allreduce": env_util.HVD_HIERARCHICAL_ALLREDUCE,
+    "no_hierarchical_allgather": env_util.HVD_HIERARCHICAL_ALLGATHER,
     "stall_check": env_util.HVD_STALL_CHECK_DISABLE,  # enable = disable-var 0
     # drain defaults on; the negation is the interesting direction
     "no_drain": env_util.HVD_TPU_DRAIN,

@@ -12,9 +12,13 @@ The flags are the reference's, under its names, for the knobs the port
 reads (``utils/env.py``).  Not ported: ``--tpu`` and ``--global-mesh``
 (the JAX package's one-process-per-host device-rank mode; a torch process
 drives one card), the race, protocol, fuzz and soak flags (the
-``tools/`` analysers and the soak rig, which run on the JAX package),
-and the flags of the reference's TCP data plane and session layer,
-controllers, autotune and timeline (A.13e, A.14); ROADMAP lists each.
+``tools/`` analysers and the soak rig, which run on the JAX package);
+by decision (ROADMAP A.13e), ``--controller``, ``--ring-segment-bytes``,
+``--ring-stripes``, ``--tcp-ring-threshold`` and ``--schedule`` (the JAX
+package's controllers and TCP data plane: NCCL carries every byte and
+picks its own algorithm); and, queued as ROADMAP A.13f,
+``--reconnect-budget`` and ``--replay-buffer-bytes`` (the session
+layer).
 """
 
 import argparse
@@ -83,9 +87,30 @@ def make_parser():
                        default=None,
                        help="Disable the response cache entirely "
                             "(HVD_CACHE_CAPACITY=0).")
+    group.add_argument("--no-hierarchical-allreduce",
+                       action="store_true", default=None,
+                       help="Force flat allreduce, overriding "
+                            "env/config.")
+    group.add_argument("--no-hierarchical-allgather",
+                       action="store_true", default=None,
+                       help="Force flat allgather, overriding "
+                            "env/config.")
+    group.add_argument("--hierarchical-allreduce", action="store_true",
+                       default=None,
+                       help="The eager plane's allreduce as a "
+                            "reduce-scatter within each fast group, an "
+                            "allreduce across the groups and an "
+                            "allgather back "
+                            "(HVD_HIERARCHICAL_ALLREDUCE).")
+    group.add_argument("--hierarchical-allgather", action="store_true",
+                       default=None,
+                       help="The eager plane's allgather within each "
+                            "fast group, then across the groups "
+                            "(HVD_HIERARCHICAL_ALLGATHER).")
     group.add_argument("--hier-local-size", type=int, default=None,
-                       help="Ranks per fast group for hierarchical "
-                            "Adasum (HVD_HIER_LOCAL_SIZE; default: the "
+                       help="Ranks per fast group for the hierarchical "
+                            "collectives and hierarchical Adasum "
+                            "(HVD_HIER_LOCAL_SIZE; default: the "
                             "topology's local size).")
     group.add_argument("--adasum-hierarchical", action="store_true",
                        default=None,
@@ -99,6 +124,38 @@ def make_parser():
                        help="Default on-the-wire allreduce compression "
                             "(HVD_TPU_COMPRESSION); int8 is block-scaled "
                             "quantization.")
+
+    auto = parser.add_argument_group("autotune")
+    auto.add_argument("--autotune", action="store_true", default=None,
+                      help="Tune the fusion threshold, the cycle time, "
+                           "the hierarchical collectives, the response "
+                           "cache and (with a compressor) compression "
+                           "on/off on rank 0, and apply the values on "
+                           "every rank in the same cycle "
+                           "(HVD_AUTOTUNE).")
+    auto.add_argument("--no-autotune", action="store_true", default=None,
+                      help="Force autotune off, overriding env/config.")
+    auto.add_argument("--autotune-log-file", default=None,
+                      help="Rank 0's CSV of the walk, a row a sample "
+                           "(HVD_AUTOTUNE_LOG).")
+    auto.add_argument("--autotune-warmup-samples", type=int, default=None)
+    auto.add_argument("--autotune-steady-state-samples", type=int,
+                      default=None)
+    auto.add_argument("--autotune-bayes-opt-max-samples", type=int,
+                      default=None)
+    auto.add_argument("--autotune-gaussian-process-noise", type=float,
+                      default=None)
+
+    timeline = parser.add_argument_group("timeline")
+    timeline.add_argument("--timeline-filename", default=None,
+                          help="Chrome-tracing file of the collectives "
+                               "(HVD_TIMELINE): each rank writes "
+                               "<file>.rank<r>, rank 0 merges them into "
+                               "<file> at shutdown.")
+    timeline.add_argument("--timeline-mark-cycles", action="store_true",
+                          default=None,
+                          help="Mark each cycle of the eager plane in "
+                               "the timeline (HVD_TIMELINE_MARK_CYCLES).")
 
     shard = parser.add_argument_group("sharding")
     shard.add_argument("--zero-min-size", type=int, default=None,

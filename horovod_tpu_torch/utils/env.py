@@ -8,7 +8,8 @@ threshold, the cap on live process groups, the eager plane's executor
 and its cycle, cache and stall knobs, the control plane's abort,
 heartbeat, liveness and connect-retry windows and the fault spec, the
 drain and the degraded-network knobs, elastic membership with the
-coordinator's fail-over, hierarchical Adasum, and durable
+coordinator's fail-over, hierarchical Adasum, the hierarchical
+allreduce and allgather, the timeline, autotune, and durable
 checkpointing.  Kept as a copy so that the port never imports the JAX
 package.
 
@@ -44,6 +45,20 @@ HVD_HIER_LOCAL_SIZE = "HVD_HIER_LOCAL_SIZE"
 # opt-in hierarchical Adasum: Adasum of the local groups' averages, a
 # different result from the flat Adasum of every rank's tensor
 HVD_ADASUM_HIERARCHICAL = "HVD_ADASUM_HIERARCHICAL"
+# the eager plane's two-level allreduce and allgather over the (cross,
+# local) grid: a schedule, the same sums in another order
+HVD_HIERARCHICAL_ALLREDUCE = "HVD_HIERARCHICAL_ALLREDUCE"
+HVD_HIERARCHICAL_ALLGATHER = "HVD_HIERARCHICAL_ALLGATHER"
+
+# --- timeline and autotune (utils/timeline.py, ops/autotune.py) -------------
+HVD_TIMELINE = "HVD_TIMELINE"                  # path -> enable timeline
+HVD_TIMELINE_MARK_CYCLES = "HVD_TIMELINE_MARK_CYCLES"
+HVD_AUTOTUNE = "HVD_AUTOTUNE"
+HVD_AUTOTUNE_LOG = "HVD_AUTOTUNE_LOG"          # rank 0's CSV of the walk
+HVD_AUTOTUNE_WARMUP_SAMPLES = "HVD_AUTOTUNE_WARMUP_SAMPLES"
+HVD_AUTOTUNE_STEADY_STATE_SAMPLES = "HVD_AUTOTUNE_STEADY_STATE_SAMPLES"
+HVD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES = "HVD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES"
+HVD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE = "HVD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE"
 
 # --- the coordinated control plane (ops/tcp_controller.py) -------------------
 # bound on "abort initiated anywhere -> every rank raises HvdAbortedError"

@@ -66,6 +66,8 @@ def test_import_leaves_jax_and_horovod_tpu_out():
         "horovod_tpu_torch.utils.checkpoint, horovod_tpu_torch.utils.data, "
         "horovod_tpu_torch.callbacks, horovod_tpu_torch.utils.logging, "
         "horovod_tpu_torch.common.topology, horovod_tpu_torch.common.config, "
+        "horovod_tpu_torch.common.autotune, horovod_tpu_torch.ops.autotune, "
+        "horovod_tpu_torch.utils.timeline, "
         "horovod_tpu_torch.run, horovod_tpu_torch.run.__main__, "
         "horovod_tpu_torch.run.runner, horovod_tpu_torch.run.launch, "
         "horovod_tpu_torch.run.api, horovod_tpu_torch.run.task_runner, "

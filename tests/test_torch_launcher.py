@@ -100,6 +100,13 @@ PORT_ARGV = [
     "--fusion-threshold-mb", "2.5", "--cycle-time-ms", "3.5",
     "--cache-capacity", "77", "--disable-cache", "--hier-local-size", "2",
     "--adasum-hierarchical", "--compression", "int8",
+    "--hierarchical-allreduce", "--no-hierarchical-allreduce",
+    "--hierarchical-allgather", "--no-hierarchical-allgather",
+    "--autotune", "--no-autotune", "--autotune-log-file", "/tune.csv",
+    "--autotune-warmup-samples", "2", "--autotune-steady-state-samples", "4",
+    "--autotune-bayes-opt-max-samples", "6",
+    "--autotune-gaussian-process-noise", "0.3",
+    "--timeline-filename", "/tl.json", "--timeline-mark-cycles",
     "--zero-min-size", "99", "--executor", "mesh", "--group-max", "12",
     "--term-grace", "7.5", "--ckpt-dir", "/ckpt", "--ckpt-interval", "4",
     "--ckpt-keep", "3", "--no-stall-check", "--stall-check",
@@ -124,6 +131,18 @@ params:
   hier_local_size: 2
   adasum_hierarchical: true
   compression: "bf16"
+  hierarchical_allreduce: true
+  hierarchical_allgather: yes
+autotune:
+  enabled: true
+  log_file: /tmp/tune.csv
+  warmup_samples: 2
+  steady_state_samples: 5
+  bayes_opt_max_samples: 7
+  gaussian_process_noise: 0.4
+timeline:
+  filename: "/tmp/tl #1.json"
+  mark_cycles: on
 stall_check:
   disabled: false
   warning_time_seconds: 30
@@ -179,14 +198,18 @@ def test_port_flags_are_the_references():
     assert _port_flags() <= jax_flags
     for absent in ("--tpu", "--global-mesh", "--race", "--proto-depth",
                    "--fuzz-seed", "--soak-ranks", "--reconnect-budget",
-                   "--controller", "--autotune", "--timeline-filename"):
+                   "--replay-buffer-bytes", "--controller",
+                   "--ring-segment-bytes", "--ring-stripes",
+                   "--tcp-ring-threshold", "--schedule"):
         assert absent not in _port_flags()
     for present in ("--elastic", "--min-ranks", "--max-ranks",
                     "--reconfig-timeout", "--coord-failover",
                     "--election-timeout", "--drain", "--no-drain",
                     "--rtt-alpha", "--straggler-factor",
                     "--straggler-windows", "--straggler-exclude",
-                    "--no-straggler-exclude"):
+                    "--no-straggler-exclude", "--autotune", "--no-autotune",
+                    "--timeline-filename", "--timeline-mark-cycles",
+                    "--hierarchical-allreduce", "--no-hierarchical-allgather"):
         assert present in _port_flags()
 
 
@@ -218,7 +241,14 @@ def _env(parser_mod, cfg, argv, yaml_path=None, simple=False):
     ["-np", "2", "--cycle-time-ms", "0", "--cache-capacity", "0",
      "python", "x.py"],
     ["-np", "1", "--stall-check", "python", "x.py"],
-], ids=["every-flag", "explicit-zeros", "stall-check-on"])
+    ["-np", "4", "--hierarchical-allreduce", "--hierarchical-allgather",
+     "--hier-local-size", "2", "--autotune", "--autotune-log-file", "t.csv",
+     "--timeline-filename", "tl.json", "python", "x.py"],
+    ["-np", "4", "--no-autotune", "--no-hierarchical-allreduce",
+     "--no-hierarchical-allgather", "--timeline-mark-cycles", "python",
+     "x.py"],
+], ids=["every-flag", "explicit-zeros", "stall-check-on",
+        "tune-timeline-hier", "negations"])
 def test_env_from_args_matches_jax(argv):
     assert (_env(runner, config_parser, argv)
             == _env(jax_runner, jax_config_parser, argv))
@@ -230,7 +260,10 @@ def test_env_from_args_matches_jax(argv):
     ["-np", "2", "python", "x.py"],
     ["-np", "2", "--cycle-time-ms", "5", "--ckpt-keep", "1",
      "--compression", "none", "python", "x.py"],
-], ids=["file-only", "cli-over-file"])
+    ["-np", "2", "--no-autotune", "--no-hierarchical-allgather",
+     "--autotune-warmup-samples", "9", "--timeline-filename", "cli.json",
+     "python", "x.py"],
+], ids=["file-only", "cli-over-file", "negations-over-file"])
 def test_yaml_config_matches_jax(tmp_path, argv, simple):
     """The same file (through PyYAML where it imports, and through the
     fallback parser the card's machine uses) and argv give the same
@@ -278,12 +311,31 @@ def test_config_from_env_matches_jax(monkeypatch):
                         ("HVD_TPU_RTT_ALPHA", "0.5"),
                         ("HVD_TPU_STRAGGLER_FACTOR", "2.5"),
                         ("HVD_TPU_STRAGGLER_WINDOWS", "0"),
-                        ("HVD_TPU_STRAGGLER_EXCLUDE", "1")]:
+                        ("HVD_TPU_STRAGGLER_EXCLUDE", "1"),
+                        ("HVD_TIMELINE", "/tmp/tl.json"),
+                        ("HVD_TIMELINE_MARK_CYCLES", "yes"),
+                        ("HVD_AUTOTUNE", "on"),
+                        ("HVD_AUTOTUNE_LOG", "/tmp/tune.csv"),
+                        ("HVD_AUTOTUNE_WARMUP_SAMPLES", "2"),
+                        ("HVD_AUTOTUNE_STEADY_STATE_SAMPLES", "x"),
+                        ("HVD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES", "7"),
+                        ("HVD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE", "0.25"),
+                        ("HVD_HIERARCHICAL_ALLREDUCE", "1"),
+                        ("HVD_HIERARCHICAL_ALLGATHER", "true")]:
         monkeypatch.setenv(name, value)
     got = dataclasses.asdict(config_mod.Config.from_env())
     want = dataclasses.asdict(JaxConfig.from_env())
     assert {k: got[k] for k in got if k in want} == {
         k: want[k] for k in got if k in want}
+    tuned = {"timeline_path", "timeline_mark_cycles", "autotune",
+             "autotune_log", "autotune_warmup_samples",
+             "autotune_steady_state_samples",
+             "autotune_bayes_opt_max_samples",
+             "autotune_gaussian_process_noise", "hierarchical_allreduce",
+             "hierarchical_allgather"}
+    assert tuned <= set(got) & set(want)
+    assert (got["autotune"], got["autotune_steady_state_samples"],
+            got["hierarchical_allgather"]) == (True, 10, True)
     monkeypatch.setenv("HVD_HIER_LOCAL_SIZE", "2")
     monkeypatch.setenv("HVD_START_TIMEOUT", "9.5")
     cfg = config_mod.Config.from_env()

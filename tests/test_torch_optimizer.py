@@ -348,6 +348,34 @@ def test_backward_passes_per_step_averages_and_guards(one_rank):
         m(x1).sum().backward()
 
 
+def test_optimizer_is_freed_with_its_last_reference(one_rank):
+    """The gradient hooks hold the optimizer weakly: a parameter keeps
+    its hooks in C++, where the collector sees no cycle, so a strong
+    reference kept every optimizer, its state and its parameters alive
+    (at one card, the smoke's earlier optimizers held 60 GiB).  A new
+    optimizer over the same model still trains, the old hooks inert."""
+    import gc
+    import weakref
+
+    m = _model()
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(m.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=m.named_parameters())
+    m(torch.randn(5, 4)).sum().backward()
+    opt.step()
+    gone = weakref.ref(opt)
+    del opt
+    gc.collect()
+    assert gone() is None
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(m.parameters(), lr=0.1),
+                                   named_parameters=m.named_parameters())
+    before = [p.detach().clone() for p in m.parameters()]
+    opt.zero_grad()
+    m(torch.randn(5, 4)).sum().backward()
+    opt.step()
+    assert all(not torch.equal(b, p) for b, p in zip(before, m.parameters()))
+
+
 def test_step_skips_synchronize_inside_context(one_rank):
     m = _model()
     opt = hvd.DistributedOptimizer(torch.optim.SGD(m.parameters(), lr=0.1))
