@@ -18,10 +18,14 @@ Phases, each of which must pass:
    T_q = 64 against T_kv = 128 and 128 against 320, not causal; 130
    against 70, causal) in fp32 and bf16, at head dims 24, 40, 192 and 256
    and at B*H = 65536 (the generic kernels), with the times of the D =
-   192 and 256 instances;
+   192 and 256 instances; then the column split above D = 256: D = 320
+   and 512, fp32 and bf16, causal, at ``[2, 2048, 8, D]`` and a ragged
+   T = 1000, and the D = 512 times beside the D = 256 ones with the
+   factor of redundant score work;
 4. check a small fp32 transformer on the card (kernels, flash attention
    included) against the same weights on the CPU (plain versions):
-   logits, loss and gradients;
+   logits, loss and gradients; then the same at two heads of 512
+   (d_model 1024, the column-split flash kernels);
 5. train the full-width transformer-LM (d_model 1024, 8 heads of 128,
    d_ff 4096, vocab 32768, seq 2048, bf16, batch 8) with
    ``DistributedOptimizer(AdamW(lr=1e-4, weight_decay=1e-4))`` over NCCL
@@ -220,10 +224,27 @@ Phases, each of which must pass:
    same final values, the walk pinned, rank 0's CSV has a row a sample;
    prints the pinned values and the step and negotiation before and
    after pinning.  At fewer than four cards (b) and (c) run four gloo
-   ranks on the CPU at phase 15's small width, which the phase says.
+   ranks on the CPU at phase 15's small width, which the phase says;
+17. the session layer at ``min(cards, 4)`` ranks, each job through
+   ``python -m horovod_tpu_torch.run`` with phase 13's windows, each
+   rank running phase 5's main path under ``DistributedOptimizer`` with
+   a plane ``allgather`` of every rank's loss a step: (a) under
+   ``--reconnect-budget 5``, a job without a fault and one with
+   ``rank{W-1}:allgather:4:blip:1000`` (the last rank's coordinator link
+   cut mid-frame in step 4 and refusing connects for 1 s): both finish,
+   the loss falls, every kernel at its count a step, and every rank's
+   parameters and losses are bitwise the unblipped run's; prints the
+   time the cut allgather took, the frames replayed and step 4 beside
+   the others' median; (b) ``rank{W-1}:allgather:4:reset:1.0:4`` under
+   ``--reconnect-budget 1``: the last rank's heal runs out and it raises
+   the typed abort naming the coordinator, every other rank raises it
+   naming the last rank, no worker is left; prints the seconds from the
+   reset to each rank's error.  At one card a world of one has no
+   control plane: both run at two ranks on the CPU at phase 15's small
+   width, which the phase says.
 
-Phases 6 and 8-11 (12-14 and 16 through its CLI) start their ranks above one
-card through the port's
+Phases 6 and 8-11 (12-14, 16 and 17 through its CLI) start their ranks
+above one card through the port's
 launcher (``run/launch.py::launch_job``, a rendezvous KV server and a
 job key of their own; rank logs under ``chiprun_out/ranks/<phase>``);
 their eager plane negotiates through rank 0's coordinator, and phase 6
@@ -237,8 +258,8 @@ and pipeline runs', phase 11's ``op=Adasum`` run's, phase 12's
 launched run's and, above one card, phase 13 (a)'s before and at its
 crash and phase 14 (a)'s over both epochs, phase 15 (a)'s fit and,
 above one card, (b)'s rank 0 up to its validation loss, phase 16 (a)'s
-rank 0 and, at four cards, (c)'s rank 0, each of which must be above
-0), the
+rank 0 and, at four cards, (c)'s rank 0, and above one card phase 17
+(a)'s blipped run's rank 0, each of which must be above 0), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that last line.  ``--profile`` adds one profiled step of phase 5, one of
@@ -525,6 +546,7 @@ def check_kernels():
     kernels += check_flash()
     check_flash_ragged()
     check_flash_wide()
+    check_flash_split()
     for k in kernels:
         print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3e} "
               f"ms {k['ms']:.4f} plain_ms {k['plain_ms']:.4f} "
@@ -741,7 +763,62 @@ def check_flash_wide():
                   flush=True)
 
 
-def check_small_model():
+def check_flash_split():
+    """Phase 3, the column split above D = 256 (a block a 256-column
+    window of the output, each summing the scores over all of D): D = 320
+    and 512 in fp32 and bf16, causal, at ``[2, 2048, 8, D]`` (B*H = 16)
+    and at a ragged ``[2, 1000, 8, D]``, tolerances as in
+    ``check_flash_ragged``.  Then the times of the D = 256 instance and
+    the D = 512 split at ``[2, 2048, 8, D]`` causal (mean of 10 calls),
+    with the factor of redundant score work: every z-block of D = 512
+    recomputes S (and dP), ceil(D / 256) = 2 times the score products of
+    one pass."""
+    import torch
+
+    from horovod_tpu_torch.ops.cuda import flash_attention as fa
+
+    for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        for d in (320, 512):
+            for t in (2048, 1000):
+                q, k, v, do = flash_inputs(dtype, 2, t, t, 8, d, seed=d + t)
+                tag = f"D {d} [2, {t}, 8, {d}] causal {dtype}"
+                errs, _, _ = run_flash(q, k, v, do, True, d ** -0.5, rel,
+                                       tag)
+                print(f"flash split {tag}: max abs err {errs}", flush=True)
+                del q, k, v, do
+    for dtype in (torch.bfloat16, torch.float32):
+        times = {}
+        for d in (256, 512):
+            q, k, v, do = flash_inputs(dtype, 2, 2048, 2048, 8, d, seed=d)
+            out, lse = fa.flash_attention_fwd(q, k, v, True, d ** -0.5)
+            delta = (do.float() * out.float()).sum(-1).transpose(
+                1, 2).contiguous()
+            args = (q, k, v, do, lse, delta, True, d ** -0.5)
+            times[d] = [
+                time_ms(lambda: fa.flash_attention_fwd(q, k, v, True,
+                                                       d ** -0.5), 10),
+                time_ms(lambda: fa.flash_attention_bwd_dq(*args), 10),
+                time_ms(lambda: fa.flash_attention_bwd_dkv(*args), 10)]
+        z = -(-512 // fa.SPLIT_D)
+        # products of one pass (fwd: S, PV; dq: S, dP, dQ; dk/dv: S, dP,
+        # dV, dK) against the split's, whose z-blocks each redo S and dP
+        work = [(2 * z + 2) / 4, (4 * z + 2) / 6, (4 * z + 4) / 8]
+        for i, what in enumerate(("fwd", "dq", "dkv")):
+            print(f"flash split time [2, 2048, 8, D] {dtype} causal {what}: "
+                  f"D 256 {times[256][i]:.4f} ms, D 512 {times[512][i]:.4f}"
+                  f" ms ({times[512][i] / times[256][i]:.2f}x; {z} "
+                  f"z-blocks, score work x{z}, products x{work[i]:.2f} of "
+                  f"one pass at D 512)", flush=True)
+
+
+def check_models():
+    """Phase 4: the small transformer, then two layers with two heads of
+    512 (d_model 1024: the column-split flash kernels)."""
+    check_small_model()
+    check_small_model("wide-head model", d_model=1024, n_heads=2, d_ff=2048)
+
+
+def check_small_model(what="small model", d_model=64, n_heads=4, d_ff=128):
     """Phase 4: the kernels inside the model agree with the plain path.
     The CPU side takes one forward and backward before the compared one:
     on the card's host a process's first fp32 forward on the CPU now and
@@ -755,8 +832,8 @@ def check_small_model():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = TransformerConfig(vocab_size=512, n_layers=2, d_model=64,
-                            n_heads=4, d_ff=128, max_len=32,
+    cfg = TransformerConfig(vocab_size=512, n_layers=2, d_model=d_model,
+                            n_heads=n_heads, d_ff=d_ff, max_len=32,
                             dtype=torch.float32)
     tokens = torch.from_numpy(
         np.random.RandomState(1).randint(0, 512, (2, 32)))
@@ -787,19 +864,19 @@ def check_small_model():
     first_gap = max_err(first.detach(), lc)
     # fp32 on both sides; tolerance of the CPU parity tests
     try:
-        assert_close("small model logits", lg, lc, 1e-4, 1e-5)
+        assert_close(f"{what} logits", lg, lc, 1e-4, 1e-5)
     except AssertionError:
         for name, want in layers["cpu"].items():
             errs = [f"{what} {max_err(g, w):.3e}" for what, g, w in zip(
                 ("input", "output"), layers["cuda"][name], want)
                 if g is not None and w is not None]
-            print(f"small model layer {name}: max abs err card against CPU "
+            print(f"{what} layer {name}: max abs err card against CPU "
                   f"{', '.join(errs)}", flush=True)
         raise
-    assert_close("small model loss", sg, sc, 1e-5, 1e-5)
+    assert_close(f"{what} loss", sg, sc, 1e-5, 1e-5)
     for k in gc:
-        assert_close(f"small model grad {k}", gg[k], gc[k], 1e-3, 1e-5)
-    print(f"small model: loss cuda {float(sg):.6f} cpu {float(sc):.6f}; "
+        assert_close(f"{what} grad {k}", gg[k], gc[k], 1e-3, 1e-5)
+    print(f"{what}: loss cuda {float(sg):.6f} cpu {float(sc):.6f}; "
           f"the CPU's first forward {first_gap:.3e} from its second",
           flush=True)
 
@@ -4065,12 +4142,12 @@ def fault_cross(layers):
     return _ft_done(res, terms)
 
 
-def _ft_job(name, world, phase, layers, flags, env=None):
-    """One phase 13 job through ``python -m horovod_tpu_torch.run`` (rank
-    logs in ``chiprun_out/fault/<name>/``): -> (the launcher's exit code
-    and output, each rank's ``RANK_RESULT`` or None, every rank's pid
-    that is still alive once the launcher has returned)."""
-    logs = os.path.join(_out_dir(), "fault", name)
+def _ft_job(name, world, phase, layers, flags, env=None, where="fault"):
+    """One phase 13 (or 17) job through ``python -m horovod_tpu_torch.run``
+    (rank logs in ``chiprun_out/<where>/<name>/``): -> (the launcher's
+    exit code and output, each rank's ``RANK_RESULT`` or None, every
+    rank's pid that is still alive once the launcher has returned)."""
+    logs = os.path.join(_out_dir(), where, name)
     old = {k: os.environ.get(k) for k in (env or {})}
     os.environ.update(env or {})
     try:
@@ -4092,7 +4169,7 @@ def _ft_job(name, world, phase, layers, flags, env=None):
         pids += [int(ln.split()[1]) for ln in out.splitlines()
                  if ln.startswith("PID ")]
     if len(pids) != world:
-        raise AssertionError(f"phase 13 {name}: {len(pids)} pids of "
+        raise AssertionError(f"{where} {name}: {len(pids)} pids of "
                              f"{world}:\n{text[-4000:]}")
     return code, text, results, [p for p in pids if _alive(p)]
 
@@ -5708,6 +5785,195 @@ def timeline_phase(smi, phase5_ms):
     return res
 
 
+# phase 17: the session layer.  Phase 13's windows; each job takes
+# SE_STEPS steps of phase 5's main path under DistributedOptimizer, each
+# step ending with a plane allgather of every rank's loss, in which the
+# last rank's fault spec is armed at step SE_FAULT_STEP.  (a)'s blip
+# (SE_BLIP_MS) lies well inside its budget (SE_BUDGET_S); (b)'s reset cuts
+# every frame the rank writes for SE_RESET_S, past its budget
+# (SE_RESET_BUDGET_S), which is shorter than the liveness window, so that
+# the rank whose link broke is the first to raise
+SE_STEPS, SE_FAULT_STEP = 8, 4
+SE_BLIP_MS, SE_BUDGET_S = 1000, 5.0
+SE_RESET_S, SE_RESET_BUDGET_S = 4.0, 1.0
+
+
+def session_train(layers):
+    """Phase 17 on one launched rank: phase 5's main path (the
+    full-width transformer, ``DistributedOptimizer(AdamW(1e-4, wd
+    1e-4))``, ``[8, 2048]`` tokens a GPU, each rank its own; on the CPU
+    at one card phase 15's small width), each step ending with
+    ``hvd.allgather`` of every rank's loss on the eager plane, over the
+    coordinator link that the last rank's fault spec breaks at step
+    ``SE_FAULT_STEP``.  -> the rank's numbers: every rank's losses, the
+    step and allgather times, the parameters' digest, the session
+    counters and the launches, or the typed error and when."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import Transformer, lm_loss
+    from horovod_tpu_torch.ops import cuda as kernels
+    from horovod_tpu_torch.run.service import network
+
+    cpu = os.environ.get("P13_DEVICE") == "cpu"
+    if cpu:
+        # one intra-op thread: the CPU's multi-threaded kernels do not
+        # give the same bits twice, and (a) compares two runs bitwise
+        torch.set_num_threads(1)
+    terms = _ft_init()
+    r, n = hvd.rank(), hvd.size()
+    model = Transformer(_cl_config(cpu, layers), device=hvd.device(),
+                        seed=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    shape = (CL_BATCH, CL_CPU["seq"]) if cpu else (MAIN_BATCH, MAIN_SEQ)
+    vocab = CL_CPU["vocab_size"] if cpu else VOCAB
+    tokens = torch.from_numpy(np.random.RandomState(r).randint(
+        0, vocab, shape)).to(hvd.device())
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+    kernels.reset_launch_counts()
+    losses, step_s, gather_s, error, fault_at = [], [], [], None, None
+    start = time.perf_counter()
+    try:
+        for step in range(1, SE_STEPS + 1):
+            sync()
+            start = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = lm_loss(model(tokens), tokens)
+            loss.backward()
+            opt.step()
+            sync()
+            t0 = time.perf_counter()
+            if step == SE_FAULT_STEP:
+                fault_at = time.time()
+            everyone = hvd.allgather(loss.detach().float().view(1),
+                                     name="p17.loss")
+            gather_s.append(time.perf_counter() - t0)
+            losses.append([float(x) for x in everyone])
+            step_s.append(time.perf_counter() - start)
+    except hvd.HvdAbortedError as exc:
+        error = _ft_error(exc, start, f"step {len(step_s) + 1}")
+    digest = hashlib.sha256(b"".join(
+        p.detach().float().cpu().numpy().tobytes()
+        for p in model.parameters())).hexdigest()
+    return _ft_done({"rank": r, "world": n, "losses": losses,
+                     "step_s": step_s, "gather_s": gather_s,
+                     "fault_at": fault_at, "error": error, "digest": digest,
+                     "session": network.session_stats(),
+                     "counts": kernels.launch_counts()}, terms)
+
+
+def session_phase(smi, phase5_step_ms):
+    """Phase 17 at ``min(cards, 4)`` ranks, each job started through
+    ``python -m horovod_tpu_torch.run`` with phase 13's windows: (a)
+    ``session_train`` under ``--reconnect-budget SE_BUDGET_S``, without a
+    fault and then with ``rank{W-1}:allgather:K:blip:SE_BLIP_MS``: both
+    finish, the loss falls, every kernel at its count a step, and every
+    rank's parameters and losses are bitwise the unblipped run's; (b)
+    ``rank{W-1}:allgather:K:reset:1.0:SE_RESET_S`` under
+    ``--reconnect-budget SE_RESET_BUDGET_S``: the last rank raises the
+    typed abort naming the coordinator (its heal ran out), every other
+    rank raises it naming the last rank, and no worker is left.  At one
+    card there is no control plane (size 1), so both run at two ranks on
+    the CPU, which the phase says.  -> the jobs' results."""
+    world = _world()
+    env = None
+    if world == 1:
+        env, world = {"P13_DEVICE": "cpu"}, 2
+        print("session: one card, and a world of one has no control "
+              "plane: (a) and (b) run at two ranks on the CPU (gloo; the "
+              "control plane is the same host code) at phase 15's small "
+              "width", flush=True)
+    last, k = world - 1, SE_FAULT_STEP
+    on = " on the CPU" if env else f" on {smi}"
+
+    def job(name, budget, spec=None):
+        code, text, res, alive = _ft_job(
+            name, world, "session_train", LAYERS,
+            _ft_flags(spec) + ("--reconnect-budget", str(budget)), env,
+            where="session")
+        if code != 0 or alive or None in res:
+            raise AssertionError(f"phase 17 {name}: exit {code}, alive "
+                                 f"{alive}:\n{text[-4000:]}")
+        return res
+
+    out, wall = {}, {}
+    t0 = time.time()
+    clean = job("clean", SE_BUDGET_S)
+    blip = job("blip", SE_BUDGET_S,
+               f"rank{last}:allgather:{k}:blip:{SE_BLIP_MS}")
+    for r in range(world):
+        c, b = clean[r], blip[r]
+        if c["error"] or b["error"] or len(b["losses"]) != SE_STEPS:
+            raise AssertionError(f"phase 17 (a): rank {r}: {c} {b}")
+        if b["digest"] != c["digest"] or b["losses"] != c["losses"] \
+                or b["digest"] != blip[0]["digest"]:
+            raise AssertionError(
+                f"phase 17 (a): rank {r}'s parameters or losses differ "
+                f"from the unblipped run's or rank 0's: {c} {b}")
+        own = [step[r] for step in b["losses"]]
+        if not (all(math.isfinite(x) for x in own) and own[-1] < own[0]):
+            raise AssertionError(f"phase 17 (a): rank {r}'s loss did not "
+                                 f"fall: {own}")
+        if env is None:
+            expect_launches(f"phase 17 (a) rank {r}", b["counts"],
+                            per_step_launches(LAYERS), SE_STEPS)
+    stats = blip[last]["session"]
+    if stats["reconnects_healed"] < 1 or stats["reconnects_failed"]:
+        raise AssertionError(f"phase 17 (a): rank {last}'s session "
+                             f"counters {stats}")
+    wall["a"] = time.time() - t0
+    e = blip[last]
+    steps_else = e["step_s"][1:k - 1] + e["step_s"][k:]
+    gathers_else = e["gather_s"][1:k - 1] + e["gather_s"][k:]
+    print(f"session (a) rank {last} of {world}: the {SE_BLIP_MS} ms blip "
+          f"at step {k} healed inside the {SE_BUDGET_S:g} s budget: the "
+          f"allgather it cut returned {e['gather_s'][k - 1]:.3f} s after "
+          f"its submit (the others' median "
+          f"{1e3 * statistics.median(gathers_else):.3f} ms), "
+          f"{stats['frames_replayed']} frame(s) replayed, "
+          f"{stats['reconnects_healed']} heal(s); step {k} "
+          f"{1e3 * e['step_s'][k - 1]:.2f} ms, the others' median "
+          f"{1e3 * statistics.median(steps_else):.2f} ms (phase 5: "
+          f"{phase5_step_ms:.2f} ms); every rank's parameters and losses "
+          f"bitwise the unblipped run's; loss {e['losses'][0][last]:.4f} "
+          f"-> {e['losses'][-1][last]:.4f}{on} ({wall['a']:.1f} s)",
+          flush=True)
+    out["clean"], out["blip"] = clean, blip
+
+    t0 = time.time()
+    res = job("reset", SE_RESET_BUDGET_S,
+              f"rank{last}:allgather:{k}:reset:1.0:{SE_RESET_S:g}")
+    reset_at = res[last]["fault_at"]
+    for r, e in enumerate(res):
+        err, origin = e["error"], 0 if r == last else last
+        if not err or err["type"] != "HvdAbortedError" \
+                or err["origin"] != origin or reset_at is None \
+                or err["at"] - reset_at >= FT_ABORT_S:
+            raise AssertionError(f"phase 17 (b): rank {r}: {e}")
+    wall["b"] = time.time() - t0
+    for r, e in enumerate(res):
+        err = e["error"]
+        print(f"session (b) rank {r} of {world}: {err['type']}(origin="
+              f"{err['origin']}) out of {err['where']} "
+              f"{err['at'] - reset_at:.3f} s after the reset of rank "
+              f"{last}'s link ('{err['reason']}'); session {e['session']}; "
+              f"shutdown {e['shutdown_s']:.3f} s{on}", flush=True)
+    print(f"session (b): the {SE_RESET_S:g} s reset outlasted the "
+          f"{SE_RESET_BUDGET_S:g} s budget: every rank raised the typed "
+          f"abort, no rank alive ({wall['b']:.1f} s)", flush=True)
+    out["reset"] = res
+    print(f"session: wall s { {k: round(v, 2) for k, v in wall.items()} }",
+          flush=True)
+    out["wall_s"] = wall
+    return out
+
+
 RANK_PHASES = {"eager": eager_checks, "zero": zero_checks,
                "sequence": sequence_checks, "model": model_parallel_checks,
                "adasum": adasum_checks, "adasum_hier": adasum_hier_checks,
@@ -5717,12 +5983,12 @@ RANK_PHASES = {"eager": eager_checks, "zero": zero_checks,
                "fault_user": fault_user, "fault_cross": fault_cross,
                "elastic_rank": elastic_rank,
                "timeline_train": timeline_train, "hier_rank": hier_rank,
-               "tune_train": tune_train}
+               "tune_train": tune_train, "session_train": session_train}
 # the ranks of these phases make their own hvd.init() and shutdown
 LAUNCHER_PHASES = ("launcher_train", "launcher_fail", "launcher_key",
                    "fault_crash", "fault_stall", "fault_user", "fault_cross",
                    "elastic_rank", "timeline_train", "hier_rank",
-                   "tune_train")
+                   "tune_train", "session_train")
 
 
 def _profile_step(model, opt, tokens):
@@ -5983,7 +6249,7 @@ def main(argv=None):
         return out
 
     kernels = timed(3, check_kernels)
-    timed(4, check_small_model)
+    timed(4, check_models)
     counts, run = timed(5, train, LAYERS, STEPS, smi, args.profile)
     for k in kernels:
         k["launches"] = counts[k["name"]]
@@ -6004,6 +6270,7 @@ def main(argv=None):
     _release()
     _card_memory("before phase 16")
     p16 = timed(16, timeline_phase, smi, phase5_ms)
+    session = timed(17, session_phase, smi, phase5_ms)
     paths = {"phase10_tp": model[0]["tp_dp2"]["counts"],
              "phase10_moe": model[0]["moe"]["counts"],
              "phase10_pp": model[0]["pipeline"]["counts"],
@@ -6022,6 +6289,9 @@ def main(argv=None):
         paths["phase15b"] = cluster["b"]["counts"]
     # phase 16 (a), and (c) above one card: rank 0's steps
     paths.update(p16.pop("counts"))
+    if _world() > 1:
+        # phase 17 (a): rank 0's steps across the blip
+        paths["phase17"] = session["blip"][0]["counts"]
     for k in kernels:
         k["launches_by_path"] = {"phase5": k["launches"], **{
             path: c[k["name"]] for path, c in paths.items()}}
@@ -6036,7 +6306,8 @@ def main(argv=None):
                    "adasum_hierarchical": adasum_hier,
                    "launcher": launcher, "fault": fault,
                    "elastic": elastic, "cluster": cluster,
-                   "timeline_hier_autotune": p16}, f, indent=1)
+                   "timeline_hier_autotune": p16, "session": session},
+                  f, indent=1)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

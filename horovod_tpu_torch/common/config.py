@@ -6,19 +6,19 @@ The fields are those of the knobs the port reads at ``init``: the
 eager plane's fusion threshold, cycle time, cache capacity, stall
 warning and stall shutdown, the timeline, autotune and the hierarchical
 allreduce and allgather, the control plane's abort, heartbeat and
-liveness windows and the fault spec, the degraded-network windows
-(RTT smoothing, the straggler verdict), elastic membership with the
+liveness windows and the fault spec, the session layer's reconnect
+budget and replay buffer, the degraded-network windows (RTT smoothing,
+the straggler verdict), elastic membership with the
 coordinator's fail-over and the drain, the job's default compression,
 the plane's executor, ZeRO's replicated-update threshold, hierarchical
 Adasum with its local size, and the gang-start deadline of the
 rendezvous.  Field names, defaults and validation texts are the
 reference's; ``hier_local_size`` and ``start_timeout_seconds`` have no
 reference field (the reference reads those two variables where it uses
-them).  Not ported, by decision (ROADMAP A.13e, A.13f): ``controller``
-(the port has one eager plane), ``ring_segment_bytes``,
-``ring_stripes`` and ``schedule`` (the JAX package's TCP data plane;
-NCCL carries every byte here), ``reconnect_budget_seconds`` and
-``replay_buffer_bytes`` (the session layer, queued as A.13f).
+them).  Not ported, by decision (ROADMAP A.13e): ``controller`` (the
+port has one eager plane), ``ring_segment_bytes``, ``ring_stripes`` and
+``schedule`` (the JAX package's TCP data plane; NCCL carries every byte
+here).
 """
 
 import dataclasses
@@ -75,6 +75,13 @@ class Config:
     # confirmed straggler is proposed for a drain-style exclusion under
     # elastic.
     rtt_alpha: float = env_util.DEFAULT_RTT_ALPHA
+    # The session layer (run/service/network.py): the reconnect window a
+    # broken coordinator link may heal inside (0 = off, a break
+    # escalates at once) and the bound on the client's replay buffer of
+    # unacknowledged frames.
+    reconnect_budget_seconds: float = \
+        env_util.DEFAULT_RECONNECT_BUDGET_SECONDS
+    replay_buffer_bytes: int = env_util.DEFAULT_REPLAY_BUFFER_BYTES
     straggler_factor: float = env_util.DEFAULT_STRAGGLER_FACTOR
     straggler_windows: int = env_util.DEFAULT_STRAGGLER_WINDOWS
     straggler_exclude: bool = False
@@ -154,6 +161,12 @@ class Config:
                 env_util.HVD_TPU_FAULT_SPEC)),
             rtt_alpha=env_util.get_float(
                 env_util.HVD_TPU_RTT_ALPHA, env_util.DEFAULT_RTT_ALPHA),
+            reconnect_budget_seconds=env_util.get_float(
+                env_util.HVD_TPU_RECONNECT_BUDGET,
+                env_util.DEFAULT_RECONNECT_BUDGET_SECONDS),
+            replay_buffer_bytes=_validated_nonneg(
+                env_util.HVD_TPU_REPLAY_BUFFER_BYTES,
+                env_util.DEFAULT_REPLAY_BUFFER_BYTES),
             straggler_factor=env_util.get_float(
                 env_util.HVD_TPU_STRAGGLER_FACTOR,
                 env_util.DEFAULT_STRAGGLER_FACTOR),

@@ -45,14 +45,19 @@ degrade every client-side frame write for ``duration_s`` seconds
     partition:<lo-hi> cut every link that crosses the rank-range
                       boundary [lo, hi]
 
+Mid-stream actions arm the same way (step ``*`` allowed: armed from
+the start) and cut a control-plane connection mid-frame, the break the
+session layer (``run/service/network.py``) heals inside
+``HVD_TPU_RECONNECT_BUDGET``:
+
+    reset:<p>[:<duration_s>]  cut each frame write with probability p
+    blip:<ms>                 cut the next frame write toward a peer,
+                              and refuse connects toward it for ms
+
 The ``send`` / ``recv`` points (the reference's ring chunk transport)
-and the mid-stream actions ``reset:<p>[:<duration_s>]`` and
-``blip:<ms>`` (step ``*`` allowed) are parsed exactly as the reference
-parses them, but have no site in the port yet: NCCL, not a TCP data
-plane, carries the port's bytes, and the session layer whose reconnect
-they exercise comes with ROADMAP A.13e.  The reference's ``link``
-verdicts for them are computed (the RNG stream stays the reference's)
-and not applied.
+are parsed exactly as the reference parses them, but have no site in
+the port: NCCL, not a TCP data plane, carries the port's bytes (ROADMAP
+A.13e).
 
 Degradations are deterministic under the seed contract: the
 flaky/jitter/reset RNG is seeded from the spec text and the rank, so

@@ -15,8 +15,9 @@
 //
 // Two designs live here, chosen in the C entry points by dtype and head
 // dim: bf16 with D a multiple of 16 up to 128 (the main path's D = 128
-// among them) runs the wgmma kernels; every other D up to 256, in bf16,
-// and every fp32 shape run the generic kernels.
+// among them) runs the wgmma kernels; every other D, in bf16, and every
+// fp32 shape run the generic kernels, above D = 256 split by output
+// columns over grid.z (see "D > 256" below).
 //
 // bf16, D in {16, 32, ..., 128} (namespace sm90k): wgmma, TMA, one
 // producer warp.
@@ -109,7 +110,11 @@
 // nothing to the products; stores mask them (element by element at odd
 // D).  P and dS through shared memory, rounded to the input type.  At D =
 // 256 dk/dv's two accumulators alone take 256 registers a thread, so that
-// instance spills (-Xptxas -v).
+// instance spills (-Xptxas -v).  Above D = 256 the column-split kernels
+// (flash_*_split_kernel): each block owns 256 columns of the output and
+// keeps the MD = 256 instance's accumulators and tiles, and sums the
+// contractions over D in 256-column chunks, in the same order in every
+// block.
 //
 // Common to both:
 // - No block writes another block's output, so the backward needs no
@@ -141,7 +146,7 @@ namespace {
 constexpr int kTile = 64;               // rows of a block's own tile
 constexpr int kWarps = 4;               // 16 rows of the tile per warp
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxD = 256;              // widest head dim of any instance
+constexpr int kMaxD = 256;              // widest head dim of one pass
 constexpr float kNegInf = -1e30f;
 
 // The generic kernels come in three instances by head-dim bound MD = 64,
@@ -641,6 +646,367 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------- D > 256: column split
+// Above kMaxD the output columns are split over grid.z: block z owns
+// columns [256 z, min(256 z + 256, D)) of O, dQ or dK and dV, and keeps
+// the MD = 256 instance's accumulators and tiles.  The contractions over
+// all of D (S = Q K^T, and dP = dO V^T in the backward) run in chunks of
+// 256 columns staged through the same tiles, chunk 0 first, in every
+// block; each chunk's FMAs land in the same accumulators in the order of
+// k, so S, the running max and sum, and lse are bitwise the same in every
+// z-block.  Each block recomputes them in full: ceil(D / 256) times the
+// score work of one pass (later work: share S between the z-blocks).
+// Only block z = 0 writes lse.
+constexpr int kChunk = kMaxD;
+
+// store_cols for columns [c0, c0 + w) of a row of d_row elements: pair
+// stores only where d_row is even (c0 is even, so the pairs then lie on
+// their alignment and w is even).
+template <typename T>
+__device__ __forceinline__ void store_window(T* row, int col, int w,
+                                             bool pair, float a, float b) {
+  if (col >= w) return;
+  if (pair) {
+    store2(row + col, a, b);
+    return;
+  }
+  row[col] = from_f<T>(a);
+  if (col + 1 < w) row[col + 1] = from_f<T>(b);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_split_kernel(Problem pb, const T* __restrict__ q,
+                           const T* __restrict__ k, const T* __restrict__ v,
+                           T* __restrict__ out, float* __restrict__ lse) {
+  constexpr int MD = kChunk, kN = inner_rows<MD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int d = pb.d, ld = pitch<T>(MD), ldp = pitch<T>(kN);
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // chunk of Q
+  T* sK = sQ + kTile * ld;                 // chunk of K
+  T* sV = sK + kN * ld;                    // this block's columns of V
+  T* sP = sV + kN * ld;
+
+  const int bh = blockIdx.x, b = bh / pb.h, h = bh - b * pb.h;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // longest first
+  const int c0 = blockIdx.z * kChunk, dc = min(kChunk, d - c0);
+  const int n_chunks = (d + kChunk - 1) / kChunk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int wrow = warp * 16;
+  const int rows[2] = {q0 + wrow + g, q0 + wrow + g + 8};
+
+  const T* qg = q + b * pb.qs.b + h * pb.qs.h;
+  const T* kg = k + b * pb.ks.b + h * pb.ks.h;
+  const T* vg = v + b * pb.vs.b + h * pb.vs.h;
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[MD / 8][4];
+#pragma unroll
+  for (int j = 0; j < MD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  const int nk = key_tiles<kN>(q0, pb.tq, pb.tkv, pb.causal);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kN;
+    float s[kN / 8][4];
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int cc = ch * kChunk, cw = min(kChunk, d - cc);
+      __syncthreads();  // every warp is done with the previous tiles
+      load_tile<T, kTile>(sQ, qg + cc, pb.qs.t, q0, pb.tq, cw, ld, pb.vec);
+      load_tile<T, kN>(sK, kg + cc, pb.ks.t, k0, pb.tkv, cw, ld, pb.vec);
+      if (ch == 0)
+        load_tile<T, kN>(sV, vg + c0, pb.vs.t, k0, pb.tkv, dc, ld, pb.vec);
+      __syncthreads();
+      warp_mma<false, kN / 8>(s, sQ + wrow * ld, ld, sK, ld, cw, kN);
+    }
+
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + j * 8 + t2 + (e & 1), row = rows[e >> 1];
+        const bool keep = col < pb.tkv && (!pb.causal || row >= col);
+        s[j][e] = keep ? s[j][e] * pb.scale : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float alpha[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = quad_max(mx[i]);
+      alpha[i] = m[i] > kNegInf / 2 ? expf(m[i] - mx[i]) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        s[j][e] = mx[i] > kNegInf / 2 ? expf(s[j][e] - mx[i]) : 0.f;
+        rsum[i] += s[j][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] = l[i] * alpha[i] + quad_sum(rsum[i]);
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int j = 0; j < MD / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+
+    T* pw = sP + wrow * ldp;
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+      store2(pw + g * ldp + j * 8 + t2, s[j][0], s[j][1]);
+      store2(pw + (g + 8) * ldp + j * 8 + t2, s[j][2], s[j][3]);
+    }
+    __syncwarp();
+    warp_mma<true, MD / 8>(o, pw, ldp, sV, ld, kN, dc);
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = rows[i];
+    if (row >= pb.tq) continue;
+    const float l_safe = l[i] > 0.f ? l[i] : 1.f;
+    const float inv = 1.f / l_safe;
+    T* orow =
+        out + ((static_cast<long long>(b) * pb.tq + row) * pb.h + h) * d + c0;
+#pragma unroll
+    for (int j = 0; j < MD / 8; ++j)
+      store_window(orow, j * 8 + t2, dc, (d & 1) == 0, o[j][2 * i] * inv,
+                   o[j][2 * i + 1] * inv);
+    if (t2 == 0 && blockIdx.z == 0)
+      lse[static_cast<long long>(bh) * pb.tq + row] = m[i] + logf(l_safe);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_split_kernel(Problem pb, const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const T* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              T* __restrict__ dq) {
+  constexpr int MD = kChunk, kN = inner_rows<MD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int d = pb.d, ld = pitch<T>(MD), ldp = pitch<T>(kN);
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sDO = sQ + kTile * ld;
+  T* sK = sDO + kTile * ld;  // a chunk of K, then this block's columns
+  T* sV = sK + kN * ld;
+  T* sDS = sV + kN * ld;
+
+  const int bh = blockIdx.x, b = bh / pb.h, h = bh - b * pb.h;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // longest first
+  const int c0 = blockIdx.z * kChunk, dc = min(kChunk, d - c0);
+  const int n_chunks = (d + kChunk - 1) / kChunk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int wrow = warp * 16;
+  const int rows[2] = {q0 + wrow + g, q0 + wrow + g + 8};
+
+  const T* qg = q + b * pb.qs.b + h * pb.qs.h;
+  const T* dog = dout + b * pb.dos.b + h * pb.dos.h;
+  const T* kg = k + b * pb.ks.b + h * pb.ks.h;
+  const T* vg = v + b * pb.vs.b + h * pb.vs.h;
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = rows[i] < pb.tq;
+    const long long at = static_cast<long long>(bh) * pb.tq + rows[i];
+    row_lse[i] = in ? lse[at] : kNegInf;
+    row_delta[i] = in ? delta[at] : 0.f;
+  }
+
+  float acc[MD / 8][4];
+#pragma unroll
+  for (int j = 0; j < MD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  const int nk = key_tiles<kN>(q0, pb.tq, pb.tkv, pb.causal);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kN;
+    float s[kN / 8][4], dp[kN / 8][4];
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int cc = ch * kChunk, cw = min(kChunk, d - cc);
+      __syncthreads();
+      load_tile<T, kTile>(sQ, qg + cc, pb.qs.t, q0, pb.tq, cw, ld, pb.vec);
+      load_tile<T, kTile>(sDO, dog + cc, pb.dos.t, q0, pb.tq, cw, ld,
+                          pb.vec);
+      load_tile<T, kN>(sK, kg + cc, pb.ks.t, k0, pb.tkv, cw, ld, pb.vec);
+      load_tile<T, kN>(sV, vg + cc, pb.vs.t, k0, pb.tkv, cw, ld, pb.vec);
+      __syncthreads();
+      warp_mma<false, kN / 8>(s, sQ + wrow * ld, ld, sK, ld, cw, kN);
+      warp_mma<false, kN / 8>(dp, sDO + wrow * ld, ld, sV, ld, cw, kN);
+    }
+    __syncthreads();
+    load_tile<T, kN>(sK, kg + c0, pb.ks.t, k0, pb.tkv, dc, ld, pb.vec);
+    __syncthreads();
+    T* dsw = sDS + wrow * ldp;
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, col = k0 + j * 8 + t2 + (e & 1);
+        const bool keep = col < pb.tkv && (!pb.causal || rows[i] >= col) &&
+                          row_lse[i] > kNegInf / 2;
+        const float p = keep ? expf(s[j][e] * pb.scale - row_lse[i]) : 0.f;
+        ds[e] = p * (dp[j][e] - row_delta[i]) * pb.scale;
+      }
+      store2(dsw + g * ldp + j * 8 + t2, ds[0], ds[1]);
+      store2(dsw + (g + 8) * ldp + j * 8 + t2, ds[2], ds[3]);
+    }
+    __syncwarp();
+    warp_mma<true, MD / 8>(acc, dsw, ldp, sK, ld, kN, dc);
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= pb.tq) continue;
+    T* drow = dq +
+              ((static_cast<long long>(b) * pb.tq + rows[i]) * pb.h + h) * d +
+              c0;
+#pragma unroll
+    for (int j = 0; j < MD / 8; ++j)
+      store_window(drow, j * 8 + t2, dc, (d & 1) == 0, acc[j][2 * i],
+                   acc[j][2 * i + 1]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_split_kernel(Problem pb, const T* __restrict__ q,
+                               const T* __restrict__ k,
+                               const T* __restrict__ v,
+                               const T* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               T* __restrict__ dk, T* __restrict__ dv) {
+  constexpr int MD = kChunk, kN = inner_rows<MD>();
+  static_assert(kN == 32, "one 32-query part a tile");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int d = pb.d, ld = pitch<T>(MD), ldp = pitch<T>(kN);
+  T* sK = reinterpret_cast<T*>(smem_raw);  // chunks of K and V
+  T* sV = sK + kTile * ld;
+  T* sQ = sV + kTile * ld;   // a chunk of Q, then this block's columns
+  T* sDO = sQ + kN * ld;     // the same of dO
+  T* sP = sDO + kN * ld;     // P^T: [key][query]
+  T* sDS = sP + kTile * ldp;  // dS^T
+  float* sLse = reinterpret_cast<float*>(sDS + kTile * ldp);
+  float* sDelta = sLse + kN;
+
+  const int bh = blockIdx.x, b = bh / pb.h, h = bh - b * pb.h;
+  const int k0 = blockIdx.y * kTile;
+  const int c0 = blockIdx.z * kChunk, dc = min(kChunk, d - c0);
+  const int n_chunks = (d + kChunk - 1) / kChunk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int wrow = warp * 16;
+  const int keys[2] = {k0 + wrow + g, k0 + wrow + g + 8};
+
+  const T* qg = q + b * pb.qs.b + h * pb.qs.h;
+  const T* dog = dout + b * pb.dos.b + h * pb.dos.h;
+  const T* kg = k + b * pb.ks.b + h * pb.ks.h;
+  const T* vg = v + b * pb.vs.b + h * pb.vs.h;
+  const float* lse_bh = lse + static_cast<long long>(bh) * pb.tq;
+  const float* delta_bh = delta + static_cast<long long>(bh) * pb.tq;
+
+  float dk_acc[MD / 8][4], dv_acc[MD / 8][4];
+#pragma unroll
+  for (int j = 0; j < MD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  const int nq = (pb.tq + kN - 1) / kN;
+  const int first = pb.causal ? k0 / kN : 0;
+  for (int qt = first; qt < nq; ++qt) {
+    const int q0 = qt * kN;
+    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys and the
+    // tile's 32 queries, over all of D
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int cc = ch * kChunk, cw = min(kChunk, d - cc);
+      __syncthreads();
+      load_tile<T, kTile>(sK, kg + cc, pb.ks.t, k0, pb.tkv, cw, ld, pb.vec);
+      load_tile<T, kTile>(sV, vg + cc, pb.vs.t, k0, pb.tkv, cw, ld, pb.vec);
+      load_tile<T, kN>(sQ, qg + cc, pb.qs.t, q0, pb.tq, cw, ld, pb.vec);
+      load_tile<T, kN>(sDO, dog + cc, pb.dos.t, q0, pb.tq, cw, ld, pb.vec);
+      if (ch == 0 && threadIdx.x < kN) {
+        const int row = q0 + threadIdx.x;
+        sLse[threadIdx.x] = row < pb.tq ? lse_bh[row] : kNegInf;
+        sDelta[threadIdx.x] = row < pb.tq ? delta_bh[row] : 0.f;
+      }
+      __syncthreads();
+      warp_mma<false, 4>(st, sK + wrow * ld, ld, sQ, ld, cw, 32);
+      warp_mma<false, 4>(dpt, sV + wrow * ld, ld, sDO, ld, cw, 32);
+    }
+    __syncthreads();
+    load_tile<T, kN>(sQ, qg + c0, pb.qs.t, q0, pb.tq, dc, ld, pb.vec);
+    load_tile<T, kN>(sDO, dog + c0, pb.dos.t, q0, pb.tq, dc, ld, pb.vec);
+    __syncthreads();
+
+    T* pw = sP + wrow * ldp;
+    T* dsw = sDS + wrow * ldp;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + t2 + (e & 1), key = keys[e >> 1];
+        const int row = q0 + c;
+        const float row_lse = sLse[c];
+        const bool keep = row < pb.tq && key < pb.tkv &&
+                          (!pb.causal || row >= key) && row_lse > kNegInf / 2;
+        p[e] = keep ? expf(st[j][e] * pb.scale - row_lse) : 0.f;
+        ds[e] = p[e] * (dpt[j][e] - sDelta[c]) * pb.scale;
+      }
+      const int col = j * 8 + t2;
+      store2(pw + g * ldp + col, p[0], p[1]);
+      store2(pw + (g + 8) * ldp + col, p[2], p[3]);
+      store2(dsw + g * ldp + col, ds[0], ds[1]);
+      store2(dsw + (g + 8) * ldp + col, ds[2], ds[3]);
+    }
+    __syncwarp();
+    warp_mma<true, MD / 8>(dv_acc, pw, ldp, sDO, ld, kN, dc);
+    warp_mma<true, MD / 8>(dk_acc, dsw, ldp, sQ, ld, kN, dc);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (keys[i] >= pb.tkv) continue;
+    const long long at =
+        ((static_cast<long long>(b) * pb.tkv + keys[i]) * pb.h + h) * d + c0;
+#pragma unroll
+    for (int j = 0; j < MD / 8; ++j) {
+      store_window(dk + at, j * 8 + t2, dc, (d & 1) == 0, dk_acc[j][2 * i],
+                   dk_acc[j][2 * i + 1]);
+      store_window(dv + at, j * 8 + t2, dc, (d & 1) == 0, dv_acc[j][2 * i],
+                   dv_acc[j][2 * i + 1]);
+    }
+  }
+}
+
 // ---------------------------------------------------------- launching
 // Above 48 KB, dynamic shared memory must be allowed per kernel, once.
 template <typename K>
@@ -651,9 +1017,11 @@ cudaError_t allow_smem(K kernel, int bytes) {
 }
 
 // B*H on grid.x (up to 2^31 - 1), the 64-row tiles of T on grid.y (up to
+// 65535 of them), above kMaxD the 256-column blocks of D on grid.z (up to
 // 65535 of them).
 bool valid(int b, int h, int tq, int tkv, int d) {
-  return b > 0 && h > 0 && tq > 0 && tkv > 0 && d >= 1 && d <= kMaxD &&
+  return b > 0 && h > 0 && tq > 0 && tkv > 0 && d >= 1 &&
+         (static_cast<long long>(d) + kChunk - 1) / kChunk <= 65535 &&
          static_cast<long long>(b) * h <= 0x7fffffffLL &&
          (tq + kTile - 1) / kTile <= 65535 &&
          (tkv + kTile - 1) / kTile <= 65535;
@@ -737,14 +1105,73 @@ cudaError_t launch_dkv(const Problem& pb, int b, const void* q,
   return cudaGetLastError();
 }
 
-// The generic instance by head-dim bound.
+// The column-split kernels (D > kMaxD): the MD = 256 instance's shared
+// memory, one block a 256-column window of the output on grid.z.
+dim3 split_grid(const Problem& pb, int b, int rows) {
+  return dim3(b * pb.h, (rows + kTile - 1) / kTile,
+              (pb.d + kChunk - 1) / kChunk);
+}
+
+template <typename T>
+cudaError_t launch_fwd_split(const Problem& pb, int b, const void* q,
+                             const void* k, const void* v, void* out,
+                             void* lse, cudaStream_t s) {
+  constexpr int bytes = fwd_smem<T, kChunk>(kChunk);
+  static const cudaError_t once = allow_smem(flash_fwd_split_kernel<T>, bytes);
+  if (once != cudaSuccess) return once;
+  flash_fwd_split_kernel<T><<<split_grid(pb, b, pb.tq), kThreads, bytes,
+                              s>>>(
+      pb, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out),
+      static_cast<float*>(lse));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dq_split(const Problem& pb, int b, const void* q,
+                            const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, void* dq,
+                            cudaStream_t s) {
+  constexpr int bytes = dq_smem<T, kChunk>(kChunk);
+  static const cudaError_t once =
+      allow_smem(flash_bwd_dq_split_kernel<T>, bytes);
+  if (once != cudaSuccess) return once;
+  flash_bwd_dq_split_kernel<T><<<split_grid(pb, b, pb.tq), kThreads,
+                                 bytes, s>>>(
+      pb, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq));
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dkv_split(const Problem& pb, int b, const void* q,
+                             const void* k, const void* v, const void* dout,
+                             const void* lse, const void* delta, void* dk,
+                             void* dv, cudaStream_t s) {
+  constexpr int bytes = dkv_smem<T, kChunk>(kChunk);
+  static const cudaError_t once =
+      allow_smem(flash_bwd_dkv_split_kernel<T>, bytes);
+  if (once != cudaSuccess) return once;
+  flash_bwd_dkv_split_kernel<T><<<split_grid(pb, b, pb.tkv), kThreads,
+                                  bytes, s>>>(
+      pb, static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv));
+  return cudaGetLastError();
+}
+
+// The generic instance by head-dim bound, above kMaxD the column split.
 template <typename T>
 cudaError_t generic_fwd(const Problem& pb, int b, const void* q,
                         const void* k, const void* v, void* out, void* lse,
                         cudaStream_t s) {
   if (pb.d <= 64) return launch_fwd<T, 64>(pb, b, q, k, v, out, lse, s);
   if (pb.d <= 128) return launch_fwd<T, 128>(pb, b, q, k, v, out, lse, s);
-  return launch_fwd<T, 256>(pb, b, q, k, v, out, lse, s);
+  if (pb.d <= kMaxD) return launch_fwd<T, 256>(pb, b, q, k, v, out, lse, s);
+  return launch_fwd_split<T>(pb, b, q, k, v, out, lse, s);
 }
 
 template <typename T>
@@ -756,7 +1183,9 @@ cudaError_t generic_dq(const Problem& pb, int b, const void* q,
     return launch_dq<T, 64>(pb, b, q, k, v, dout, lse, delta, dq, s);
   if (pb.d <= 128)
     return launch_dq<T, 128>(pb, b, q, k, v, dout, lse, delta, dq, s);
-  return launch_dq<T, 256>(pb, b, q, k, v, dout, lse, delta, dq, s);
+  if (pb.d <= kMaxD)
+    return launch_dq<T, 256>(pb, b, q, k, v, dout, lse, delta, dq, s);
+  return launch_dq_split<T>(pb, b, q, k, v, dout, lse, delta, dq, s);
 }
 
 template <typename T>
@@ -768,7 +1197,9 @@ cudaError_t generic_dkv(const Problem& pb, int b, const void* q,
     return launch_dkv<T, 64>(pb, b, q, k, v, dout, lse, delta, dk, dv, s);
   if (pb.d <= 128)
     return launch_dkv<T, 128>(pb, b, q, k, v, dout, lse, delta, dk, dv, s);
-  return launch_dkv<T, 256>(pb, b, q, k, v, dout, lse, delta, dk, dv, s);
+  if (pb.d <= kMaxD)
+    return launch_dkv<T, 256>(pb, b, q, k, v, dout, lse, delta, dk, dv, s);
+  return launch_dkv_split<T>(pb, b, q, k, v, dout, lse, delta, dk, dv, s);
 }
 
 // ===================================================== bf16 on Hopper

@@ -19,11 +19,13 @@ their bound on the H100 and their design.
 
 Layouts: q ``[B, T_q, H, D]``, k and v ``[B, T_kv, H, D]``, read through
 their strides (D contiguous); out, dq, dk, dv contiguous ``[B, T, H, D]``;
-lse and delta fp32 ``[B, H, T_q]``.  fp32 and bf16; any D from 1 to 256
-(``MAX_D``), B*H up to 2^31 - 1, T up to 65535 tiles of 64 rows.  bf16 at
-D a multiple of 16 up to 128 runs the ``wgmma`` kernels, which read
-through TMA and so need 16-byte aligned rows; every other shape runs the
-generic kernels, which need only D contiguous.
+lse and delta fp32 ``[B, H, T_q]``.  fp32 and bf16; any D from 1 up
+(``MAX_D``: 65535 blocks of 256 columns), B*H up to 2^31 - 1, T up to
+65535 tiles of 64 rows.  bf16 at D a multiple of 16 up to 128 runs the
+``wgmma`` kernels, which read through TMA and so need 16-byte aligned
+rows; every other shape runs the generic kernels, which need only D
+contiguous, and above D = 256 split the output's columns over blocks of
+256 (each recomputes the scores over all of D).
 """
 
 import ctypes
@@ -35,7 +37,8 @@ from horovod_tpu_torch.ops.cuda import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _NEG_INF = -1e30
-MAX_D = 256  # csrc/flash_attention.cu kMaxD
+SPLIT_D = 256  # csrc/flash_attention.cu kMaxD: above it, the column split
+MAX_D = 65535 * SPLIT_D  # grid.z blocks of SPLIT_D columns
 MAX_BH = 2 ** 31 - 1  # grid.x
 MAX_T = 65535 * 64  # grid.y tiles of 64 rows
 DTYPES = (torch.float32, torch.bfloat16)

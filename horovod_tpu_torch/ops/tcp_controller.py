@@ -52,12 +52,23 @@ health, not tensors:
   is pushed on rank 0).  :meth:`ControlPlane.close_for_reconfig` takes a
   plane down without the job-end messages.
 - **Adaptive liveness** (reference :486-610).  Each heartbeat carries the
-  rank's busy flag (``common/busy.py``: a checkpoint write, a drain) and
-  its round trips' EWMA (``common/rtt.py``); a busy rank's window
+  rank's busy flag (``common/busy.py``: a checkpoint write, a drain, a
+  session heal), its round trips' EWMA (``common/rtt.py``) and the peers
+  it is healing a session toward; a busy or healing rank's window
   doubles, and an RTT slack (capped at ``straggler_factor`` windows) is
   added.  A rank whose RTT stays above ``straggler_factor`` x the median
   for ``straggler_windows`` scans gets a straggler verdict, and under
-  ``HVD_TPU_STRAGGLER_EXCLUDE`` (with elastic) a drain-style exclusion.
+  ``HVD_TPU_STRAGGLER_EXCLUDE`` (with elastic) a drain-style exclusion;
+  a healing rank gets no straggler verdict (reference :554-557).
+- **The session layer** (``HVD_TPU_RECONNECT_BUDGET`` above 0, reference
+  ``run/service/network.py``).  A rank's exchange connection is then a
+  session that names the plane's membership epoch: a break of that
+  link heals inside the budget, the frames the coordinator did not get
+  are sent again, and the coordinator answers the cycle it holds on
+  whichever connection the session has now, once.  A heal past the
+  budget, or one the epoch fence refuses, raises the break, which
+  aborts as before.  At budget 0 the connection is the plain one,
+  which a break ends.
 
 Where the coordinator is found: rank 0 binds on the address the other
 ranks are told (``common/basics.py``) and publishes ``host:port`` in
@@ -226,8 +237,14 @@ class CoordinatorService(network.MuxService):
         self._told = set()          # ranks handed the abort; self._cv
         self._refused = None        # sticky verdict; guarded by self._cv
         # ranks whose last heartbeat was busy (a checkpoint write, a
-        # drain): their window doubles; guarded by self._cv
+        # drain, a session heal): their window doubles; guarded by
+        # self._cv
         self._busy_ranks = set()
+        # ranks whose last heartbeat reported a session heal in flight:
+        # busy for liveness and exempt from straggler verdicts, so that
+        # a recovering link never turns into an exclusion or an abort;
+        # guarded by self._cv
+        self._reconnecting_ranks = set()
         # ranks that announced a drain: never blamed by liveness, their
         # silence is the planned departure; guarded by self._cv
         self._draining = set()
@@ -241,6 +258,11 @@ class CoordinatorService(network.MuxService):
     def _valid_rank(self, rank):
         return isinstance(rank, int) and 0 <= rank < self._size
 
+    def session_epoch(self):
+        """A session's hello must name this coordinator's membership
+        epoch: a rank of a torn-down world cannot resume into it."""
+        return self._epoch
+
     # ----------------------------------------------------------- requests
     def _seen(self, req):
         # HMAC-verified, but its fields are still wire input
@@ -249,10 +271,15 @@ class CoordinatorService(network.MuxService):
             with self._cv:
                 self._last_seen[rank] = time.monotonic()
                 if isinstance(req, network.HeartbeatMsg):
-                    if getattr(req, "busy", False):
+                    healing = bool(getattr(req, "reconnecting", None))
+                    if getattr(req, "busy", False) or healing:
                         self._busy_ranks.add(rank)
                     else:
                         self._busy_ranks.discard(rank)
+                    if healing:
+                        self._reconnecting_ranks.add(rank)
+                    else:
+                        self._reconnecting_ranks.discard(rank)
                     rtt = getattr(req, "rtt", None)
                     if isinstance(rtt, (int, float)):
                         self._peer_rtt[rank] = float(rtt)
@@ -282,6 +309,7 @@ class CoordinatorService(network.MuxService):
             with self._cv:
                 self._last_seen.pop(rank, None)
                 self._busy_ranks.discard(rank)
+                self._reconnecting_ranks.discard(rank)
                 self._draining.discard(rank)
                 self._peer_rtt.pop(rank, None)
                 self._straggler_hits.pop(rank, None)
@@ -503,6 +531,11 @@ class CoordinatorService(network.MuxService):
         med = rtt_mod.median(self._peer_rtt.values())
         exclude = None
         for r, value in self._peer_rtt.items():
+            if r in self._reconnecting_ranks:
+                # a healing link inflates its RTT by construction: a
+                # heal in progress never ripens into a verdict
+                self._straggler_hits.pop(r, None)
+                continue
             if not (med > 0 and value > self._straggler_factor * med):
                 self._straggler_hits.pop(r, None)
                 continue
@@ -624,13 +657,33 @@ class ControlPlane:
         from horovod_tpu_torch.run.host_hash import host_hash
 
         self._address = address
-        # not reconnected: the coordinator holds this rank's pending
-        # cycle on the connection, and a broken one means it is lost
-        self._mux = network.MuxClient([self._address], self._key,
-                                      timeout=30, peer=0, reconnect=False)
-        ip, port = self._mux.local_address()
-        if publish_address is not None:
-            publish_address(f"{ip}:{port}")
+        published = []
+
+        def publish(sock):
+            # before the connection's first frame (a session's hello
+            # too), so that the coordinator can name this rank if that
+            # frame fails verification
+            if publish_address is not None and not published:
+                ip, port = sock.getsockname()[:2]
+                publish_address(f"{ip}:{port}")
+                published.append(True)
+
+        # never reconnected plainly: the coordinator holds this rank's
+        # pending cycle on the connection.  With a reconnect budget the
+        # connection is a session, which heals a break inside it and
+        # resumes that cycle; at budget 0 a break means it is lost
+        config = self._config
+        self._mux = network.MuxClient(
+            [self._address], self._key, timeout=30, peer=0,
+            reconnect=False, epoch=self.epoch,
+            reconnect_budget=config.reconnect_budget_seconds,
+            replay_bytes=config.replay_buffer_bytes, on_connect=publish)
+        try:
+            self._mux.local_address()
+        except PermissionError:
+            # the session's welcome failed verification: the keys differ
+            self._refused = coordinator_refused(self.rank)
+            return
         # one beat before init returns: the coordinator knows this rank
         # exists BEFORE any collective can run, so a crash at any later
         # point falls inside the liveness window
@@ -720,24 +773,27 @@ class ControlPlane:
 
     # ------------------------------------------------------------ liveness
     def _heartbeat_loop(self, interval, host):
-        # a dedicated no-retry client: the exchange client's connect
-        # retry would stretch the dead-coordinator budget below to a
-        # multiple of itself, and a failed beat must be cheap to observe
+        # a dedicated no-retry client, and no session: the exchange
+        # client's connect retry (or a heal's budget) would stretch the
+        # dead-coordinator budget below to a multiple of itself, and a
+        # failed beat must be cheap to observe
         hb = network.MuxClient([self._address], self._key,
                                timeout=max(interval, 2.0), retry_for=0,
-                               peer=0)
+                               peer=0, reconnect_budget=0)
         tracker = rtt_mod.tracker()
         fail_since = None
         try:
             while True:
                 try:
                     t0 = time.perf_counter()
-                    # each beat carries this rank's busy flag and its
-                    # worst smoothed round trip: the coordinator widens
-                    # this rank's window by them (slow is not dead)
+                    # each beat carries this rank's busy flag, its worst
+                    # smoothed round trip and the peers it is healing a
+                    # session toward: the coordinator widens this rank's
+                    # window by them (slow or healing is not dead)
                     reply = hb.send(network.HeartbeatMsg(
                         self.rank, busy=busy.active(),
-                        rtt=tracker.worst() or None, host=host),
+                        rtt=tracker.worst() or None, host=host,
+                        reconnecting=network.healing_peers() or None),
                         timeout=max(interval * 2, 5.0))
                     self._hb_s.append(time.perf_counter() - t0)
                     tracker.sample(rtt_mod.COORD_KEY, self._hb_s[-1])

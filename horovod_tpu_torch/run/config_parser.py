@@ -68,6 +68,10 @@ _PARAMS = {
                    "fault_tolerance.term_grace"),
     "drain": (env_util.HVD_TPU_DRAIN, "fault_tolerance.drain"),
     "rtt_alpha": (env_util.HVD_TPU_RTT_ALPHA, "fault_tolerance.rtt_alpha"),
+    "reconnect_budget": (env_util.HVD_TPU_RECONNECT_BUDGET,
+                         "fault_tolerance.reconnect_budget"),
+    "replay_buffer_bytes": (env_util.HVD_TPU_REPLAY_BUFFER_BYTES,
+                            "fault_tolerance.replay_buffer_bytes"),
     "straggler_factor": (env_util.HVD_TPU_STRAGGLER_FACTOR,
                          "fault_tolerance.straggler_factor"),
     "straggler_windows": (env_util.HVD_TPU_STRAGGLER_WINDOWS,

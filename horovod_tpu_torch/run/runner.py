@@ -16,9 +16,7 @@ drives one card), the race, protocol, fuzz and soak flags (the
 by decision (ROADMAP A.13e), ``--controller``, ``--ring-segment-bytes``,
 ``--ring-stripes``, ``--tcp-ring-threshold`` and ``--schedule`` (the JAX
 package's controllers and TCP data plane: NCCL carries every byte and
-picks its own algorithm); and, queued as ROADMAP A.13f,
-``--reconnect-budget`` and ``--replay-buffer-bytes`` (the session
-layer).
+picks its own algorithm).
 """
 
 import argparse
@@ -211,6 +209,22 @@ def make_parser():
     fault.add_argument("--no-drain", action="store_true", default=None,
                        help="Force the drain handler off: SIGTERM "
                             "keeps its default kill disposition.")
+    fault.add_argument("--reconnect-budget", type=float, default=None,
+                       help="Reconnect window in seconds: a mid-stream "
+                            "break of a rank's coordinator link is "
+                            "healed in place (reconnect + session "
+                            "handshake + replay of unacked frames) for "
+                            "up to this long before the break escalates "
+                            "to the abort path "
+                            "(HVD_TPU_RECONNECT_BUDGET, default 0 = "
+                            "off).")
+    fault.add_argument("--replay-buffer-bytes", type=int, default=None,
+                       help="Bound on the client's replay buffer of "
+                            "unacknowledged session frames "
+                            "(HVD_TPU_REPLAY_BUFFER_BYTES, default "
+                            "64 MiB); a heal needing an evicted frame "
+                            "escalates instead of resuming with a "
+                            "gap.")
     fault.add_argument("--rtt-alpha", type=float, default=None,
                        help="EWMA smoothing factor of the control-plane "
                             "round trips behind the adaptive liveness "

@@ -7,8 +7,9 @@ threshold, the job-wide default compression, ZeRO's replicated-update
 threshold, the cap on live process groups, the eager plane's executor
 and its cycle, cache and stall knobs, the control plane's abort,
 heartbeat, liveness and connect-retry windows and the fault spec, the
-drain and the degraded-network knobs, elastic membership with the
-coordinator's fail-over, hierarchical Adasum, the hierarchical
+session layer's reconnect budget and replay buffer, the drain and the
+degraded-network knobs, elastic membership with the coordinator's
+fail-over, hierarchical Adasum, the hierarchical
 allreduce and allgather, the timeline, autotune, and durable
 checkpointing.  Kept as a copy so that the port never imports the JAX
 package.
@@ -72,6 +73,17 @@ HVD_TPU_LIVENESS_TIMEOUT = "HVD_TPU_LIVENESS_TIMEOUT"
 HVD_TPU_CONNECT_RETRY_SECONDS = "HVD_TPU_CONNECT_RETRY_SECONDS"
 # deterministic fault injection spec (common/faults.py grammar)
 HVD_TPU_FAULT_SPEC = "HVD_TPU_FAULT_SPEC"
+# reconnect window: on a mid-stream break of a rank's coordinator link
+# the client heals the session in place (reconnect with backoff, the
+# session handshake, replay of the unacknowledged frames) for up to this
+# many seconds before the original transport error goes to the abort
+# path (0 = off: every break escalates at once, the frames as without
+# the session layer)
+HVD_TPU_RECONNECT_BUDGET = "HVD_TPU_RECONNECT_BUDGET"
+# bound on the client's replay buffer of unacknowledged session frames
+# (bytes); a heal that would need a frame older than the oldest one kept
+# escalates instead of resuming with a silent gap
+HVD_TPU_REPLAY_BUFFER_BYTES = "HVD_TPU_REPLAY_BUFFER_BYTES"
 
 # graceful drain: a worker turns SIGTERM (the preemption notice) into a
 # planned departure instead of dying as a crash (default on)
@@ -170,6 +182,10 @@ DEFAULT_ABORT_TIMEOUT_SECONDS = 30.0
 DEFAULT_HEARTBEAT_INTERVAL_SECONDS = 2.0
 DEFAULT_LIVENESS_TIMEOUT_SECONDS = 15.0
 DEFAULT_CONNECT_RETRY_SECONDS = 30.0
+# the session heal is opt-in: a dead peer keeps surfacing through the
+# abort and liveness path until a deployment grants a reconnect window
+DEFAULT_RECONNECT_BUDGET_SECONDS = 0.0
+DEFAULT_REPLAY_BUFFER_BYTES = 64 << 20
 DEFAULT_ZERO_MIN_SIZE = 1024  # flat params below this stay replicated
 DEFAULT_GROUP_MAX = 64  # live process groups per job
 DEFAULT_CKPT_INTERVAL_STEPS = 10

@@ -4,7 +4,7 @@ are no multiple of a 16-byte vector (the kernels' scalar path), fp32 and
 fp16, d = 8192 and the widest row the LayerNorm takes, logits at scale
 200; flash attention at head dims 16 to 128 (48, 80 and 112 padded in the
 bf16 kernels), 24, 40, 192, 256 and odd ones (the generic kernels),
-B*H = 65536, ragged lengths at the kernels' tile edges, and
+257, 320, 384 and 512 (the column split over blocks of 256), B*H = 65536, ragged lengths at the kernels' tile edges, and
 cross-attention lengths.  This file imports no JAX, so it also runs on a
 machine without it:
 
@@ -288,6 +288,17 @@ def _close_rows(got, want, tol, what, noise=0.0):
     (1, 100, 100, 2, 256, False),
     (1, 33, 33, 3, 7, True),
     (1, 17, 40, 2, 1, False),
+    # above 256 the column split: two blocks of output columns (257, odd:
+    # element-wise stores past a block's edge; 320; 384) or two whole ones
+    # (512), each summing the scores over all of D; ragged T
+    (2, 129, 129, 2, 257, True),
+    (1, 96, 160, 2, 257, False),
+    (2, 130, 70, 2, 320, True),
+    (1, 100, 100, 2, 320, False),
+    (1, 129, 129, 2, 384, True),
+    (2, 64, 130, 2, 384, False),
+    (1, 160, 96, 2, 512, True),
+    (2, 100, 100, 2, 512, False),
 ])
 def test_flash_kernels_match_plain(dev, dtype, b, tq, tkv, h, d, causal):
     """Tolerances: fp32 outputs within 1e-5 of each row's largest entry of
@@ -472,10 +483,13 @@ def test_flash_wrappers_check_their_inputs(dev):
     q = torch.zeros(1, 8, 2, 32, device=dev)
     with pytest.raises(TypeError):
         fa.flash_attention_fwd(q.half(), q.half(), q.half(), True, 1.0)
-    for bad_d in (257, 512):    # above the widest instance
-        x = torch.zeros(1, 8, 2, bad_d, device=dev)
-        with pytest.raises(ValueError, match="head dim .* outside"):
-            fa.flash_attention_fwd(x, x, x, True, 1.0)
+    x = torch.zeros(1, 8, 2, 0, device=dev)   # no head dim
+    with pytest.raises(ValueError, match="head dim .* outside"):
+        fa.flash_attention_fwd(x, x, x, True, 1.0)
+    for wide_d in (257, 512):    # taken: the column split above 256
+        x = torch.zeros(1, 8, 2, wide_d, device=dev)
+        out, lse = fa.flash_attention_fwd(x, x, x, True, 1.0)
+        assert out.shape == x.shape and lse.shape == (1, 2, 8)
     with pytest.raises(ValueError, match="wgmma"):  # no wgmma plan at 192
         fa.flash_attention_fwd_plan(1, 2, 8, 192)
     with pytest.raises(ValueError):      # k on another device
@@ -502,6 +516,7 @@ def test_flash_wrappers_check_their_inputs(dev):
     (2, 4096, 8, 128, True),     # a ring's diagonal block on the card
     (2, 4096, 8, 128, False),    # a block behind it, and zigzag's C x C
     (1, 128, 2, 16, False),      # zigzag's C x C on the CPU tests' flash
+    (1, 130, 2, 320, True),      # a ring block above D = 256: the split
 ])
 def test_flash_lse_cotangent_matches_plain(dev, b, t, h, d, causal):
     """``flash_attention(..., return_lse=True)`` with a nonzero lse

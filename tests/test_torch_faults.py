@@ -217,7 +217,8 @@ def test_culprit_attribution_matches_jax():
 
 FT_FIELDS = ("stall_shutdown_seconds", "abort_timeout_seconds",
              "heartbeat_interval_seconds", "liveness_timeout_seconds",
-             "fault_spec")
+             "fault_spec", "reconnect_budget_seconds",
+             "replay_buffer_bytes")
 
 
 @pytest.mark.parametrize("env", [
@@ -228,7 +229,10 @@ FT_FIELDS = ("stall_shutdown_seconds", "abort_timeout_seconds",
     {"HVD_TPU_ABORT_TIMEOUT": "0", "HVD_TPU_HEARTBEAT_INTERVAL": "0"},
     {"HVD_TPU_ABORT_TIMEOUT": "4", "HVD_TPU_HEARTBEAT_INTERVAL": "5"},
     {"HVD_TPU_ABORT_TIMEOUT": "0", "HVD_TPU_HEARTBEAT_INTERVAL": "3"},
-], ids=["defaults", "tight", "off", "clamped", "no-abort-deadline"])
+    {"HVD_TPU_RECONNECT_BUDGET": "5", "HVD_TPU_REPLAY_BUFFER_BYTES": "4096",
+     "HVD_TPU_FAULT_SPEC": "rank1:link:3:blip:1000"},
+], ids=["defaults", "tight", "off", "clamped", "no-abort-deadline",
+        "session"])
 def test_config_fields_match_jax(monkeypatch, env):
     for name in list(os.environ):
         if name.startswith("HVD_"):
@@ -254,7 +258,9 @@ def test_config_refuses_a_bad_fault_spec_like_jax(monkeypatch):
 FT_ARGV = ["-np", "2", "--abort-timeout", "12", "--heartbeat-interval",
            "0.5", "--liveness-timeout", "6", "--connect-retry-seconds", "8",
            "--fault-spec", "rank1:ring:2:crash",
-           "--stall-check-shutdown-time-seconds", "3", "python", "x.py"]
+           "--stall-check-shutdown-time-seconds", "3",
+           "--reconnect-budget", "5", "--replay-buffer-bytes", "1048576",
+           "python", "x.py"]
 
 
 def test_fault_flags_give_the_jax_runners_env():
@@ -266,6 +272,8 @@ def test_fault_flags_give_the_jax_runners_env():
     assert got == env(jax_runner, jax_config_parser)
     assert got["HVD_TPU_FAULT_SPEC"] == "rank1:ring:2:crash"
     assert got["HVD_STALL_SHUTDOWN_TIME_SECONDS"] == "3.0"
+    assert got["HVD_TPU_RECONNECT_BUDGET"] == "5.0"
+    assert got["HVD_TPU_REPLAY_BUFFER_BYTES"] == "1048576"
 
 
 def test_fault_yaml_keys_are_the_references(tmp_path):

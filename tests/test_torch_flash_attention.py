@@ -93,12 +93,12 @@ def test_forward_and_gradients_match_pallas(b, t, t_kv, h, d, causal):
                                    err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("d", [24, 40, 192, 256])
+@pytest.mark.parametrize("d", [24, 40, 192, 256, 320, 512])
 @pytest.mark.parametrize("causal", [False, True])
 def test_head_dims_beyond_the_wgmma_kernels_match_pallas(d, causal):
     """The head dims that run the card's generic kernels (not a multiple
-    of 16, above 128): the plain path against the Pallas kernel, forward
-    and gradients, at the tolerances above."""
+    of 16, above 128; above 256 the column split): the plain path against
+    the Pallas kernel, forward and gradients, at the tolerances above."""
     q, k, v = _rand(1, 32, 2, d, seed=d + causal)
     jout, jgrads = _jax_grads(q, k, v, causal)
     tout, tgrads = _torch_grads(q, k, v, causal)
@@ -211,14 +211,29 @@ SMALL = dict(vocab_size=512, n_layers=2, d_model=64, n_heads=4, d_ff=128,
              max_len=32)
 
 
+# head dim 512: the card runs it on the column-split kernels
+WIDE_HEADS = dict(vocab_size=512, n_layers=2, d_model=1024, n_heads=2,
+                  d_ff=2048, max_len=32)
+
+
 def test_transformer_matches_jax_with_pallas_flash():
     """The port's model (default attention: flash) against the JAX model
     with ``attn_fn=flash_attention`` (Pallas, interpret mode): logits,
     loss and every gradient, fp32, at the tolerances of
     ``tests/test_torch_transformer.py``."""
+    _transformer_matches_jax(SMALL)
+
+
+def test_wide_head_transformer_matches_jax_with_pallas_flash():
+    """As above with two heads of 512 (d_model 1024), past the widest
+    single-pass head dim of the card's kernels."""
+    _transformer_matches_jax(WIDE_HEADS)
+
+
+def _transformer_matches_jax(cfg):
     tokens = np.random.RandomState(0).randint(0, 512, (2, 32)).astype(
         np.int32)
-    model = JaxTransformer(JaxConfig(**SMALL, dtype=jnp.float32,
+    model = JaxTransformer(JaxConfig(**cfg, dtype=jnp.float32,
                                      attn_fn=jax_flash))
     params = model.init(jax.random.PRNGKey(0),
                         jnp.zeros((1, 32), jnp.int32))["params"]
@@ -231,7 +246,7 @@ def test_transformer_matches_jax_with_pallas_flash():
         params)
     jgrads = flatten_tree(jax.tree.map(lambda a: np.asarray(a), jgrads))
 
-    tmodel = Transformer(TransformerConfig(**SMALL, dtype=torch.float32),
+    tmodel = Transformer(TransformerConfig(**cfg, dtype=torch.float32),
                          device="cpu")
     tmodel.load_state_dict(params_from_flax(
         jax.tree.map(lambda a: np.asarray(a), params)), strict=True)

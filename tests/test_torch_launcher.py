@@ -116,6 +116,7 @@ PORT_ARGV = [
     "--connect-retry-seconds", "8",
     "--fault-spec", "rank1:allreduce:2:crash,*:connect:1:refuse",
     "--drain", "--no-drain", "--rtt-alpha", "0.4",
+    "--reconnect-budget", "7.5", "--replay-buffer-bytes", "65536",
     "--straggler-factor", "5", "--straggler-windows", "2",
     "--straggler-exclude", "--no-straggler-exclude", "--elastic",
     "--min-ranks", "2", "--max-ranks", "6", "--reconfig-timeout", "45",
@@ -163,6 +164,8 @@ fault_tolerance:
   spec: "rank0:link:1:delay:5:2"
   drain: false
   rtt_alpha: 0.3
+  reconnect_budget: 4
+  replay_buffer_bytes: 1048576
   straggler_factor: 6
   straggler_windows: 4
   straggler_exclude: true
@@ -192,20 +195,21 @@ def _port_flags():
 
 def test_port_flags_are_the_references():
     """The port exposes the reference's flags under their names, and
-    none of those it leaves out; elastic membership's are among them."""
+    none of those it leaves out; elastic membership's and the session
+    layer's are among them."""
     jax_flags = {opt for action in jax_runner.make_parser()._actions
                  for opt in action.option_strings}
     assert _port_flags() <= jax_flags
     for absent in ("--tpu", "--global-mesh", "--race", "--proto-depth",
-                   "--fuzz-seed", "--soak-ranks", "--reconnect-budget",
-                   "--replay-buffer-bytes", "--controller",
+                   "--fuzz-seed", "--soak-ranks", "--controller",
                    "--ring-segment-bytes", "--ring-stripes",
                    "--tcp-ring-threshold", "--schedule"):
         assert absent not in _port_flags()
     for present in ("--elastic", "--min-ranks", "--max-ranks",
                     "--reconfig-timeout", "--coord-failover",
                     "--election-timeout", "--drain", "--no-drain",
-                    "--rtt-alpha", "--straggler-factor",
+                    "--rtt-alpha", "--reconnect-budget",
+                    "--replay-buffer-bytes", "--straggler-factor",
                     "--straggler-windows", "--straggler-exclude",
                     "--no-straggler-exclude", "--autotune", "--no-autotune",
                     "--timeline-filename", "--timeline-mark-cycles",
