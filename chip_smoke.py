@@ -241,15 +241,43 @@ Phases, each of which must pass:
    naming the last rank, no worker is left; prints the seconds from the
    reset to each rank's error.  At one card a world of one has no
    control plane: both run at two ranks on the CPU at phase 15's small
-   width, which the phase says.
+   width, which the phase says;
+18. the framework bindings' host bridge at ``min(cards, 4)`` ranks, one
+   job through ``python -m horovod_tpu_torch.run`` with phase 13's
+   windows, over the MXNet binding and the repo's numpy MXNet stand-in
+   (``tests/_mxnet_shim``: the machine has no MXNet, TensorFlow or
+   Keras): each rank builds phase 5's LM on its card, runs one forward
+   and backward on its own batch and copies the 69 parameters and
+   gradients (169,904,128 values) to the host in fp32 as NDArrays;
+   (a) ``DistributedOptimizer(SGD(1e-2))`` (``update`` per index for
+   half of them, the tuple index for the rest) and (b)
+   ``DistributedTrainer`` over gluon Parameters, one step each: every
+   rank's host parameters bitwise the same and within rtol 1e-6 (plus
+   1e-5 of the tensor's largest update) of the card's
+   ``hvd.DistributedOptimizer(SGD(1e-2))`` step on the same gradients;
+   (c) ``broadcast_parameters`` of the 69 from the last rank: every rank
+   holds its bytes; (d) the binding's exchange of the gradients (every
+   one submitted, then waited for) split into host->card, the plane and
+   card->host by the bridge's counters, beside the same one tensor at a
+   time and the plane's ``grouped_allreduce`` of the gradients on the
+   card, in turns, median of 5.  At one card a world of one exchanges
+   nothing: (a)-(c) run at two ranks on the CPU at phase 15's small
+   width, beside this process on the card at one rank, whose (d) waits
+   for them, which the phase says.
 
-Phases 6 and 8-11 (12-14, 16 and 17 through its CLI) start their ranks
+Phases 6 and 8-11 (12-14 and 16-18 through its CLI) start their ranks
 above one card through the port's
 launcher (``run/launch.py::launch_job``, a rendezvous KV server and a
 job key of their own; rank logs under ``chiprun_out/ranks/<phase>``);
 their eager plane negotiates through rank 0's coordinator, and phase 6
 prints the negotiation's median and 10th-90th percentiles and the
 heartbeats' round trip and share of the phase.
+Some jobs of a phase run side by side, each waited for in a thread of
+this process: phase 12's (c) and (d) and phase 13's (b) and (c); at one
+card the CPU jobs of phases 14 (all six), 16 ((b), (c)) and 17 (all
+three); on the cards phase 14's (b)-(d) after (a), and phase 17's (b)
+beside (a)'s run without a fault. The times those jobs print are then
+taken beside each other.
 Each phase's wall seconds are printed on a line of its own.
 
 Prints one ``{"kernels": [...]}`` line (each kernel's ``launches`` in
@@ -258,8 +286,9 @@ and pipeline runs', phase 11's ``op=Adasum`` run's, phase 12's
 launched run's and, above one card, phase 13 (a)'s before and at its
 crash and phase 14 (a)'s over both epochs, phase 15 (a)'s fit and,
 above one card, (b)'s rank 0 up to its validation loss, phase 16 (a)'s
-rank 0 and, at four cards, (c)'s rank 0, and above one card phase 17
-(a)'s blipped run's rank 0, each of which must be above 0), the
+rank 0 and, at four cards, (c)'s rank 0, above one card phase 17
+(a)'s blipped run's rank 0, and phase 18's forward and backward on the
+card's rank 0, each of which must be above 0), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without
 that last line.  ``--profile`` adds one profiled step of phase 5, one of
@@ -3623,14 +3652,16 @@ def _launcher_argv(world, logs, phase, layers=LAYERS, extra=()):
 
 
 def _launcher_cli(world, logs, phase, layers=LAYERS, extra=(),
-                  timeout=900):
-    """Run the launcher CLI from the repository's root; -> (its exit
-    code, its stdout and stderr)."""
+                  timeout=900, env=None):
+    """Run the launcher CLI from the repository's root with ``env`` added
+    to this process's environment; -> (its exit code, its stdout and
+    stderr)."""
     root = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.Popen(_launcher_argv(world, logs, phase, layers,
                                            extra),
                             cwd=root, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+                            stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, **(env or {})})
     try:
         out, err = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -3644,6 +3675,23 @@ def _launcher_cli(world, logs, phase, layers=LAYERS, extra=(),
     with open(os.path.join(logs, "launcher.log"), "w") as f:
         f.write(out + "\n--- stderr ---\n" + err)
     return proc.returncode, out + err
+
+
+def _jobs(fn, jobs, side):
+    """``{name: args}`` -> ``{name: callable}`` whose call returns
+    ``fn(*args)``.  With ``side`` every job starts now, all side by side,
+    each in a thread of its own, and a call waits for its job: jobs
+    that check faults or results, whose times no check reads, share the
+    host's cores and the cards.  Else each job starts when it is
+    called."""
+    if not side:
+        return {k: functools.partial(fn, *a) for k, a in jobs.items()}
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(len(jobs))
+    futures = {k: pool.submit(fn, *a) for k, a in jobs.items()}
+    pool.shutdown(wait=False)
+    return {k: f.result for k, f in futures.items()}
 
 
 def launcher_train(layers):
@@ -3876,12 +3924,17 @@ def launcher_phase(smi, phase5_step_ms, phase6_negotiation_ms):
     print(f"launcher: run(fn) on {world} rank(s) returned {got} in rank "
           f"order, HMAC-checked, in {wall['b']:.2f} s", flush=True)
 
-    # (c) a failing rank
+    # (c) a failing rank and (d) a rank with another job key, side by
+    # side: neither times what it checks
     t0 = time.time()
     logs = os.path.join(out, "fail")
-    code, text = _launcher_cli(
-        world, logs, "launcher_fail", 0,
-        extra=("--term-grace", str(TERM_GRACE_S)), timeout=300)
+    kworld = max(world, 2)
+    jobs = _jobs(_launcher_cli, {
+        "fail": (world, logs, "launcher_fail", 0,
+                 ("--term-grace", str(TERM_GRACE_S)), 300),
+        "key": (kworld, os.path.join(out, "key"), "launcher_key", 0, (),
+                300)}, True)
+    code, text = jobs["fail"]()
     culprit = f"rank {world - 1} failed first (exit code 3)"
     if code != 3 or culprit not in text:
         raise AssertionError(f"phase 12 (c): launcher exited {code}, "
@@ -3907,10 +3960,8 @@ def launcher_phase(smi, phase5_step_ms, phase6_negotiation_ms):
 
     # (d) a rank with another job key
     t0 = time.time()
-    kworld = max(world, 2)
     logs = os.path.join(out, "key")
-    code, text = _launcher_cli(kworld, logs, "launcher_key", 0,
-                               timeout=300)
+    code, text = jobs["key"]()
     keyed = _rank_results("phase 12 (d)", logs, kworld, code)
     for res in keyed:
         if res["error"] is None or "failed HMAC verification" not in \
@@ -3924,7 +3975,8 @@ def launcher_phase(smi, phase5_step_ms, phase6_negotiation_ms):
     print(f"launcher: rank {kworld - 1} of {kworld} with another job key: "
           f"broadcast_object failed on every rank ({keyed[0]['error']}), "
           f"nothing unpickled ({wall['d']:.2f} s)", flush=True)
-    print(f"launcher: wall s { {k: round(v, 2) for k, v in wall.items()} }",
+    print(f"launcher: wall s { {k: round(v, 2) for k, v in wall.items()} }"
+          + " ((d) the rest of its wait beside (c))",
           flush=True)
     return {"world": world, "launch_to_init_s": to_init,
             "launch_first_s": first, "launch_last_s": last,
@@ -4148,17 +4200,8 @@ def _ft_job(name, world, phase, layers, flags, env=None, where="fault"):
     exit code and output, each rank's ``RANK_RESULT`` or None, every
     rank's pid that is still alive once the launcher has returned)."""
     logs = os.path.join(_out_dir(), where, name)
-    old = {k: os.environ.get(k) for k in (env or {})}
-    os.environ.update(env or {})
-    try:
-        code, text = _launcher_cli(world, logs, phase, layers, flags,
-                                   timeout=600)
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    code, text = _launcher_cli(world, logs, phase, layers, flags,
+                               timeout=600, env=env)
     results, pids = [], []
     for r in range(world):
         out, _ = _rank_log(logs, r, world)
@@ -4262,10 +4305,16 @@ def fault_phase(smi, phase5_step_ms, buckets):
               f"no rank alive ({wall['a']:.1f} s)", flush=True)
         out["crash"] = {"code": code, "crashed_at": crashed, "ranks": res}
 
+    # (b) and (c) side by side, after (a) has timed its crash
+    jobs = _jobs(_ft_job, {
+        "stall": ("stall", world, "fault_stall", 0,
+                  _ft_flags(f"rank{last}:allreduce:1:drop", FT_STALL_S,
+                            30.0), env),
+        "user": ("user", world, "fault_user", 0,
+                 _ft_flags(liveness=30.0), env)}, True)
+
     t0 = time.time()
-    code, text, res, alive = _ft_job(
-        "stall", world, "fault_stall", 0,
-        _ft_flags(f"rank{last}:allreduce:1:drop", FT_STALL_S, 30.0), env)
+    code, text, res, alive = jobs["stall"]()
     if code != 0 or alive:
         raise AssertionError(f"phase 13 (b): exit {code}, alive {alive}:"
                              f"\n{text[-4000:]}")
@@ -4280,8 +4329,7 @@ def fault_phase(smi, phase5_step_ms, buckets):
     out["stall"] = res
 
     t0 = time.time()
-    code, text, res, alive = _ft_job("user", world, "fault_user", 0,
-                                     _ft_flags(liveness=30.0), env)
+    code, text, res, alive = jobs["user"]()
     if code != 0 or alive:
         raise AssertionError(f"phase 13 (c): exit {code}, alive {alive}:"
                              f"\n{text[-4000:]}")
@@ -4314,7 +4362,8 @@ def fault_phase(smi, phase5_step_ms, buckets):
                   f"('{e['error']['reason']}'); shutdown "
                   f"{e['shutdown_s']:.3f} s on {smi}", flush=True)
         out["cross"] = res
-    print(f"fault: wall s { {k: round(v, 2) for k, v in wall.items()} }",
+    print(f"fault: wall s { {k: round(v, 2) for k, v in wall.items()} }"
+          + " ((c) the rest of its wait beside (b))",
           flush=True)
     out["wall_s"] = wall
     return out
@@ -4429,7 +4478,8 @@ def elastic_rank(layers):
         params.update(model.state_dict())
     state = hvd.elastic.State(params=params, optimizer_state=opt)
     crash = os.environ.get("P14_CRASH_WID")
-    mark = os.path.join(_out_dir(), "elastic", "crash_backward_start")
+    mark = os.path.join(_out_dir(), "elastic",
+                        f"crash_backward_start.w{wid}")
     out = {"wid": wid, "init_s": init_s, "steps": [], "losses": [],
            "synced": [], "reconfig": None, "ckpt": None}
     kernels.reset_launch_counts()
@@ -4518,18 +4568,8 @@ def _el_job(name, world, layers, flags, env=None):
     exit code and output, each rank's result or None, the pids still
     alive)."""
     logs = os.path.join(_out_dir(), "elastic", name)
-    env = dict(env or {})
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        code, text = _launcher_cli(world, logs, "elastic_rank", layers,
-                                   flags, timeout=600)
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    code, text = _launcher_cli(world, logs, "elastic_rank", layers, flags,
+                               timeout=600, env=env)
     results, pids = [], []
     for r in range(world):
         out, _ = _rank_log(logs, r, world)
@@ -4601,21 +4641,46 @@ def elastic_phase(smi, buckets):
     k = _el_crash_hit(buckets)
     k_small = _el_crash_hit(_do_buckets(small) if small else 0)
     survivors = list(range(last))
+    saved = os.path.join(scratch, "a_params.pt")
+    ref_saved = os.path.join(scratch, "a_ref_params.pt")
+    cards = ",".join(str(c) for c in survivors)
+    victim = last - 1
+    ckpt = os.path.join(scratch, "drain_ckpt")
+    small_jobs = {
+        "joiner": ("joiner", world, small,
+                   _el_flags(f"rank{victim}:allreduce:{k_small}:crash"),
+                   {**env, "P14_JOINER": str(last)}),
+        "drain": ("drain", world, small,
+                  _el_flags(f"rank{last}:allreduce:{k_small}:preempt",
+                            ("--ckpt-dir", ckpt, "--ckpt-interval", "2")),
+                  env),
+        "failover": ("failover", world, small,
+                     _el_flags(f"rank0:allreduce:{k_small}:crash",
+                               ("--coord-failover",)),
+                     {**env, "P14_CRASH_WID": "0"}),
+        "no_failover": ("no_failover", world, small,
+                        _el_flags(f"rank0:allreduce:{k_small}:crash"),
+                        {**env, "P14_CRASH_WID": "0",
+                         "P14_KEEP_RUNNING": "1"})}
+    # at one card all six CPU jobs side by side from here; on the cards
+    # (a)'s two timed runs go alone, then (b)-(d) side by side
+    jobs = _jobs(_el_job, {
+        "loss": ("loss", world, layers,
+                 _el_flags(f"rank{last}:allreduce:{k}:crash"),
+                 {**env, "P14_CRASH_WID": str(last), "P14_SAVE": saved}),
+        "uninterrupted": ("uninterrupted", world - 1, layers, _el_flags(),
+                          {**env, "CUDA_VISIBLE_DEVICES": cards,
+                           "P14_SAVE": ref_saved})}, bool(env))
+    if env:
+        jobs.update(_jobs(_el_job, small_jobs, True))
 
     # (a) rank loss, against the uninterrupted run on the same cards
     t0 = time.time()
-    saved = os.path.join(scratch, "a_params.pt")
-    code, text, res, alive = _el_job(
-        "loss", world, layers, _el_flags(f"rank{last}:allreduce:{k}:crash"),
-        {**env, "P14_CRASH_WID": str(last), "P14_SAVE": saved})
+    code, text, res, alive = jobs["loss"]()
     if res[last] is not None or alive:
         _el_fail("(a): the crash", code, text, res)
     got = _el_reformed("(a)", res, survivors, survivors, code, text)
-    cards = ",".join(str(c) for c in survivors)
-    ref_saved = os.path.join(scratch, "a_ref_params.pt")
-    code_u, text_u, ref, alive_u = _el_job(
-        "uninterrupted", world - 1, layers, _el_flags(),
-        {**env, "CUDA_VISIBLE_DEVICES": cards, "P14_SAVE": ref_saved})
+    code_u, text_u, ref, alive_u = jobs["uninterrupted"]()
     if code_u != 0 or alive_u or any(e is None or e.get("error")
                                      for e in ref):
         _el_fail("(a): the uninterrupted run", code_u, text_u, ref)
@@ -4628,10 +4693,10 @@ def elastic_phase(smi, buckets):
         gap = max(float((a[n].double() - b[n].double()).abs().max())
                   for n in a)
     crashed = None
-    if os.path.exists(os.path.join(_out_dir(), "elastic",
-                                   "crash_backward_start")):
-        with open(os.path.join(_out_dir(), "elastic",
-                               "crash_backward_start")) as f:
+    mark = os.path.join(_out_dir(), "elastic",
+                        f"crash_backward_start.w{last}")
+    if os.path.exists(mark):
+        with open(mark) as f:
             crashed = float(f.read())
     ref_steady = [x for e in ref for x in _el_epoch_steps(e, 0)[1:]]
     for e in got:
@@ -4659,14 +4724,12 @@ def elastic_phase(smi, buckets):
     wall["a"] = time.time() - t0
     out["loss"] = {"ranks": res, "uninterrupted": ref, "gap": gap,
                    "crashed_at": crashed, "code": code}
+    if not env:
+        jobs.update(_jobs(_el_job, small_jobs, True))
 
     # (b) a late joiner on the last card takes the crashed rank's place
     t0 = time.time()
-    victim = last - 1
-    code, text, res, alive = _el_job(
-        "joiner", world, small,
-        _el_flags(f"rank{victim}:allreduce:{k_small}:crash"),
-        {**env, "P14_JOINER": str(last)})
+    code, text, res, alive = jobs["joiner"]()
     members = [w for w in range(world) if w != victim]
     got = _el_reformed("(b)", res, members, members, code, text)
     joiner = res[last]
@@ -4684,11 +4747,7 @@ def elastic_phase(smi, buckets):
 
     # (c) a drain: the preempt action's SIGTERM to one rank
     t0 = time.time()
-    ckpt = os.path.join(scratch, "drain_ckpt")
-    code, text, res, alive = _el_job(
-        "drain", world, small,
-        _el_flags(f"rank{last}:allreduce:{k_small}:preempt",
-                  ("--ckpt-dir", ckpt, "--ckpt-interval", "2")), env)
+    code, text, res, alive = jobs["drain"]()
     drained = res[last]
     if not (drained and drained.get("drained") and drained["ckpt"]
             and drained["ckpt"]["flushed"]) or alive:
@@ -4710,11 +4769,7 @@ def elastic_phase(smi, buckets):
 
     # (d) rank 0's crash: fail-over armed, then not
     t0 = time.time()
-    code, text, res, alive = _el_job(
-        "failover", world, small,
-        _el_flags(f"rank0:allreduce:{k_small}:crash",
-                  ("--coord-failover",)),
-        {**env, "P14_CRASH_WID": "0"})
+    code, text, res, alive = jobs["failover"]()
     if res[0] is not None or alive:
         _el_fail("(d): rank 0's crash", code, text, res)
     got = _el_reformed("(d)", res, list(range(1, world)),
@@ -4730,10 +4785,7 @@ def elastic_phase(smi, buckets):
           f"the survivors finished at epoch 1, launcher exit {code}; "
           f"{where}", flush=True)
     out["failover"] = res
-    code, text, res, alive = _el_job(
-        "no_failover", world, small,
-        _el_flags(f"rank0:allreduce:{k_small}:crash"),
-        {**env, "P14_CRASH_WID": "0", "P14_KEEP_RUNNING": "1"})
+    code, text, res, alive = jobs["no_failover"]()
     for r in range(1, world):
         e = res[r]
         if not (e and e.get("error")
@@ -4748,7 +4800,10 @@ def elastic_phase(smi, buckets):
     wall["d"] = time.time() - t0
     out["no_failover"] = res
     shutil.rmtree(scratch, ignore_errors=True)
-    print(f"elastic: wall s { {k: round(v, 2) for k, v in wall.items()} }",
+    print(f"elastic: wall s { {k: round(v, 2) for k, v in wall.items()} }"
+          + (" ((b)-(d) the rest of their waits beside (a))" if env else
+             " ((b)-(d) side by side after (a): (c) and (d) the rest of "
+             "their waits)"),
           flush=True)
     out["wall_s"] = wall
     return out
@@ -5481,17 +5536,8 @@ def _p16_job(name, world, phase, layers=LAYERS, extra=(), env=None):
     logs in ``chiprun_out/p16/<name>/``) with ``env`` added; -> each
     rank's ``RANK_RESULT``."""
     logs = os.path.join(_out_dir(), "p16", name)
-    old = {k: os.environ.get(k) for k in (env or {})}
-    os.environ.update(env or {})
-    try:
-        code, _ = _launcher_cli(world, logs, phase, layers, extra,
-                                timeout=600)
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    code, _ = _launcher_cli(world, logs, phase, layers, extra, timeout=600,
+                            env=env)
     return _rank_results(f"phase 16 {name}", logs, world, code)
 
 
@@ -5730,7 +5776,18 @@ def timeline_phase(smi, phase5_ms):
     hier_env = dict(four, HVD_HIERARCHICAL_ALLREDUCE="1",
                     HVD_HIERARCHICAL_ALLGATHER="1",
                     HVD_HIER_LOCAL_SIZE=str(HIER_LOCAL))
-    hier = _p16_job("hier", 4, "hier_rank", LAYERS, env=hier_env)
+    tune_env = dict(four, HVD_AUTOTUNE="1",
+                    HVD_AUTOTUNE_LOG=os.path.join(_out_dir(), "p16",
+                                                  "autotune.csv"),
+                    HVD_AUTOTUNE_WARMUP_SAMPLES=str(TUNE_WARMUP),
+                    HVD_AUTOTUNE_STEADY_STATE_SAMPLES=str(TUNE_STEADY),
+                    HVD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES=str(TUNE_MAX),
+                    HVD_HIER_LOCAL_SIZE=str(HIER_LOCAL))
+    # on the CPU (b) and (c) run side by side
+    jobs = _jobs(_p16_job, {
+        "hier": ("hier", 4, "hier_rank", LAYERS, (), hier_env),
+        "tune": ("tune", 4, "tune_train", LAYERS, (), tune_env)}, cpu)
+    hier = jobs["hier"]()
     res["b"] = hier
     ms = hier[0]["ms"]
     gb = hier[0]["elements"] * 4 / 1e9
@@ -5743,16 +5800,10 @@ def timeline_phase(smi, phase5_ms):
           f"{ms['allgather']['flat']:.3f} ms (median of {HIER_ROUNDS}, in "
           f"turns); max abs err vs flat "
           f"{max(x['max_abs_err'] for x in hier):.3e}, integers and the "
-          f"gather exact, every rank the same bytes; on {smi}", flush=True)
+          f"gather exact, every rank the same bytes; on "
+          f"{smi if not cpu else 'the CPU beside (c)'}", flush=True)
 
-    tune_env = dict(four, HVD_AUTOTUNE="1",
-                    HVD_AUTOTUNE_LOG=os.path.join(_out_dir(), "p16",
-                                                  "autotune.csv"),
-                    HVD_AUTOTUNE_WARMUP_SAMPLES=str(TUNE_WARMUP),
-                    HVD_AUTOTUNE_STEADY_STATE_SAMPLES=str(TUNE_STEADY),
-                    HVD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES=str(TUNE_MAX),
-                    HVD_HIER_LOCAL_SIZE=str(HIER_LOCAL))
-    tune = _p16_job("tune", 4, "tune_train", LAYERS, env=tune_env)
+    tune = jobs["tune"]()
     res["c"] = tune
     first = tune[0]
     for x in tune[1:]:
@@ -5902,11 +5953,23 @@ def session_phase(smi, phase5_step_ms):
                                  f"{alive}:\n{text[-4000:]}")
         return res
 
+    specs = {
+        "clean": ("clean", SE_BUDGET_S),
+        "blip": ("blip", SE_BUDGET_S,
+                 f"rank{last}:allgather:{k}:blip:{SE_BLIP_MS}"),
+        "reset": ("reset", SE_RESET_BUDGET_S,
+                  f"rank{last}:allgather:{k}:reset:1.0:{SE_RESET_S:g}")}
+    # at one card the three CPU jobs side by side; on the cards (b)'s
+    # reset beside the clean run, then the blip that (a) times alone
+    jobs = _jobs(job, specs if env else
+                 {n: specs[n] for n in ("clean", "reset")}, True)
     out, wall = {}, {}
     t0 = time.time()
-    clean = job("clean", SE_BUDGET_S)
-    blip = job("blip", SE_BUDGET_S,
-               f"rank{last}:allgather:{k}:blip:{SE_BLIP_MS}")
+    clean = jobs["clean"]()
+    if "blip" not in jobs:
+        jobs["reset"]()
+        jobs["blip"] = functools.partial(job, *specs["blip"])
+    blip = jobs["blip"]()
     for r in range(world):
         c, b = clean[r], blip[r]
         if c["error"] or b["error"] or len(b["losses"]) != SE_STEPS:
@@ -5947,8 +6010,7 @@ def session_phase(smi, phase5_step_ms):
     out["clean"], out["blip"] = clean, blip
 
     t0 = time.time()
-    res = job("reset", SE_RESET_BUDGET_S,
-              f"rank{last}:allgather:{k}:reset:1.0:{SE_RESET_S:g}")
+    res = jobs["reset"]()
     reset_at = res[last]["fault_at"]
     for r, e in enumerate(res):
         err, origin = e["error"], 0 if r == last else last
@@ -5968,9 +6030,339 @@ def session_phase(smi, phase5_step_ms):
           f"{SE_RESET_BUDGET_S:g} s budget: every rank raised the typed "
           f"abort, no rank alive ({wall['b']:.1f} s)", flush=True)
     out["reset"] = res
-    print(f"session: wall s { {k: round(v, 2) for k, v in wall.items()} }",
+    print(f"session: wall s { {k: round(v, 2) for k, v in wall.items()} }"
+          + " ((b) ran beside (a))",
           flush=True)
     out["wall_s"] = wall
+    return out
+
+
+# phase 18: the framework bindings' host bridge.  The MXNet binding
+# drives it (the machine has no TensorFlow, Keras or MXNet; the repo's
+# numpy stand-in takes MXNet's place): (a)-(c) one SGD step of rate
+# BR_LR and a broadcast, (d) the exchange of phase 5's gradients in
+# BR_ROUNDS rounds.  (a) and (b) hold the host's parameters to the card's
+# DistributedOptimizer step within BR_RTOL, plus BR_ATOL_SHARE of that
+# tensor's largest update (the sums' order differs between the two)
+BR_LR, BR_ROUNDS = 1e-2, 5
+BR_RTOL, BR_ATOL_SHARE = 1e-6, 1e-5
+
+
+def _mx_shim():
+    """The repo's MXNet stand-in (``tests/_mxnet_shim``), first on
+    ``sys.path``; -> the module.  No fallback: without it the phase
+    fails."""
+    shim = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "_mxnet_shim")
+    if shim not in sys.path:
+        sys.path.insert(0, shim)
+    import mxnet
+
+    if getattr(mxnet, "__version__", None) != "0.0-shim":
+        raise AssertionError(f"phase 18: mxnet is {mxnet!r}, not the "
+                             f"repo's stand-in at {shim}")
+    return mxnet
+
+
+def _br_digest(arrays):
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _br_against(what, host, ref, w0):
+    """``host`` (numpy) against the card's step ``ref`` from ``w0``:
+    -> (the largest error, the elements past BR_RTOL alone); raises past
+    BR_RTOL plus BR_ATOL_SHARE of the tensor's largest update."""
+    import numpy as np
+
+    worst, past = 0.0, 0
+    for i, (h, r, w) in enumerate(zip(host, ref, w0)):
+        err = np.abs(h - r)
+        atol = BR_ATOL_SHARE * float(np.max(np.abs(w - r)))
+        if not np.all(err <= BR_RTOL * np.abs(r) + atol):
+            raise AssertionError(
+                f"phase 18 {what}: tensor {i} differs from "
+                f"hvd.DistributedOptimizer's step by up to "
+                f"{float(err.max()):.3e} "
+                f"(rtol {BR_RTOL}, atol {atol:.3e})")
+        worst = max(worst, float(err.max()))
+        past += int(np.sum(err > BR_RTOL * np.abs(r)))
+    return worst, past
+
+
+def bridge_train(layers):
+    """Phase 18 on one launched rank (``P13_DEVICE=cpu``: on the CPU):
+    ``bridge_rank`` between ``hvd.init()`` and the timed shutdown."""
+    terms = _ft_init()
+    return _ft_done(bridge_rank(layers, os.environ.get("P13_DEVICE") ==
+                                "cpu"), terms)
+
+
+def bridge_rank(layers, cpu, before_d=None):
+    """Phase 18 on this rank, ``hvd.init()`` done: phase 5's LM (on the
+    CPU phase 15's small width) takes one forward and backward on the
+    rank's own batch; its parameters and gradients in fp32 go to the
+    host as NDArrays of the MXNet stand-in, and the MXNet binding's
+    (a) ``DistributedOptimizer(SGD(BR_LR))`` (``update`` per index for
+    the first half, the tuple index for the rest), (b)
+    ``DistributedTrainer`` over gluon Parameters and (c)
+    ``broadcast_parameters`` from the last rank run above one rank,
+    (a)-(b) beside the card's ``DistributedOptimizer(SGD(BR_LR))`` on the
+    same gradients; on the card (d) times the binding's exchange of the
+    gradients (``DistributedTrainer._allreduce_grads``: every gradient
+    submitted, then waited for), the per-tensor synchronous exchange and
+    the plane's ``grouped_allreduce`` of the gradients on the card, in
+    turns, after ``before_d()`` returns.  -> the rank's numbers."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import host_bridge
+    from horovod_tpu_torch.models import Transformer, lm_loss
+    from horovod_tpu_torch.ops import cuda as kernels
+
+    mx = _mx_shim()
+    import horovod_tpu_torch.mxnet as hvd_mx
+
+    r, n = hvd.rank(), hvd.size()
+    dev = hvd.device()
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+    model = Transformer(_cl_config(cpu, layers), device=dev, seed=0)
+    shape = (CL_BATCH, CL_CPU["seq"]) if cpu else (MAIN_BATCH, MAIN_SEQ)
+    vocab = CL_CPU["vocab_size"] if cpu else VOCAB
+    tokens = torch.from_numpy(np.random.RandomState(r).randint(
+        0, vocab, shape)).to(dev)
+    kernels.reset_launch_counts()
+    lm_loss(model(tokens), tokens).backward()
+    sync()
+    res = {"rank": r, "world": n, "counts": kernels.launch_counts()}
+    params = [p.detach().float() for p in model.parameters()]
+    grads = [p.grad.detach().float() for p in model.parameters()]
+    del model
+    w0 = [p.cpu().numpy() for p in params]
+    g0 = [g.cpu().numpy() for g in grads]
+    res["tensors"] = len(g0)
+    res["elements"] = int(sum(g.size for g in g0))
+
+    if n > 1:
+        # the card's step on the same gradients: the reference
+        ref = [torch.nn.Parameter(p.clone()) for p in params]
+        for p, g in zip(ref, grads):
+            p.grad = g.clone()
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(ref, lr=BR_LR),
+            named_parameters=[(f"p{i}", p) for i, p in enumerate(ref)])
+        opt.step()
+        want = [p.detach().cpu().numpy() for p in ref]
+        del opt, ref
+
+        # (a) the optimizer: update per index, then the tuple index
+        dopt = hvd_mx.DistributedOptimizer(
+            mx.optimizer.SGD(learning_rate=BR_LR))
+        ws = [mx.nd.array(w.copy()) for w in w0]
+        gs = [mx.nd.array(g.copy()) for g in g0]
+        half = len(ws) // 2
+        t0 = time.perf_counter()
+        for i in range(half):
+            dopt.update(i, ws[i], gs[i], None)
+        dopt.update(tuple(range(half, len(ws))), ws[half:], gs[half:],
+                    [None] * (len(ws) - half))
+        res["a_s"] = time.perf_counter() - t0
+        host = [w.asnumpy() for w in ws]
+        res["a_err"], res["a_past_rtol"] = _br_against(
+            "(a) DistributedOptimizer", host, want, w0)
+        res["a_digest"] = _br_digest(host)
+        del ws, gs, host
+
+        # (b) the trainer over gluon Parameters holding the gradients
+        gparams = [mx.gluon.Parameter(f"p{i}", data=mx.nd.array(w.copy()))
+                   for i, w in enumerate(w0)]
+        for p, g in zip(gparams, g0):
+            p.grad[:] = g
+        trainer = hvd_mx.DistributedTrainer(
+            gparams, mx.optimizer.SGD(learning_rate=BR_LR))
+        if trainer._kvstore is not None:
+            raise AssertionError("phase 18 (b): kvstore is not None")
+        t0 = time.perf_counter()
+        trainer.step(batch_size=1)
+        res["b_s"] = time.perf_counter() - t0
+        host = [p.data().asnumpy() for p in gparams]
+        res["b_err"], res["b_past_rtol"] = _br_against(
+            "(b) DistributedTrainer", host, want, w0)
+        res["b_digest"] = _br_digest(host)
+        del gparams, trainer, host, want
+
+        # (c) every tensor from the last rank
+        own = {f"p{i:03d}": mx.nd.array(g.copy()) for i, g in enumerate(g0)}
+        res["c_own_digest"] = _br_digest(g0)
+        t0 = time.perf_counter()
+        hvd_mx.broadcast_parameters(own, root_rank=n - 1)
+        res["c_s"] = time.perf_counter() - t0
+        res["c_digest"] = _br_digest(
+            [own[k].asnumpy() for k in sorted(own)])
+        del own
+
+    if not cpu:
+        if before_d is not None:
+            before_d()
+        # (d) the exchange of the gradients, in turns: the binding's
+        # (all submitted, then waited for), the binding's one tensor at a
+        # time (as the JAX binding exchanges), the plane's on the card
+        gparams = [mx.gluon.Parameter(f"d{i}", data=mx.nd.array(g.copy()))
+                   for i, g in enumerate(g0)]
+        for p, g in zip(gparams, g0):
+            p.grad[:] = g
+        trainer = hvd_mx.DistributedTrainer(
+            gparams, mx.optimizer.SGD(learning_rate=BR_LR))
+        rounds = {k: [] for k in ("async", "sync", "resident", "to_device",
+                                  "to_host", "copies", "sync_to_device",
+                                  "sync_to_host")}
+        for _ in range(BR_ROUNDS + 1):   # the first round warms up
+            sync()
+            host_bridge.reset_stats()
+            t0 = time.perf_counter()
+            trainer._allreduce_grads()
+            rounds["async"].append(time.perf_counter() - t0)
+            st = host_bridge.stats()
+            rounds["to_device"].append(st["to_device"]["seconds"])
+            rounds["to_host"].append(st["to_host"]["seconds"])
+            # the stand-in's own copies (asnumpy, then the write back)
+            t0 = time.perf_counter()
+            for p in gparams:
+                p.grad[:] = p.grad.asnumpy()
+            rounds["copies"].append(time.perf_counter() - t0)
+            host_bridge.reset_stats()
+            t0 = time.perf_counter()
+            for i, p in enumerate(gparams):
+                hvd_mx.allreduce_(p.grad, average=False, name=str(i))
+            rounds["sync"].append(time.perf_counter() - t0)
+            st = host_bridge.stats()
+            rounds["sync_to_device"].append(st["to_device"]["seconds"])
+            rounds["sync_to_host"].append(st["to_host"]["seconds"])
+            sync()
+            t0 = time.perf_counter()
+            hvd.grouped_allreduce(grads, op=hvd.Sum, name="p18.resident")
+            sync()
+            rounds["resident"].append(time.perf_counter() - t0)
+        res["d_ms"] = {k: 1e3 * statistics.median(v[1:])
+                       for k, v in rounds.items()}
+        res["d_rounds_ms"] = {k: [1e3 * x for x in v]
+                              for k, v in rounds.items()}
+        res["d_bytes"] = int(sum(g.nbytes for g in g0))
+        del gparams, trainer
+    return res
+
+
+def bridge_phase(smi):
+    """Phase 18: ``bridge_train`` at ``min(cards, 4)`` ranks through
+    ``python -m horovod_tpu_torch.run`` with phase 13's windows (rank
+    logs in ``chiprun_out/bridge/<job>/``).  (a)-(b): every rank's host
+    parameters bitwise the same and within BR_RTOL of the card's step;
+    (c): every rank holds the last rank's tensors bitwise; (d): the
+    exchange's milliseconds.  At one card a world of one exchanges
+    nothing (the reference's ``_do_allreduce`` returns at size 1): (a)-
+    (c) run at two ranks on the CPU at phase 15's small width, started
+    first, while this process takes the card's one rank, whose (d) waits
+    for them to end, which the phase says.  -> the jobs' results and the
+    card's rank 0's launches."""
+    _mx_shim()
+    print("bridge: MXNet here is the repo's numpy stand-in "
+          "tests/_mxnet_shim (this machine has no MXNet, TensorFlow or "
+          "Keras); the binding is horovod_tpu_torch.mxnet over "
+          "common/host_bridge.py", flush=True)
+    world = _world()
+
+    def job(name, ranks, env=None):
+        code, text, res, alive = _ft_job(
+            name, ranks, "bridge_train", LAYERS, _ft_flags(), env,
+            where="bridge")
+        if code != 0 or alive or None in res:
+            raise AssertionError(f"phase 18 {name}: exit {code}, alive "
+                                 f"{alive}:\n{text[-4000:]}")
+        return res
+
+    out, wall = {}, {}
+    t0 = time.time()
+    if world > 1:
+        card = exchanged = job("card", world)
+        on = f" on {smi}"
+        wall["card"] = time.time() - t0
+    else:
+        import concurrent.futures
+
+        import horovod_tpu_torch as hvd
+
+        print("bridge: one card, and a world of one exchanges nothing: "
+              "(a)-(c) run at two ranks on the CPU (gloo) at phase 15's "
+              "small width, started first, while this process takes the "
+              "card's rank, whose (d) waits for them", flush=True)
+
+        def cpu_job():
+            res = job("cpu", 2, {"P13_DEVICE": "cpu"})
+            wall["cpu"] = time.time() - t0
+            return res
+
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            exchanged, on = pool.submit(cpu_job), " on the CPU"
+            hvd.init()
+            try:
+                card = [bridge_rank(LAYERS, False,
+                                    before_d=exchanged.exception)]
+            finally:
+                hvd.shutdown()
+            exchanged = exchanged.result()
+        wall["card"] = time.time() - t0
+    out["card"], out["exchanged"] = card, exchanged
+
+    e0 = exchanged[0]
+    for what in ("a", "b"):
+        if len({e[f"{what}_digest"] for e in exchanged}) != 1:
+            raise AssertionError(f"phase 18 ({what}): the ranks' host "
+                                 f"parameters differ")
+        print(f"bridge ({what}) {len(exchanged)} ranks{on}: "
+              f"{'DistributedOptimizer' if what == 'a' else 'DistributedTrainer'}"
+              f" over {e0['tensors']} tensors, {e0['elements']:,} fp32: "
+              f"every rank's host parameters bitwise the same, within "
+              f"{max(e[f'{what}_err'] for e in exchanged):.3e} of "
+              f"hvd.DistributedOptimizer(SGD({BR_LR:g}))'s step ("
+              f"{max(e[f'{what}_past_rtol'] for e in exchanged)} elements "
+              f"past rtol {BR_RTOL:g} alone); the step "
+              f"{1e3 * max(e[f'{what}_s'] for e in exchanged):.1f} ms",
+              flush=True)
+    root = exchanged[-1]["c_own_digest"]
+    if any(e["c_digest"] != root for e in exchanged):
+        raise AssertionError("phase 18 (c): a rank does not hold the last "
+                             "rank's tensors bitwise")
+    print(f"bridge (c) {len(exchanged)} ranks{on}: broadcast_parameters of "
+          f"{e0['tensors']} tensors from rank {len(exchanged) - 1}: every "
+          f"rank holds its bytes ({1e3 * max(e['c_s'] for e in exchanged):.1f}"
+          f" ms)", flush=True)
+
+    for e in card:
+        d = e["d_ms"]
+        plane = d["async"] - d["to_device"] - d["to_host"]
+        print(f"bridge (d) rank {e['rank']} of {e['world']} on {smi}: the "
+              f"binding's exchange of {e['tensors']} gradients "
+              f"({e['d_bytes'] / 1e6:.1f} MB fp32), median of {BR_ROUNDS} "
+              f"in turns: all submitted, then waited for "
+              f"{d['async']:.2f} ms = host->card {d['to_device']:.2f} + the "
+              f"plane and the stand-in's copies {plane:.2f} + card->host "
+              f"{d['to_host']:.2f} (the stand-in's asnumpy and write-back "
+              f"alone {d['copies']:.2f}); one tensor at a time "
+              f"{d['sync']:.2f} ms (host->card {d['sync_to_device']:.2f}, "
+              f"card->host {d['sync_to_host']:.2f}); the plane's "
+              f"grouped_allreduce of the gradients on the card "
+              f"{d['resident']:.2f} ms", flush=True)
+    expect_launches("phase 18 rank 0", card[0]["counts"],
+                    per_step_launches(LAYERS), 1)
+    print(f"bridge: wall s { {k: round(v, 2) for k, v in wall.items()} }",
+          flush=True)
+    out["wall_s"] = wall
+    out["counts"] = card[0]["counts"]
     return out
 
 
@@ -5983,12 +6375,13 @@ RANK_PHASES = {"eager": eager_checks, "zero": zero_checks,
                "fault_user": fault_user, "fault_cross": fault_cross,
                "elastic_rank": elastic_rank,
                "timeline_train": timeline_train, "hier_rank": hier_rank,
-               "tune_train": tune_train, "session_train": session_train}
+               "tune_train": tune_train, "session_train": session_train,
+               "bridge_train": bridge_train}
 # the ranks of these phases make their own hvd.init() and shutdown
 LAUNCHER_PHASES = ("launcher_train", "launcher_fail", "launcher_key",
                    "fault_crash", "fault_stall", "fault_user", "fault_cross",
                    "elastic_rank", "timeline_train", "hier_rank",
-                   "tune_train", "session_train")
+                   "tune_train", "session_train", "bridge_train")
 
 
 def _profile_step(model, opt, tokens):
@@ -6271,6 +6664,7 @@ def main(argv=None):
     _card_memory("before phase 16")
     p16 = timed(16, timeline_phase, smi, phase5_ms)
     session = timed(17, session_phase, smi, phase5_ms)
+    bridge = timed(18, bridge_phase, smi)
     paths = {"phase10_tp": model[0]["tp_dp2"]["counts"],
              "phase10_moe": model[0]["moe"]["counts"],
              "phase10_pp": model[0]["pipeline"]["counts"],
@@ -6292,6 +6686,8 @@ def main(argv=None):
     if _world() > 1:
         # phase 17 (a): rank 0's steps across the blip
         paths["phase17"] = session["blip"][0]["counts"]
+    # phase 18: the card's rank 0, one forward and backward
+    paths["phase18"] = bridge.pop("counts")
     for k in kernels:
         k["launches_by_path"] = {"phase5": k["launches"], **{
             path: c[k["name"]] for path, c in paths.items()}}
@@ -6306,7 +6702,8 @@ def main(argv=None):
                    "adasum_hierarchical": adasum_hier,
                    "launcher": launcher, "fault": fault,
                    "elastic": elastic, "cluster": cluster,
-                   "timeline_hier_autotune": p16, "session": session},
+                   "timeline_hier_autotune": p16, "session": session,
+                   "bridge": bridge},
                   f, indent=1)
 
     print(json.dumps({"kernels": kernels}))

@@ -16,20 +16,16 @@ import os
 import numpy as np
 import torch
 
+from horovod_tpu_torch.common.arrays import (array_from_tensor, is_bf16,
+                                             tensor_from_array)
 from horovod_tpu_torch.utils.logging import get_logger
-
-_BF16_VOID = np.dtype("V2")
 
 
 def to_numpy(col):
     """A column as numpy for a file: a tensor's values on the host, a
     bfloat16 tensor as its bit patterns under ``|V2``."""
     if torch.is_tensor(col):
-        col = col.detach().cpu()
-        if col.dtype == torch.bfloat16:
-            return col.contiguous().view(torch.int16).numpy().view(
-                _BF16_VOID)
-        return col.numpy()
+        return array_from_tensor(col.detach().cpu())
     return np.asarray(col)
 
 
@@ -37,9 +33,8 @@ def from_numpy(arr):
     """A column read from a file: a ``|V2`` array (bfloat16 bit
     patterns) becomes a ``torch.bfloat16`` tensor, any other array stays
     numpy."""
-    if arr.dtype == _BF16_VOID:
-        bits = np.ascontiguousarray(arr).view(np.int16)
-        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    if is_bf16(arr.dtype):
+        return tensor_from_array(np.array(arr, order="C"))
     return arr
 
 

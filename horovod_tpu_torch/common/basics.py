@@ -865,3 +865,42 @@ def cross_size():
 def device():
     """The device this rank computes on (``cuda:<local_rank>`` or cpu)."""
     return _get_state().device
+
+
+# the reference's build probes (``basics.py``), which the framework
+# bindings re-export: the data plane is torch.distributed's
+def mpi_built() -> bool:
+    return False
+
+
+def gloo_built() -> bool:
+    return dist.is_gloo_available()
+
+
+def nccl_built() -> bool:
+    return dist.is_nccl_available()
+
+
+def xla_built() -> bool:
+    return False
+
+
+def ccl_built() -> bool:
+    return False
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def mpi_threads_supported() -> bool:
+    """No MPI data plane, so False; raises before ``init`` as the
+    reference does."""
+    _get_state()
+    return False
+
+
+def is_homogeneous() -> bool:
+    """Every host runs the same number of ranks."""
+    state = _get_state()
+    return state.size == state.local_size * state.cross_size

@@ -88,6 +88,9 @@ setup(
         "horovod_tpu_torch.utils",
         "horovod_tpu_torch.cluster",
         "horovod_tpu_torch.spark",
+        "horovod_tpu_torch.tensorflow",
+        "horovod_tpu_torch.keras",
+        "horovod_tpu_torch.mxnet",
     ],
     package_data={"horovod_tpu": ["lib/libhvdcore.so"],
                   "horovod_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},

@@ -30,6 +30,10 @@ def _clean_env():
 
 
 def test_import_leaves_jax_and_horovod_tpu_out():
+    # the TensorFlow and Keras bindings are not in this list: importing
+    # TensorFlow imports jax (tensorflow/lite/python/util.py), so with
+    # TensorFlow installed they cannot leave jax out; the test below
+    # imports them without their frameworks
     code = (
         "import sys\n"
         "import horovod_tpu_torch, horovod_tpu_torch.models, "
@@ -87,7 +91,11 @@ def test_import_leaves_jax_and_horovod_tpu_out():
         "horovod_tpu_torch.cluster.backend, "
         "horovod_tpu_torch.cluster.torch_estimator, "
         "horovod_tpu_torch.spark, horovod_tpu_torch.spark.runner, "
-        "horovod_tpu_torch.spark.backend, horovod_tpu_torch.spark.torch\n"
+        "horovod_tpu_torch.spark.backend, horovod_tpu_torch.spark.torch, "
+        "horovod_tpu_torch.spark.keras, "
+        "horovod_tpu_torch.cluster.keras_estimator, "
+        "horovod_tpu_torch.common.arrays, "
+        "horovod_tpu_torch.common.host_bridge, horovod_tpu_torch.mxnet\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"
@@ -115,6 +123,50 @@ def test_the_cluster_layer_needs_neither_pyarrow_nor_pyspark():
         "        raise SystemExit('no ImportError')\n"
         "    except ImportError as exc:\n"
         "        assert what in str(exc), exc\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_clean_env(),
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and "clean" in out.stdout, out.stderr
+
+
+def test_the_bindings_import_without_their_frameworks():
+    """With ``tensorflow``, ``keras`` and ``mxnet`` refused by a
+    ``sys.meta_path`` finder, the bindings and the Keras estimator
+    import, jax stays out, and each binding's first use raises an
+    ImportError naming its framework."""
+    code = (
+        "import sys\n"
+        "class Refuse:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('tensorflow', 'keras', 'mxnet'):\n"
+        "            raise ImportError(f'{name} refused')\n"
+        "sys.meta_path.insert(0, Refuse())\n"
+        "import numpy as np\n"
+        "import horovod_tpu_torch.tensorflow as hvd_tf\n"
+        "import horovod_tpu_torch.tensorflow.compression as comp\n"
+        "import horovod_tpu_torch.keras as hvd_keras\n"
+        "import horovod_tpu_torch.mxnet as hvd_mx\n"
+        "import horovod_tpu_torch.cluster.keras_estimator as ke\n"
+        "for call, what in (\n"
+        "        (lambda: hvd_tf.allreduce(np.ones(2)), 'TensorFlow'),\n"
+        "        (lambda: hvd_tf.DistributedGradientTape(None), 'TensorFlow'),\n"
+        "        (lambda: hvd_tf.BroadcastGlobalVariablesHook(0), 'TensorFlow'),\n"
+        "        (lambda: comp.Compression.fp16.compress(None), 'TensorFlow'),\n"
+        "        (lambda: hvd_keras.DistributedOptimizer(None), 'Keras'),\n"
+        "        (lambda: hvd_keras.callbacks.MetricAverageCallback(), 'Keras'),\n"
+        "        (lambda: hvd_mx.allreduce(None), 'MXNet'),\n"
+        "        (lambda: hvd_mx.DistributedTrainer([], None), 'MXNet'),\n"
+        "        (lambda: ke.KerasEstimator(None).fit(np.ones((4, 2)),\n"
+        "                                             np.ones(4)), 'Keras')):\n"
+        "    try:\n"
+        "        call()\n"
+        "        raise SystemExit(f'no ImportError for {what}')\n"
+        "    except ImportError as exc:\n"
+        "        assert what in str(exc), exc\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN | {'tensorflow', 'keras', 'mxnet'})!r})\n"
+        "assert not bad, bad\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], env=_clean_env(),
                          cwd=REPO, capture_output=True, text=True,
